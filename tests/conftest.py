@@ -37,3 +37,7 @@ def pytest_configure(config):
         "markers",
         "slow: full-length engine runs; excluded from the quick lane "
         "(-m 'not slow'), still run by the CI full lane")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's kernels); skipped "
+        "without one")

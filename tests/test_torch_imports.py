@@ -1,0 +1,107 @@
+"""The PyTorch port stands alone: it imports with ``jax`` blocked, loads
+nothing of ``repro``, runs on the card unless asked for the CPU, and refuses
+what it has not ported with ``NotImplementedError``."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro.")
+             or m == "jax" and sys.modules[m] is not None)
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_imports_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT],
+                         capture_output=True, text=True, env=env, cwd=REPO,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_package_import_is_lazy():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    code = ("import sys, repro_torch; "
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('repro_torch.')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_cuda_without_a_card_raises(no_card):
+    from repro_torch import resolve_device
+    from repro_torch.api import Experiment
+    from repro_torch.core.engine import EngineConfig, make_workload
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_workload(EngineConfig(scheduler="fifo"), [dict(procs=4)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        Experiment(scheduler="fifo").add_job(procs=4).run(0.01)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_unported_features_refuse():
+    from repro_torch.api import Experiment
+    from repro_torch.core import engine
+    from repro_torch.core.policy import Policy
+    from repro_torch.scenario.lowering import lower
+    for name in ("gift", "tbf", "adaptbf", "plan"):
+        with pytest.raises(NotImplementedError, match=name):
+            engine.EngineConfig(scheduler=name, device="cpu")
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        engine.EngineConfig(scheduler="fiffo", device="cpu")
+    with pytest.raises(NotImplementedError, match="sharding"):
+        engine.EngineConfig(scheduler="fifo", shard_servers=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="run_batch"):
+        engine.run_batch()
+    with pytest.raises(NotImplementedError):
+        Experiment(scheduler="fifo", device="cpu").run_batch(1.0)
+    with pytest.raises(NotImplementedError, match="combinator"):
+        lower(object())
+    cfg = engine.EngineConfig(scheduler="themis", policy=Policy.parse("job-fair"),
+                              device="cpu", n_servers=1, max_jobs=4)
+    wl, table = engine.make_workload(cfg, [dict(procs=4, arrival="poisson",
+                                                rate_hz=10.0)])
+    with pytest.raises(NotImplementedError, match="Poisson"):
+        engine.run(cfg, wl, table, 0.01)
+
+
+def test_kernel_wrappers_refuse_bf16_and_bad_shapes():
+    from repro_torch.kernels.tick_step.ops import tick_step
+    from repro_torch.kernels.token_select.ops import token_select
+    shares = torch.rand(2, 8)
+    q = torch.ones(2, 8, dtype=torch.int32)
+    u = torch.rand(2, 3)
+    with pytest.raises(TypeError, match="bf16"):
+        token_select(shares.to(torch.bfloat16), q, u)
+    with pytest.raises(ValueError):
+        token_select(shares, q[:1], u)
+    window = torch.rand(2, 8, 3)
+    free = torch.ones(2, 3, dtype=torch.bool)
+    with pytest.raises(ValueError, match="mode"):
+        tick_step(shares, q, window, free, u, mode="lifo")
+    with pytest.raises(ValueError):
+        tick_step(shares, q, window[:, :, :2], free, u)
