@@ -155,23 +155,29 @@ def phase_kernels(device, s=128, j=1024, w=4):
              ("tiny", 3, 5, 2, {})]
     excused = {"token_select": 0, "tick_step": 0}
     err = {"token_select": 0, "tick_step": 0}
+    before = {"token_select": tk_ops.LAUNCHES, "tick_step": ts_ops.LAUNCHES}
+
+    def tally(kernel, case, result):
+        lines, e = result
+        for line in lines:
+            say("kernels", f"edge-band draw excused, {kernel} case {case}: "
+                f"{line}")
+        excused[kernel] += len(lines)
+        err[kernel] = max(err[kernel], e)
+
     for k, (name, cs, cj, cw, kw) in enumerate(cases):
         shares, qcount, window, free, u = kernel_inputs(cs, cj, cw, device,
                                                         seed=k, **kw)
         got = tk_ops.token_select(shares, qcount, u)
         torch.cuda.synchronize()
-        n, e = parity.compare_token_select(
-            got, token_select_ref(shares, qcount, u), shares, qcount, u)
-        excused["token_select"] += n
-        err["token_select"] = max(err["token_select"], e)
+        tally("token_select", name, parity.compare_token_select(
+            got, token_select_ref(shares, qcount, u), shares, qcount, u))
         for mode in ("themis", "fifo"):
             got = ts_ops.tick_step(shares, qcount, window, free, u, mode=mode)
             torch.cuda.synchronize()
             want = tick_step_ref(shares, qcount, window, free, u, mode=mode)
-            n, e = parity.compare_tick_step(got, want, shares, qcount, u,
-                                            mode)
-            excused["tick_step"] += n
-            err["tick_step"] = max(err["tick_step"], e)
+            tally("tick_step", f"{name}/{mode}", parity.compare_tick_step(
+                got, want, shares, qcount, u, mode))
         say("kernels", f"case {name} (S={cs} J={cj} W={cw}): token_select, "
             "tick_step themis+fifo agree with their plain versions")
     say("kernels", f"edge-band draws excused: {excused} (tolerance: a themis "
@@ -206,7 +212,11 @@ def phase_kernels(device, s=128, j=1024, w=4):
             records["tick_step"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
                                         bound_by=by,
                                         max_abs_err=err["tick_step"])
-    say("kernels", "kernels launched: token_select, tick_step")
+    launched = {"token_select": tk_ops.LAUNCHES - before["token_select"],
+                "tick_step": ts_ops.LAUNCHES - before["tick_step"]}
+    say("kernels", f"kernel launches in this phase: {launched}")
+    if device != "cpu" and min(launched.values()) == 0:
+        raise AssertionError(f"a kernel was never launched: {launched}")
     return records
 
 

@@ -8,7 +8,7 @@
            .run(2.0))
     res.mean_gbps(0), res.jain_fairness()
 
-The builder and :class:`RunResult` follow the reference ``repro.api``.
+:class:`Experiment` and :class:`RunResult` follow the reference ``repro.api``.
 ``device`` defaults to ``"cuda"``; ``device="cpu"`` runs the plain
 versions of the kernels.  Not ported yet: the batch/sweep runs and the
 functional plane (``run_batch``, ``sweep`` and ``serve`` raise
@@ -89,8 +89,8 @@ class RunResult:
 
 
 class Experiment:
-    """Builder for a policy × scheduler × workload spec run on the port's
-    engine.  Builder methods return ``self`` for chaining."""
+    """A policy × scheduler × workload spec run on the port's engine.
+    ``add_job``/``add_jobs`` return ``self`` for chaining."""
 
     def __init__(self, policy: Optional[str | Policy] = None,
                  scheduler: str = "themis", *,

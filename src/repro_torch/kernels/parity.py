@@ -31,35 +31,41 @@ def edge_band(shares: torch.Tensor, qcount: torch.Tensor,
     return dist.amin(dim=-1) <= j * 2.0 ** -24
 
 
-def compare_token_select(got, want, shares, qcount, u) -> tuple[int, int]:
-    """Hold token_select's output ``got`` to ``want``.  Returns (excused
-    edge-band draws, max |got - want| over the other draws); raises
+def _describe(got, want, u, s: int, w: int) -> str:
+    return (f"row {s}, draw {w}: got {int(got[s, w])}, want "
+            f"{int(want[s, w])}, u={float(u[s, w])!r}")
+
+
+def compare_token_select(got, want, shares, qcount,
+                         u) -> tuple[list[str], int]:
+    """Hold token_select's output ``got`` to ``want``.  Returns (one line per
+    excused edge-band draw, max |got - want| over the other draws); raises
     ``AssertionError`` on a mismatch outside the band."""
-    got, want = got.cpu(), want.cpu()
+    got, want, u = got.cpu(), want.cpu(), u.cpu()
     diff = got != want
-    band = edge_band(shares.cpu(), qcount.cpu(), u.cpu())
+    band = edge_band(shares.cpu(), qcount.cpu(), u)
     bad = diff & ~band
     if bad.any():
         s, w = (int(i) for i in bad.nonzero()[0])
-        raise AssertionError(
-            f"token_select mismatch outside the edge band at row {s}, draw "
-            f"{w}: got {int(got[s, w])}, want {int(want[s, w])}, "
-            f"u={float(u[s, w])!r}")
+        raise AssertionError("token_select mismatch outside the edge band at "
+                             + _describe(got, want, u, s, w))
+    excused = [_describe(got, want, u, int(s), int(w))
+               for s, w in (diff & band).nonzero()]
     err = (got.long() - want.long()).abs()[~band]
-    return int(diff.sum()), int(err.max()) if err.numel() else 0
+    return excused, int(err.max()) if err.numel() else 0
 
 
 def compare_tick_step(got, want, shares, qcount, u,
-                      mode: str) -> tuple[int, int]:
+                      mode: str) -> tuple[list[str], int]:
     """Hold tick_step's outputs ``got`` to ``want`` (both 5-tuples).
 
     fifo: every output equal.  themis: per server, workers are compared in
     order; the first differing pick must be an edge-band draw on the live
     queue counts ``want`` had at that worker, and excuses the rest of that
     row (its later draws see other queues).  Conservation ``qcount_out +
-    pops == qcount`` must hold for both.  Returns (excused rows, max
-    |got - want| over every output outside them); raises
-    ``AssertionError`` otherwise.
+    pops == qcount`` must hold for both.  Returns (one line per excused
+    row, naming its first differing draw; max |got - want| over every
+    output outside those rows); raises ``AssertionError`` otherwise.
     """
     got = [t.cpu() for t in got]
     want = [t.cpu() for t in want]
@@ -69,10 +75,12 @@ def compare_tick_step(got, want, shares, qcount, u,
             raise AssertionError(f"tick_step {name}: qcount_out + pops != qcount")
         if (qo < 0).any():
             raise AssertionError(f"tick_step {name}: negative queue count")
-    excused = torch.zeros(qcount.shape[0], dtype=torch.bool)
+    excused = {}
     if mode == "themis":
         excused = _themis_excused_rows(got, want, shares, qcount, u)
-    keep = ~excused
+    keep = torch.ones(qcount.shape[0], dtype=torch.bool)
+    for s in excused:
+        keep[s] = False
     err = 0
     for name, a, b in zip(("sel", "valid", "demand_any", "qcount_out", "pops"),
                           got, want):
@@ -81,15 +89,15 @@ def compare_tick_step(got, want, shares, qcount, u,
             raise AssertionError(f"tick_step {mode}: {name} differs outside "
                                  "excused rows")
         err = max(err, int(d.max()) if d.numel() else 0)
-    return int(excused.sum()), err
+    return list(excused.values()), err
 
 
-def _themis_excused_rows(got, want, shares, qcount, u) -> torch.Tensor:
-    """bool ``[S]``: rows whose first differing pick is an edge-band draw;
-    raises on a differing pick outside the band."""
+def _themis_excused_rows(got, want, shares, qcount, u) -> dict[int, str]:
+    """``{row: its first differing draw}`` over rows whose first differing
+    pick is an edge-band draw; raises on a differing pick outside the band."""
     sel_g, sel_w = got[0], want[0]
     valid_w = want[1]
-    excused = torch.zeros(qcount.shape[0], dtype=torch.bool)
+    excused = {}
     n_workers = u.shape[1]
     for s in range(qcount.shape[0]):
         q = qcount[s].clone()
@@ -97,13 +105,11 @@ def _themis_excused_rows(got, want, shares, qcount, u) -> torch.Tensor:
             if int(sel_g[s, w]) != int(sel_w[s, w]):
                 in_band = edge_band(shares[s:s + 1], q[None, :],
                                     u[s:s + 1, w:w + 1])[0, 0]
+                line = _describe(sel_g, sel_w, u, s, w)
                 if not bool(in_band):
-                    raise AssertionError(
-                        f"tick_step themis: pick mismatch outside the edge "
-                        f"band at server {s}, worker {w}: got "
-                        f"{int(sel_g[s, w])}, want {int(sel_w[s, w])}, "
-                        f"u={float(u[s, w])!r}")
-                excused[s] = True
+                    raise AssertionError("tick_step themis: pick mismatch "
+                                         f"outside the edge band at {line}")
+                excused[s] = line
                 break
             if bool(valid_w[s, w]):
                 q[int(sel_w[s, w])] -= 1

@@ -60,9 +60,9 @@ def test_token_select_matches_jax(j, case):
         want = torch.as_tensor(np.array(ref_token_select(
             jnp.asarray(shares), jnp.asarray(qcount), jnp.asarray(u),
             impl=impl)))
-        n, err = parity.compare_token_select(got, want, ts, tq, tu)
+        excused, err = parity.compare_token_select(got, want, ts, tq, tu)
         assert err == 0
-        EXCUSED[("token_select", j, case, impl)] = n
+        EXCUSED[("token_select", j, case, impl)] = len(excused)
     if case == "no-demand":
         assert (got == -1).all()
     if case == "single-live":
@@ -81,10 +81,10 @@ def test_tick_step_matches_jax(j, case, mode):
     for impl in ("pallas", "ref"):
         want = [torch.as_tensor(np.array(x)) for x in ref_tick_step(
             *(jnp.asarray(a) for a in arrays), mode=mode, impl=impl)]
-        n, err = parity.compare_tick_step(got, want, tensors[0], tensors[1],
-                                          tensors[4], mode)
+        excused, err = parity.compare_tick_step(got, want, tensors[0],
+                                                tensors[1], tensors[4], mode)
         assert err == 0
-        EXCUSED[("tick_step", j, case, mode, impl)] = n
+        EXCUSED[("tick_step", j, case, mode, impl)] = len(excused)
 
 
 @pytest.mark.parametrize("mode", ("themis", "fifo"))
@@ -110,6 +110,33 @@ def test_fifo_ties_break_to_lowest_job():
     sel = ts_ops.tick_step(shares, qcount, window, free, u, mode="fifo")[0]
     # job 3 holds the earliest stamp; then 1 and 2 tie at 7.0 -> lowest j.
     assert sel.tolist() == [[3, 1, 1]]
+
+
+def test_parity_excuses_only_edge_band_draws():
+    """A pick may differ where u sits on a segment end (0.5 here), and
+    nowhere else; each excused draw is named."""
+    shares = torch.tensor([[0.5, 0.5]])
+    qcount = torch.tensor([[1, 1]], dtype=torch.int32)
+    u = torch.tensor([[0.5, 0.1]])
+    want = tk_ops.token_select(shares, qcount, u)
+    assert want.tolist() == [[1, 0]]
+    got = torch.tensor([[0, 0]], dtype=torch.int32)
+    excused, err = parity.compare_token_select(got, want, shares, qcount, u)
+    assert err == 0 and len(excused) == 1 and "draw 0" in excused[0]
+    with pytest.raises(AssertionError, match="outside the edge band"):
+        parity.compare_token_select(torch.tensor([[1, 1]], dtype=torch.int32),
+                                    want, shares, qcount, u)
+
+    window = torch.zeros(1, 2, 2)
+    free = torch.ones(1, 2, dtype=torch.bool)
+    want = ts_ops.tick_step(shares, qcount, window, free, u, mode="themis")
+    flipped = [t.clone() for t in want]
+    flipped[0][0, 0] = 0      # first pick flipped on the edge: row excused
+    excused, _ = parity.compare_tick_step(flipped, want, shares, qcount, u,
+                                          "themis")
+    assert len(excused) == 1
+    with pytest.raises(AssertionError):
+        parity.compare_tick_step(flipped, want, shares, qcount, u, "fifo")
 
 
 def test_excused_edge_band_draws_are_rare():
