@@ -18,6 +18,12 @@ each printing its lines before the last:
                 counter is zeroed before and read after
   fused_vs_scan themis at S=8, J=64, W=4 for 2000 ticks on both worker
                 paths: integer state bit-identical
+  card_vs_cpu   the engine on the card against the engine on the CPU (held
+                to the JAX reference by tests/test_torch_engine.py), stepped
+                in lockstep at a small geometry on both worker paths: fifo
+                counter-exact on every tick; themis counter-exact until its
+                first flipped pick, which must be an edge-band draw (its
+                tick is printed), then per-job completions within 2 %
   anchor        paper Fig. 8a (size-fair, 224 vs 56 procs): shared-window
                 throughput ratio in [3.6, 4.4] (paper: 3.96)
 
@@ -95,6 +101,25 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def needed_bytes(kernel, qcount, u, *, mode="themis", pops=None) -> int:
+    """Bytes a kernel's function must move on these inputs: each input it
+    needs read once, each output written once.  A draw needs the share of a
+    demanded slot (qcount > 0) only; fifo reads neither shares nor u, and of
+    the [S, J, W] window only the stamps its pops reach: min(pops + 1,
+    qcount) per slot (at most one stamp per row more than it must)."""
+    import torch
+    s, j = qcount.shape
+    w = u.shape[1]
+    demanded = int((qcount > 0).sum())
+    if kernel == "token_select":
+        return s * j * 4 + demanded * 4 + s * w * 4 + s * w * 4
+    out = s * w * (4 + 1 + 1) + s * j * 4 * 2
+    if mode == "themis":
+        return s * j * 4 + demanded * 4 + s * w * (1 + 4) + out
+    stamps = int(torch.minimum(pops + 1, qcount).clamp_min(0).sum())
+    return s * j * 4 + stamps * 4 + s * w + out
+
+
 def kernel_inputs(s, j, w, device, seed, *, zero_shares=False,
                   single_live=False, no_demand=False):
     import numpy as np
@@ -153,8 +178,9 @@ def phase_kernels(device, s=128, j=1024, w=4):
              ("single-live", s, j, w, dict(single_live=True)),
              ("no-demand", s, j, w, dict(no_demand=True)),
              ("tiny", 3, 5, 2, {})]
-    excused = {"token_select": 0, "tick_step": 0}
-    err = {"token_select": 0, "tick_step": 0}
+    names = ("token_select", "tick_step[themis]", "tick_step[fifo]")
+    excused = dict.fromkeys(names, 0)
+    err = dict.fromkeys(names, 0)
     before = {"token_select": tk_ops.LAUNCHES, "tick_step": ts_ops.LAUNCHES}
 
     def tally(kernel, case, result):
@@ -176,7 +202,7 @@ def phase_kernels(device, s=128, j=1024, w=4):
             got = ts_ops.tick_step(shares, qcount, window, free, u, mode=mode)
             torch.cuda.synchronize()
             want = tick_step_ref(shares, qcount, window, free, u, mode=mode)
-            tally("tick_step", f"{name}/{mode}", parity.compare_tick_step(
+            tally(f"tick_step[{mode}]", name, parity.compare_tick_step(
                 got, want, shares, qcount, u, mode))
         say("kernels", f"case {name} (S={cs} J={cj} W={cw}): token_select, "
             "tick_step themis+fifo agree with their plain versions")
@@ -190,28 +216,29 @@ def phase_kernels(device, s=128, j=1024, w=4):
     u1 = u[:, :1].contiguous()
     ms = time_ms(lambda: tk_ops.token_select(shares, qcount, u1))
     plain = time_ms(lambda: token_select_ref(shares, qcount, u1))
-    nbytes = s * j * 4 * 2 + s * 1 * 4 * 2
+    nbytes = needed_bytes("token_select", qcount, u1)
     b, by = bound_ms(nbytes, s * j * (8 + 1))
     records["token_select"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
                                    bound_by=by, max_abs_err=err["token_select"])
     say("kernels", f"token_select S={s} J={j} W=1: {ms * 1e3:.1f} us, bound "
-        f"{b * 1e3:.2f} us ({by}), plain {plain * 1e3:.1f} us")
+        f"{b * 1e3:.3f} us ({by}, {nbytes} bytes), plain "
+        f"{plain * 1e3:.1f} us")
     for mode in ("themis", "fifo"):
         ms = time_ms(lambda: ts_ops.tick_step(shares, qcount, window, free, u,
                                               mode=mode))
         plain = time_ms(lambda: tick_step_ref(shares, qcount, window, free, u,
                                               mode=mode))
-        nbytes = (s * j * 4 * 2 + s * j * w * 4 + s * w * (1 + 4)
-                  + s * w * (4 + 1 + 1) + s * j * 4 * 2)
+        pops = ts_ops.tick_step(shares, qcount, window, free, u,
+                                mode=mode)[4]
+        nbytes = needed_bytes("tick_step", qcount, u, mode=mode, pops=pops)
         ops = s * w * j * (9 if mode == "themis" else 2)
         b, by = bound_ms(nbytes, ops)
         say("kernels", f"tick_step[{mode}] S={s} J={j} W={w}: "
-            f"{ms * 1e3:.1f} us, bound {b * 1e3:.2f} us ({by}), plain "
-            f"{plain * 1e3:.1f} us")
-        if mode == "themis":
-            records["tick_step"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
-                                        bound_by=by,
-                                        max_abs_err=err["tick_step"])
+            f"{ms * 1e3:.1f} us, bound {b * 1e3:.3f} us ({by}, {nbytes} "
+            f"bytes), plain {plain * 1e3:.1f} us")
+        records[f"tick_step[{mode}]"] = dict(
+            ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            max_abs_err=err[f"tick_step[{mode}]"])
     launched = {"token_select": tk_ops.LAUNCHES - before["token_select"],
                 "tick_step": ts_ops.LAUNCHES - before["tick_step"]}
     say("kernels", f"kernel launches in this phase: {launched}")
@@ -244,11 +271,18 @@ def run_checked(tag, exp, seconds):
     return res, wall
 
 
+INT_LEAVES = ("key", "qcount", "head", "wheel", "known", "synced", "issued",
+              "completed", "idle_worker_ticks", "dropped")
+FLOAT_LEAVES = ("arr_time", "free_at", "seg", "bytes_bin")
+
+
 def int_leaves_equal(a, b):
+    """The first integer leaf in which states ``a`` and ``b`` differ (they
+    may lie on different devices), or None."""
     import torch
-    for f in ("key", "qcount", "head", "wheel", "known", "synced", "issued",
-              "completed", "idle_worker_ticks", "dropped"):
-        if not torch.equal(getattr(a, f), getattr(b, f)):
+    for f in INT_LEAVES:
+        x, y = getattr(a, f), getattr(b, f)
+        if not torch.equal(x.to(y.device), y):
             return f
     if a.t != b.t:
         return "t"
@@ -297,14 +331,19 @@ def phase_engine(device, geometry=FLEET, seconds=FLEET_SECONDS):
     tk_ops.LAUNCHES = 0
     fused, wall_fused = run_checked("themis fused", exp("themis", "fused"),
                                     seconds)
+    themis_launches = ts_ops.LAUNCHES
     fifo, wall_fifo = run_checked("fifo fused", exp("fifo", "fused"), seconds)
     scan, wall_scan = run_checked("themis scan", exp("themis", "scan"),
                                   seconds)
-    launches = {"tick_step": ts_ops.LAUNCHES, "token_select": tk_ops.LAUNCHES}
+    launches = {"tick_step[themis]": themis_launches,
+                "tick_step[fifo]": ts_ops.LAUNCHES - themis_launches,
+                "token_select": tk_ops.LAUNCHES}
     ticks = fused.ticks
-    if launches["tick_step"] != 2 * ticks:
-        raise AssertionError(f"tick_step launched {launches['tick_step']} "
-                             f"times, expected one per fused tick ({2 * ticks})")
+    for mode in ("themis", "fifo"):
+        n = launches[f"tick_step[{mode}]"]
+        if n != ticks:
+            raise AssertionError(f"tick_step launched {n} times in the {mode} "
+                                 f"run, expected one per fused tick ({ticks})")
     want = ticks * geometry["n_workers"]
     if launches["token_select"] != want:
         raise AssertionError(f"token_select launched {launches['token_select']}"
@@ -349,6 +388,138 @@ def phase_fused_vs_scan(device, s=8, j=64, w=4, ticks=2000):
         f"token_select launches {tk_ops.LAUNCHES}")
 
 
+#: The workload tests/test_torch_engine.py holds the CPU engine to the JAX
+#: reference with: closed and interval arrivals, a group level, two servers.
+LOCKSTEP_JOBS = [
+    dict(user=0, size=2, procs=40, req_mb=8, think_s=0.002),
+    dict(user=1, size=1, procs=20, req_mb=4, start_s=0.05),
+    dict(user=2, group=1, size=1, procs=10, req_mb=16, start_s=0.05,
+         think_s=0.001),
+    dict(user=1, size=3, procs=7, req_mb=2, servers=[1],
+         phases=[dict(start_s=0.0, duration_s=0.1, arrival="interval",
+                      interval_s=0.01),
+                 dict(start_s=0.15, duration_s=0.2)]),
+]
+LOCKSTEP_GEOM = dict(n_servers=2, max_jobs=8, n_workers=4, seed=3,
+                     sync_ticks=50)
+
+
+def recording(fn, log):
+    """``fn`` (a kernel wrapper) that appends ``(name, inputs, outputs,
+    mode)`` of every call, on the CPU, to ``log``."""
+    def wrapper(*args, **kw):
+        out = fn(*args, **kw)
+        outs = out if isinstance(out, tuple) else (out,)
+        log.append((fn.__name__, [a.cpu() for a in args],
+                    [o.cpu() for o in outs], kw.get("mode", "themis")))
+        return out
+    return wrapper
+
+
+def explain_divergence(card_calls, cpu_calls) -> str:
+    """Name the edge-band pick that made a card tick differ from the CPU's.
+
+    The tick's kernel calls are paired in order.  Up to the first pair whose
+    outputs differ, every input must agree (shares within rtol 1e-5, the
+    rest exactly), and that pair may differ only by edge-band picks
+    (``repro_torch.kernels.parity``, the band taken around both sides'
+    segment ends).  Raises ``AssertionError`` otherwise."""
+    import torch
+    from repro_torch.kernels import parity
+    for (name, a_card, o_card, mode), (_, a_cpu, o_cpu, _) in zip(
+            card_calls, cpu_calls):
+        torch.testing.assert_close(a_card[0], a_cpu[0], rtol=1e-5, atol=1e-7,
+                                   msg=f"{name}: card and CPU shares differ")
+        for x, y in zip(a_card[1:], a_cpu[1:]):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{name}: card and CPU inputs differ "
+                                     "before any pick did")
+        if all(torch.equal(x, y) for x, y in zip(o_card, o_cpu)):
+            continue
+        args = (a_cpu[0], a_cpu[1], a_cpu[-1])
+        if name == "tick_step":
+            lines, _ = parity.compare_tick_step(o_card, o_cpu, *args, mode,
+                                                other_shares=a_card[0])
+        else:
+            lines, _ = parity.compare_token_select(o_card[0], o_cpu[0], *args,
+                                                   other_shares=a_card[0])
+        return f"{name} {mode}: " + "; ".join(lines)
+    raise AssertionError("card and CPU states differ, but every kernel call "
+                         "agreed")
+
+
+def lockstep(scheduler, impl, device, ticks):
+    """Step the engine on ``device`` and on the CPU together from the same
+    Experiment.  Returns (first tick whose integer state differs or None,
+    the excused pick that caused it, final state on ``device``, final CPU
+    state).  fifo must never differ."""
+    from repro_torch.api import Experiment
+    from repro_torch.core import engine, tokens
+    from repro_torch.kernels.tick_step import ops as ts_ops
+    from repro_torch.kernels.token_select import ops as tk_ops
+
+    def build(dev):
+        cfg, wl, table = Experiment(
+            policy="user-fair", scheduler=scheduler, device=dev,
+            tick_impl=impl, **LOCKSTEP_GEOM).add_jobs(LOCKSTEP_JOBS).build()
+        n_bins = max(1, -(-ticks // cfg.bin_ticks))
+        return (engine.make_tick(cfg, wl, table, n_bins),
+                engine.get_scheduler(scheduler).params(cfg),
+                engine.init_state(cfg, n_bins))
+
+    (tick_d, p_d, st_d), (tick_c, p_c, st_c) = build(device), build("cpu")
+    log: list = []
+    saved = engine.tick_step, tokens.token_select
+    engine.tick_step = recording(ts_ops.tick_step, log)
+    tokens.token_select = recording(tk_ops.token_select, log)
+    flip, why = None, None
+    try:
+        for t in range(ticks):
+            log.clear()
+            st_d = tick_d(p_d, st_d)
+            calls_d = list(log)
+            log.clear()
+            st_c = tick_c(p_c, st_c)
+            if flip is None and int_leaves_equal(st_d, st_c) is not None:
+                if scheduler == "fifo":
+                    raise AssertionError(
+                        f"fifo {impl}: card and CPU differ in "
+                        f"{int_leaves_equal(st_d, st_c)} at tick {t}")
+                flip, why = t, explain_divergence(calls_d, list(log))
+    finally:
+        engine.tick_step, tokens.token_select = saved
+    return flip, why, st_d, st_c
+
+
+def phase_card_vs_cpu(device, ticks=1000):
+    import torch
+    for scheduler in ("fifo", "themis"):
+        for impl in ("fused", "scan"):
+            tag = f"{scheduler} {impl}"
+            flip, why, a, b = lockstep(scheduler, impl, device, ticks)
+            done_d, done_c = a.completed.cpu(), b.completed
+            if flip is None:
+                for f in FLOAT_LEAVES:
+                    x, y = getattr(a, f).cpu(), getattr(b, f)
+                    torch.testing.assert_close(
+                        x, y, rtol=1e-5 if f == "seg" else 1e-6, atol=0.0,
+                        msg=f"{tag}: {f} beyond tolerance")
+                say("card_vs_cpu", f"{tag}: {ticks} ticks counter-exact, "
+                    f"float leaves within rtol 1e-6 (seg 1e-5), completed "
+                    f"{int(done_c.sum())}")
+                continue
+            say("card_vs_cpu", f"{tag}: first flipped pick at tick {flip}: "
+                f"{why}")
+            live = done_c > 0
+            torch.testing.assert_close(
+                done_d[live].double(), done_c[live].double(), rtol=0.02,
+                atol=0.0, msg=f"{tag}: per-job completions beyond 2 %")
+            if (done_d[~live] != 0).any():
+                raise AssertionError(f"{tag}: a job completed on the card only")
+            say("card_vs_cpu", f"{tag}: per-job completions within 2 % after "
+                f"{ticks} ticks ({int(done_d.sum())} vs {int(done_c.sum())})")
+
+
 def phase_anchor(device, seconds=6.0):
     from repro_torch.api import Experiment
     from repro_torch.core import metrics
@@ -386,17 +557,19 @@ def main() -> int:
     launches, engine_ms = phase_engine(device)
     say("engine", "ms/tick " + json.dumps(engine_ms))
     phase_fused_vs_scan(device)
+    phase_card_vs_cpu(device)
     phase_anchor(device)
 
     replaces = {"token_select": "src/repro/kernels/token_select/kernel.py:65",
                 "tick_step": "src/repro/kernels/tick_step/kernel.py:95"}
     kernels = []
-    for name in ("tick_step", "token_select"):
+    for name in ("tick_step[themis]", "tick_step[fifo]", "token_select"):
         r = records[name]
+        base = name.split("[")[0]
         kernels.append(dict(
             name=name, route="cuda",
-            source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=replaces[name], launches=launches[name],
+            source=f"src/repro_torch/kernels/csrc/{base}.cu",
+            replaces=replaces[base], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
     print(json.dumps({"kernels": kernels}))

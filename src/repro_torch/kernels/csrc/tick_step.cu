@@ -15,12 +15,13 @@
 //   fifo    the earliest stamp window[s, j, pops[j]] over demanded j, ties
 //           to the lowest j (jnp.argmin's first-index rule).
 //
-// Bound on the H100 at S=128, J=1024, W=4: it must read shares and qcount
-// (1 MiB), the window (2 MiB), free and u, and write qcount_out and pops
-// (1 MiB) and the [S, W] outputs: ~4 MiB, ~1.25 us at 3.35 TB/s.  The
-// draws' arithmetic is far below the fp32 peak, so the kernel is bound by
-// memory and by the latency of W sequential rounds of block-wide
-// reductions.  Design: one 256-thread block per server makes a single pass
+// Bound on the H100 at S=128, J=1024, W=4: it must read qcount (0.5 MiB)
+// and free, write qcount_out and pops (1 MiB) and the [S, W] outputs, and
+// in themis mode read the shares of the demanded slots (at most 0.5 MiB)
+// and u, in fifo mode one stamp per demanded slot and pop (never the whole
+// 2 MiB window): ~2 MiB, ~0.6 us at 3.35 TB/s.  The draws' arithmetic is
+// far below the fp32 peak, so the kernel is bound by memory and by the
+// latency of W sequential rounds of block-wide reductions.  Design: one 256-thread block per server makes a single pass
 // over its row; qcount and pops live in shared memory (2*J*4 B = 8 KiB at
 // J = 1024) across the W draws, beside the J prefix sums of the draw, and
 // only the final counts go back to device memory.

@@ -10,8 +10,9 @@
 // draws count the segment ends <= u, clip to J, -1 when the row has no mass,
 // and snap an undemanded pick to the first demanded slot (draw.cuh).
 //
-// Bound on the H100 at S=128, J=1024, W=4: it reads shares and qcount
-// (1 MiB) and u, writes 2 KiB; at 3.35 TB/s that is ~0.3 us, and the
+// Bound on the H100 at S=128, J=1024, W=4: it reads qcount, the shares of
+// the demanded slots (at most 1 MiB together) and u, writes 2 KiB; at
+// 3.35 TB/s that is at most ~0.3 us, and the
 // arithmetic (a few ops per slot per draw) is far below the fp32 peak, so the
 // kernel is bound by memory and, at one block per row, by the latency of its
 // block-wide reductions.  Design: one 256-thread block per row reads the row

@@ -6,18 +6,18 @@ different orders, so their segment ends can differ in the last bits, and a
 uniform ``u`` that lies within those bits of a segment end may pick the
 neighbouring job.  Such a draw is excused; any other mismatch is a fault.
 The band is ``J * 2**-24`` around every segment end computed in float64
-from the same shares and queue counts.
+from the same shares and queue counts.  Where the two sides computed their
+share tables apart (the engine on the card against the engine on the CPU),
+the band also covers each draw that lies between the two tables' ends.
 """
 from __future__ import annotations
 
 import torch
 
 
-def edge_band(shares: torch.Tensor, qcount: torch.Tensor,
-              u: torch.Tensor) -> torch.Tensor:
-    """bool ``[S, W]``: draw ``u[s, w]`` lies within ``J * 2**-24`` of a
-    float64 segment end of row ``s``."""
-    j = shares.shape[-1]
+def segment_ends(shares: torch.Tensor, qcount: torch.Tensor) -> torch.Tensor:
+    """float64 ``[S, J]``: the draw's inclusive prefix sums of the shares
+    renormalised over demanded slots (uniform when they carry no mass)."""
     sh = shares.to(torch.float64)
     dm = (qcount > 0).to(torch.float64)
     masked = sh * dm
@@ -26,9 +26,24 @@ def edge_band(shares: torch.Tensor, qcount: torch.Tensor,
     count = dm.sum(dim=-1, keepdim=True)
     uniform = torch.where(count > 0, dm / torch.clamp_min(count, 1.0), 0.0)
     probs = torch.where(probs.sum(dim=-1, keepdim=True) <= 0, uniform, probs)
-    seg = torch.cumsum(probs, dim=-1)
-    dist = (seg[:, None, :] - u.to(torch.float64)[:, :, None]).abs()
-    return dist.amin(dim=-1) <= j * 2.0 ** -24
+    return torch.cumsum(probs, dim=-1)
+
+
+def edge_band(shares: torch.Tensor, qcount: torch.Tensor, u: torch.Tensor,
+              other_shares: torch.Tensor | None = None) -> torch.Tensor:
+    """bool ``[S, W]``: draw ``u[s, w]`` lies within ``J * 2**-24`` of a
+    float64 segment end of row ``s``.  With ``other_shares`` (the share table
+    the other side computed on its own) a draw is also in the band where it
+    lies near that table's ends, or between the two tables' ends."""
+    j = shares.shape[-1]
+    u64 = u.to(torch.float64)[:, :, None]
+    dist = segment_ends(shares, qcount)[:, None, :] - u64
+    band = dist.abs().amin(dim=-1) <= j * 2.0 ** -24
+    if other_shares is not None:
+        other = segment_ends(other_shares, qcount)[:, None, :] - u64
+        band |= other.abs().amin(dim=-1) <= j * 2.0 ** -24
+        band |= (dist * other <= 0).any(dim=-1)
+    return band
 
 
 def _describe(got, want, u, s: int, w: int) -> str:
@@ -36,14 +51,18 @@ def _describe(got, want, u, s: int, w: int) -> str:
             f"{int(want[s, w])}, u={float(u[s, w])!r}")
 
 
-def compare_token_select(got, want, shares, qcount,
-                         u) -> tuple[list[str], int]:
+def _cpu(t):
+    return None if t is None else t.cpu()
+
+
+def compare_token_select(got, want, shares, qcount, u,
+                         other_shares=None) -> tuple[list[str], int]:
     """Hold token_select's output ``got`` to ``want``.  Returns (one line per
     excused edge-band draw, max |got - want| over the other draws); raises
-    ``AssertionError`` on a mismatch outside the band."""
+    ``AssertionError`` on a mismatch outside the band (``edge_band``)."""
     got, want, u = got.cpu(), want.cpu(), u.cpu()
     diff = got != want
-    band = edge_band(shares.cpu(), qcount.cpu(), u)
+    band = edge_band(shares.cpu(), qcount.cpu(), u, _cpu(other_shares))
     bad = diff & ~band
     if bad.any():
         s, w = (int(i) for i in bad.nonzero()[0])
@@ -55,14 +74,14 @@ def compare_token_select(got, want, shares, qcount,
     return excused, int(err.max()) if err.numel() else 0
 
 
-def compare_tick_step(got, want, shares, qcount, u,
-                      mode: str) -> tuple[list[str], int]:
+def compare_tick_step(got, want, shares, qcount, u, mode: str,
+                      other_shares=None) -> tuple[list[str], int]:
     """Hold tick_step's outputs ``got`` to ``want`` (both 5-tuples).
 
     fifo: every output equal.  themis: per server, workers are compared in
-    order; the first differing pick must be an edge-band draw on the live
-    queue counts ``want`` had at that worker, and excuses the rest of that
-    row (its later draws see other queues).  Conservation ``qcount_out +
+    order; the first differing pick must be an edge-band draw
+    (``edge_band``) on the live queue counts ``want`` had at that worker,
+    and excuses the rest of that row (its later draws see other queues).  Conservation ``qcount_out +
     pops == qcount`` must hold for both.  Returns (one line per excused
     row, naming its first differing draw; max |got - want| over every
     output outside those rows); raises ``AssertionError`` otherwise.
@@ -77,7 +96,8 @@ def compare_tick_step(got, want, shares, qcount, u,
             raise AssertionError(f"tick_step {name}: negative queue count")
     excused = {}
     if mode == "themis":
-        excused = _themis_excused_rows(got, want, shares, qcount, u)
+        excused = _themis_excused_rows(got, want, shares, qcount, u,
+                                       _cpu(other_shares))
     keep = torch.ones(qcount.shape[0], dtype=torch.bool)
     for s in excused:
         keep[s] = False
@@ -92,7 +112,8 @@ def compare_tick_step(got, want, shares, qcount, u,
     return list(excused.values()), err
 
 
-def _themis_excused_rows(got, want, shares, qcount, u) -> dict[int, str]:
+def _themis_excused_rows(got, want, shares, qcount, u,
+                         other_shares) -> dict[int, str]:
     """``{row: its first differing draw}`` over rows whose first differing
     pick is an edge-band draw; raises on a differing pick outside the band."""
     sel_g, sel_w = got[0], want[0]
@@ -103,8 +124,10 @@ def _themis_excused_rows(got, want, shares, qcount, u) -> dict[int, str]:
         q = qcount[s].clone()
         for w in range(n_workers):
             if int(sel_g[s, w]) != int(sel_w[s, w]):
-                in_band = edge_band(shares[s:s + 1], q[None, :],
-                                    u[s:s + 1, w:w + 1])[0, 0]
+                in_band = edge_band(
+                    shares[s:s + 1], q[None, :], u[s:s + 1, w:w + 1],
+                    None if other_shares is None
+                    else other_shares[s:s + 1])[0, 0]
                 line = _describe(sel_g, sel_w, u, s, w)
                 if not bool(in_band):
                     raise AssertionError("tick_step themis: pick mismatch "

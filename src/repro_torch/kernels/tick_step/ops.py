@@ -75,10 +75,13 @@ def tick_step(shares, qcount, window, free, u, *, mode: str = "themis"):
     qout = torch.empty((s, j), dtype=torch.int32, device=dev)
     pops = torch.empty((s, j), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _launcher()(shares.data_ptr(), qcount.data_ptr(), window.data_ptr(),
-                     free.data_ptr(), u.data_ptr(), sel.data_ptr(),
-                     valid.data_ptr(), dany.data_ptr(), qout.data_ptr(),
-                     pops.data_ptr(), s, j, w, MODES.index(mode), stream)
+    # The C launcher runs on the current device: make it the tensors'.
+    with torch.cuda.device(dev):
+        rc = _launcher()(shares.data_ptr(), qcount.data_ptr(),
+                         window.data_ptr(), free.data_ptr(), u.data_ptr(),
+                         sel.data_ptr(), valid.data_ptr(), dany.data_ptr(),
+                         qout.data_ptr(), pops.data_ptr(), s, j, w,
+                         MODES.index(mode), stream)
     if rc != 0:
         raise RuntimeError(f"tick_step kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -61,10 +61,13 @@ def token_select(shares: torch.Tensor, qcount: torch.Tensor,
     w = u.shape[1]
     if j * 4 > 227 * 1024:
         raise ValueError(f"J={j} exceeds the kernel's shared memory")
-    out = torch.empty((s, w), dtype=torch.int32, device=shares.device)
-    stream = torch.cuda.current_stream(shares.device).cuda_stream
-    rc = _launcher()(shares.data_ptr(), qcount.data_ptr(), u.data_ptr(),
-                     out.data_ptr(), s, j, w, stream)
+    dev = shares.device
+    out = torch.empty((s, w), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # The C launcher runs on the current device: make it the tensors'.
+    with torch.cuda.device(dev):
+        rc = _launcher()(shares.data_ptr(), qcount.data_ptr(), u.data_ptr(),
+                         out.data_ptr(), s, j, w, stream)
     if rc != 0:
         raise RuntimeError(f"token_select kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -6,7 +6,11 @@ Skipped without a CUDA card.  On the card::
 
 Kernels are held to their plain versions with the tolerance of
 ``repro_torch.kernels.parity``; the engine's fused and scan paths must agree
-bit for bit in integer state."""
+bit for bit in integer state, and the engine on the card must agree with
+the engine on the CPU (``chip_smoke.phase_card_vs_cpu``)."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -72,3 +76,13 @@ def test_engine_fused_and_scan_agree(card):
     for f in ("qcount", "head", "wheel", "issued", "completed", "key"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     torch.testing.assert_close(a.bytes_bin, b.bytes_bin, rtol=1e-6, atol=0)
+
+
+def test_engine_on_card_matches_cpu(card):
+    """fifo counter-exact on every tick on both worker paths; themis
+    counter-exact until a flipped edge-band pick, then within 2 %."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.phase_card_vs_cpu("cuda", ticks=300)

@@ -21,7 +21,7 @@ from repro_torch.kernels.token_select import ops as tk_ops
 
 JS = (16, 127, 128, 129, 1024)
 EDGE = ("random", "zero-shares", "single-live", "no-demand")
-EXCUSED: dict = {}
+MODES = ("themis", "fifo")
 
 
 def make_inputs(s, j, w, seed, case="random"):
@@ -47,47 +47,63 @@ def torch_of(*arrays):
     return [torch.as_tensor(a) for a in arrays]
 
 
-@pytest.mark.parametrize("case", EDGE)
-@pytest.mark.parametrize("j", JS)
-def test_token_select_matches_jax(j, case):
+def token_select_vs_jax(j, case):
+    """The port's token_select on one case against both JAX impls:
+    (picks, input tensors, edge-band draws excused per impl)."""
     shares, qcount, _, _, u = make_inputs(4, j, 4, seed=j, case=case)
     ts, tq, tu = torch_of(shares, qcount, u)
     before = tk_ops.LAUNCHES
     got = tk_ops.token_select(ts, tq, tu)
     assert tk_ops.LAUNCHES == before          # CPU: plain version, no launch
-    assert got.dtype == torch.int32 and got.shape == (4, 4)
+    excused = []
     for impl in ("pallas", "ref"):
         want = torch.as_tensor(np.array(ref_token_select(
             jnp.asarray(shares), jnp.asarray(qcount), jnp.asarray(u),
             impl=impl)))
-        excused, err = parity.compare_token_select(got, want, ts, tq, tu)
+        lines, err = parity.compare_token_select(got, want, ts, tq, tu)
         assert err == 0
-        EXCUSED[("token_select", j, case, impl)] = len(excused)
+        excused.append(len(lines))
+    return got, (ts, tq, tu), excused
+
+
+def tick_step_vs_jax(j, case, mode):
+    """The port's tick_step on one case against both JAX impls: edge-band
+    rows excused per impl."""
+    arrays = make_inputs(3, j, 4, seed=1000 + j, case=case)
+    tensors = torch_of(*arrays)
+    before = ts_ops.LAUNCHES
+    got = ts_ops.tick_step(*tensors, mode=mode)
+    assert ts_ops.LAUNCHES == before
+    excused = []
+    for impl in ("pallas", "ref"):
+        want = [torch.as_tensor(np.array(x)) for x in ref_tick_step(
+            *(jnp.asarray(a) for a in arrays), mode=mode, impl=impl)]
+        lines, err = parity.compare_tick_step(got, want, tensors[0],
+                                              tensors[1], tensors[4], mode)
+        assert err == 0
+        excused.append(len(lines))
+    return excused
+
+
+@pytest.mark.parametrize("case", EDGE)
+@pytest.mark.parametrize("j", JS)
+def test_token_select_matches_jax(j, case):
+    got, (ts, tq, tu), _ = token_select_vs_jax(j, case)
+    assert got.dtype == torch.int32 and got.shape == (4, 4)
     if case == "no-demand":
         assert (got == -1).all()
     if case == "single-live":
         assert (tq.gather(1, got.long()) > 0).all()
 
 
-@pytest.mark.parametrize("mode", ("themis", "fifo"))
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("case", EDGE)
 @pytest.mark.parametrize("j", JS)
 def test_tick_step_matches_jax(j, case, mode):
-    arrays = make_inputs(3, j, 4, seed=1000 + j, case=case)
-    tensors = torch_of(*arrays)
-    before = ts_ops.LAUNCHES
-    got = ts_ops.tick_step(*tensors, mode=mode)
-    assert ts_ops.LAUNCHES == before
-    for impl in ("pallas", "ref"):
-        want = [torch.as_tensor(np.array(x)) for x in ref_tick_step(
-            *(jnp.asarray(a) for a in arrays), mode=mode, impl=impl)]
-        excused, err = parity.compare_tick_step(got, want, tensors[0],
-                                                tensors[1], tensors[4], mode)
-        assert err == 0
-        EXCUSED[("tick_step", j, case, mode, impl)] = len(excused)
+    tick_step_vs_jax(j, case, mode)
 
 
-@pytest.mark.parametrize("mode", ("themis", "fifo"))
+@pytest.mark.parametrize("mode", MODES)
 def test_tick_step_conservation(mode):
     shares, qcount, window, free, u = torch_of(*make_inputs(6, 40, 6, seed=5))
     sel, valid, dany, qout, pops = ts_ops.tick_step(shares, qcount, window,
@@ -139,12 +155,38 @@ def test_parity_excuses_only_edge_band_draws():
         parity.compare_tick_step(flipped, want, shares, qcount, u, "fifo")
 
 
+def test_parity_band_spans_two_share_tables():
+    """Share tables computed apart (card and CPU engines) excuse a draw
+    that lies between their segment ends, and only with both tables."""
+    shares = torch.tensor([[0.5, 0.5]])
+    other = torch.tensor([[0.52, 0.48]])
+    qcount = torch.tensor([[1, 1]], dtype=torch.int32)
+    u = torch.tensor([[0.51, 0.9]])
+    band = parity.edge_band(shares, qcount, u, other_shares=other)
+    assert band.tolist() == [[True, False]]
+    assert not parity.edge_band(shares, qcount, u).any()
+    got = torch.tensor([[0, 1]], dtype=torch.int32)
+    want = torch.tensor([[1, 1]], dtype=torch.int32)
+    excused, err = parity.compare_token_select(got, want, shares, qcount, u,
+                                               other_shares=other)
+    assert len(excused) == 1 and err == 0
+    with pytest.raises(AssertionError, match="outside the edge band"):
+        parity.compare_token_select(got, want, shares, qcount, u)
+
+
 def test_excused_edge_band_draws_are_rare():
-    """Reported count of edge-band draws over the cases above (exact
-    agreement is expected almost everywhere)."""
-    total = sum(EXCUSED.values())
-    print(f"edge-band draws excused across {len(EXCUSED)} comparisons: {total}")
-    assert total <= max(1, len(EXCUSED) // 20)
+    """Edge-band draws excused over every case of the two tests above,
+    counted here (exact agreement is expected almost everywhere)."""
+    counts = []
+    for j in JS:
+        for case in EDGE:
+            counts += token_select_vs_jax(j, case)[2]
+            for mode in MODES:
+                counts += tick_step_vs_jax(j, case, mode)
+    total = sum(counts)
+    print(f"edge-band draws excused across {len(counts)} comparisons: {total}")
+    assert len(counts) == 2 * len(JS) * len(EDGE) * (1 + len(MODES))
+    assert total <= max(1, len(counts) // 20)
 
 
 def test_build_paths_stay_in_the_checkout(monkeypatch, tmp_path):
