@@ -1,9 +1,12 @@
-"""State carried across between the reference engine and the port.
+"""State carried across between the reference and the port.
 
 The reference's ``Workload``, ``JobTable`` and ``EngineState`` with numpy
 leaves (the PRNG key as its two uint32 words) become the port's tensors on
 a given device, and back.  This is how both engines start from the same
-mid-run state.  Leaves are copied, never shared.
+mid-run state.  Model parameters and decode caches cross the same way:
+the reference's pytrees (numpy leaves, stacked ``[repeat, ...]`` per
+segment) become the port's ``ModelParams`` and cache dicts.  Leaves are
+copied, never shared.
 """
 from __future__ import annotations
 
@@ -61,3 +64,67 @@ def state_to_numpy(state: EngineState) -> EngineState:
         else:
             fields[f] = v.cpu().numpy()
     return EngineState(**fields)
+
+
+def tensor_from_numpy(x, device="cpu") -> torch.Tensor:
+    """One leaf of a reference pytree as a tensor.  A bfloat16 leaf comes out
+    of JAX as an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy``
+    refuses: its bits cross as ``uint16`` and are viewed as bfloat16."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.tensor(a, device=device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bfloat16 as its bits viewed as
+    ``ml_dtypes.bfloat16`` (the package JAX's bfloat16 arrays use)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_numpy(jax_params, cfg, device="cpu"):
+    """The reference's parameter pytree (numpy or JAX leaves) as the port's
+    :class:`~repro_torch.models.model.ModelParams` on ``device``.  Every
+    path and shape must be the one the port's init would make for ``cfg``."""
+    from ..models.layers import Init
+    from ..models.model import ModelParams, param_specs
+
+    def check(spec, tree, path):
+        if isinstance(spec, Init):
+            shape = tuple(np.shape(tree))
+            if shape != tuple(spec.shape):
+                raise ValueError(f"{path}: shape {shape}, the port's init "
+                                 f"makes {tuple(spec.shape)}")
+            return
+        if not isinstance(tree, dict) or set(tree) != set(spec):
+            have = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{path or 'params'}: keys {have}, the port's "
+                             f"init makes {sorted(spec)}")
+        for k in spec:
+            check(spec[k], tree[k], f"{path}.{k}" if path else k)
+
+    check(param_specs(cfg), jax_params, "")
+    return ModelParams(_map_tree(
+        jax_params, lambda x: tensor_from_numpy(x, device)))
+
+
+def caches_from_numpy(jax_caches, device="cpu") -> dict:
+    """The reference's decode caches as the port's nested dict of tensors."""
+    return _map_tree(jax_caches, lambda x: tensor_from_numpy(x, device))
+
+
+def caches_to_numpy(caches) -> dict:
+    """The port's decode caches with numpy leaves, as the reference holds
+    them."""
+    return _map_tree(caches, tensor_to_numpy)

@@ -200,3 +200,13 @@ def compute_job_shares(policy: Policy, *, active, user_id, group_id, size,
                         group_id=group_id, size=size, priority=priority)
     mask = chain.active if demand is None else chain.active & demand.bool()
     return chain.shares(mask)
+
+
+def compute_job_shares_from_table(policy: Policy, table,
+                                  demand=None) -> torch.Tensor:
+    """:func:`compute_job_shares` over a
+    :class:`repro_torch.core.job_table.JobTable`."""
+    return compute_job_shares(
+        policy, active=table.active, user_id=table.user_id,
+        group_id=table.group_id, size=table.size, priority=table.priority,
+        demand=demand)

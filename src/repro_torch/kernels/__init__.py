@@ -1,3 +1,3 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version: ``token_select`` and ``tick_step`` (sources in ``csrc/``, built by
-``_build``)."""
+version: ``token_select``, ``tick_step`` and ``flash_attention`` (sources in
+``csrc/``, built by ``_build``)."""

@@ -5,9 +5,11 @@ Skipped without a CUDA card.  On the card::
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Kernels are held to their plain versions with the tolerance of
-``repro_torch.kernels.parity``; the engine's fused and scan paths must agree
-bit for bit in integer state, and the engine on the card must agree with
-the engine on the CPU (``chip_smoke.phase_card_vs_cpu``)."""
+``repro_torch.kernels.parity`` (flash attention: 2e-5 in float32, 2e-2 in
+bf16); the engine's fused and scan paths must agree bit for bit in integer
+state, the engine on the card must agree with the engine on the CPU
+(``chip_smoke.phase_card_vs_cpu``), and so must the dense model
+(``chip_smoke.phase_serve_card_vs_cpu``)."""
 import importlib.util
 from pathlib import Path
 
@@ -22,6 +24,17 @@ from repro_torch.kernels.token_select import ops as tk_ops
 from repro_torch.kernels.token_select.ref import token_select_ref
 
 pytestmark = pytest.mark.cuda
+
+
+def _load_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+smoke = _load_smoke()
 
 
 @pytest.fixture
@@ -81,8 +94,28 @@ def test_engine_fused_and_scan_agree(card):
 def test_engine_on_card_matches_cpu(card):
     """fifo counter-exact on every tick on both worker paths; themis
     counter-exact until a flipped edge-band pick, then within 2 %."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     smoke.phase_card_vs_cpu("cuda", ticks=300)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", smoke.FLASH_CASES,
+                         ids=lambda c: "B{}-Sq{}-Sk{}-H{}-Hk{}-D{}-w{}-c{}-o{}-s{}"
+                         .format(*c))
+def test_flash_kernel_matches_plain_version(card, dtype, case):
+    """(B, Sq, Sk, H, Hk, D, window, causal, q_offset, storage_offset) of
+    chip_smoke's flash phase; one launch per call."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    window, causal, q_offset = case[6:9]
+    q, k, v = smoke.flash_inputs(case, getattr(torch, dtype), card,
+                                 seed=case[1] + case[5])
+    before = fa_ops.LAUNCHES
+    smoke.flash_check(q, k, v, dict(causal=causal, window=window,
+                                    q_offset=q_offset), str(case))
+    assert fa_ops.LAUNCHES == before + 1
+
+
+def test_dense_model_on_card_matches_cpu(card):
+    """h2o-danube-1.8b at full width cut to one layer, float32: prefill of
+    700 tokens (through the flash kernel) and 3 decode steps, logits within
+    1e-3 of the CPU's."""
+    smoke.phase_serve_card_vs_cpu("cuda", n_layers=1, seq=700, steps=3)

@@ -197,4 +197,4 @@ def test_build_paths_stay_in_the_checkout(monkeypatch, tmp_path):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     assert _build.lib_path("token_select").parent == tmp_path
     with pytest.raises(ValueError):
-        _build.lib_path("flash_attention")
+        _build.lib_path("no_such_kernel")

@@ -1,9 +1,10 @@
 """The checks of ``chip_smoke.py`` that run without a card, on the CPU.
 
 The lockstep harness of its ``card_vs_cpu`` phase, the way it names the
-pick that made a card tick differ from the CPU's, and the bytes its kernel
-bounds count.  The phases themselves run on the card
-(``python3 chip_smoke.py``, ``tests/test_torch_cuda.py``)."""
+pick that made a card tick differ from the CPU's, the bytes and (q, k)
+pairs its kernel bounds count, its greedy-token check, and its serving
+phases rehearsed at the reduced config.  The phases themselves run on the
+card (``python3 chip_smoke.py``, ``tests/test_torch_cuda.py``)."""
 import importlib.util
 from pathlib import Path
 
@@ -76,3 +77,43 @@ def test_needed_bytes_count_only_what_each_mode_reads():
     assert smoke.needed_bytes("token_select", qcount, u) \
         == s * j * 4 + 3 * 4 + 2 * s * w * 4
 
+
+
+@pytest.mark.parametrize("sq,sk,causal,window,q_offset", [
+    (50, 50, True, 0, 0), (50, 50, True, 16, 0), (20, 70, True, 8, 50),
+    (20, 30, False, 0, 0), (30, 30, False, 5, 0), (10, 40, True, 0, 45)])
+def test_live_pairs_counts_the_mask(sq, sk, causal, window, q_offset):
+    rel = (torch.arange(sq)[:, None] + q_offset) - torch.arange(sk)[None, :]
+    ok = torch.ones_like(rel, dtype=torch.bool)
+    if causal:
+        ok &= rel >= 0
+    if window:
+        ok &= rel < window
+    assert smoke.live_pairs(sq, sk, causal, window, q_offset) == int(ok.sum())
+
+
+def test_check_argmax_excuses_only_close_calls():
+    want = torch.tensor([[[3.0, 2.99, 0.0]], [[5.0, 1.0, 0.0]]])
+    close = torch.tensor([[[2.99, 3.0, 0.0]], [[5.0, 1.0, 0.0]]])
+    assert smoke.check_argmax("t", want, close, 3, atol=0.01) == 1
+    far = torch.tensor([[[3.0, 2.99, 0.0]], [[1.0, 5.0, 0.0]]])
+    with pytest.raises(AssertionError, match="greedy tokens differ"):
+        smoke.check_argmax("t", want, far, 3, atol=0.01)
+
+
+def test_serve_phases_rehearse_on_the_cpu(monkeypatch):
+    """The serving phases at the reduced config on the CPU: the plain flash
+    version (no launch), the same admissions as the CPU engine, and the
+    card-vs-CPU comparison run against itself."""
+    monkeypatch.setattr(smoke, "time_ms", lambda fn, reps=1: (fn(), 1.0)[1])
+    params, launches, layer0, metrics = smoke.phase_serve(
+        "cpu", reduced=True, seq=600, steps=8)
+    assert launches == 0 and layer0["q"].shape == (2, 600, 8, 16)
+    assert metrics["prefill_vs_decode_max_abs"] < 1e-4
+    draws, rps = smoke.phase_serve_engine("cpu", params, reduced=True)
+    assert draws == 0 and rps > 0
+    record = smoke.phase_flash(
+        "cpu", layer0, cases=[(1, 70, 70, 8, 2, 80, 16, True, 0, 0),
+                              (1, 36, 100, 4, 2, 18, 32, True, 64, 2)])
+    assert record["max_abs_err"] == 0.0 and record["bound_by"] == "operations"
+    smoke.phase_serve_card_vs_cpu("cpu", reduced=True, seq=600, steps=2)

@@ -46,25 +46,32 @@ def profile(scheduler: str, impl: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
     print(f"{scheduler}/{impl}: {TICKS} profiled ticks, host wall "
           f"{wall / TICKS * 1e3:.3f} ms/tick (profiler on)")
+    summarize(prof, wall, TICKS, "tick")
+
+
+def summarize(prof, wall: float, n: int, unit: str) -> None:
+    """Device busy time, idle share, launches and the top kernels of a
+    ``torch.profiler`` run of ``n`` ``unit``s that took ``wall`` seconds."""
+    import torch
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         print("  device time: not measured (the profiler recorded no kernels)")
         return
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    print(f"  device busy {busy_us / TICKS / 1e3:.3f} ms/tick, idle share "
+    print(f"  device busy {busy_us / n / 1e3:.3f} ms/{unit}, idle share "
           f"{1 - busy_us / 1e6 / wall:.3f}, kernel launches "
-          f"{len(kernels) / TICKS:.1f}/tick")
+          f"{len(kernels) / n:.1f}/{unit}")
     by_name = defaultdict(lambda: [0, 0.0])
     for e in kernels:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
     for name, (count, us) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][1])[:10]:
-        print(f"  {us / TICKS:9.2f} us/tick {count / TICKS:6.1f} "
-              f"launches/tick  {name[:90]}")
+        print(f"  {us / n:9.2f} us/{unit} {count / n:6.1f} "
+              f"launches/{unit}  {name[:90]}")
 
 
 def main() -> int:
