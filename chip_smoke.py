@@ -51,6 +51,29 @@ each printing its lines before the last:
   serve_card_vs_cpu  full width cut to 2 layers, float32: one 1100-token
                 prompt and 8 decode steps on the card and on the CPU,
                 logits within rtol 1e-3 (atol 1e-3), greedy tokens equal
+  serve_zamba2  zamba2-2.7b (54 Mamba-2 layers + a shared attention block
+                every 6) as the serve phase: full width and depth, bf16,
+                2 x 6000 tokens (not a multiple of the 128 SSD chunk, so the
+                padded tail runs), 16 decode steps; 54 mamba2_ssd and 9
+                flash_attention launches per prefill; prefill + k tokens
+                against k decode steps holds the scan's final state, which
+                fills the decode cache
+  serve_rwkv6   rwkv6-7b the same way (6000 is not a multiple of the 64 WKV
+                chunk); 32 wkv6 launches per prefill
+  serve_engine_zamba2  the serve_engine phase on zamba2-2.7b at full width:
+                all complete, every draw equals the plain token_select, and
+                the admissions equal the CPU's (reduced zamba2)
+  mamba2, wkv6  each scan kernel against its plain version on the card,
+                output and final state, over a case list (float32 and bf16
+                b/c or r/k/v, the reduced and the full widths, chunk 32, 64
+                and 128, an initial state, strong decay, strided views) and
+                on the inputs layer 0 of the serve phase gave it; then its
+                time at that shape beside its bound (bytes, FMA or
+                exponential rate) and the plain version's
+  ssm_card_vs_cpu  full width cut in depth, float32 (zamba2: one mamba
+                block plus the shared block; rwkv6: 2 layers): one
+                1100-token prompt and 8 decode steps on the card and on the
+                CPU, logits within rtol 1e-3 (atol 1e-3), tokens equal
 
 then one JSON line describing every kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -73,6 +96,10 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+#: Exponentials per second of the special-function units: 16 results per
+#: clock per SM for compute capability 9.0 (CUDA C++ Programming Guide,
+#: throughput of native arithmetic instructions), 132 SMs, 1.98 GHz boost.
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 #: Facility-scale geometry of benchmarks/bench_fleet.py:41-62,83-86.
 FLEET = dict(n_servers=128, max_jobs=1024, n_workers=4, dt=2e-4, wheel=128,
@@ -583,13 +610,46 @@ SERVE_ARCH = "h2o-danube-1.8b"
 BF16_LOGIT_TOL = dict(rms=2.0 ** -5, max=2.0 ** -3)
 #: float32 on the card against float32 on the CPU: sums in another order.
 F32_LOGIT_TOL = dict(atol=1e-3, rtol=1e-3)
+#: The recurrent models (zamba2, rwkv6) in float32 arithmetic at full width
+#: and depth, prefill of the prompt plus k tokens against k decode steps:
+#: measured on an H100 at RMS 1.7e-4 and max 8.2e-4 (zamba2, k = 8, the
+#: same with the kernels or their plain versions), the drift of 63 layers
+#: of float32 sums in two orders.  A fault in the state a scan hands to the
+#: decode cache moves the logits by their own scale.
+F32_DEPTH_TOL = dict(rms=2.0 ** -10, max=2.0 ** -7)
 
 
-def serve_config(reduced=False, **overrides):
+def logit_gap(got, want) -> tuple[float, float]:
+    """(max |got - want|, RMS(got - want) / RMS(want)) in float32."""
+    diff = (got - want).float()
+    return (float(diff.abs().max()),
+            float(diff.square().mean().sqrt()
+                  / want.float().square().mean().sqrt()))
+
+
+def serve_config(reduced=False, arch=SERVE_ARCH, **overrides):
     import dataclasses
     from repro_torch.configs.base import get_config
-    return dataclasses.replace(get_config(SERVE_ARCH, reduced=reduced),
+    return dataclasses.replace(get_config(arch, reduced=reduced),
                                **overrides)
+
+
+def kernel_ops() -> dict:
+    """The serving path's kernel wrapper modules, by kernel name."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    return {"flash_attention": fa_ops, "mamba2_ssd": ssd_ops, "wkv6": wkv_ops}
+
+
+def launches_per_prefill(cfg) -> dict:
+    """Kernel launches one prefill longer than ``block_q`` makes on the
+    card: flash_attention per attention block (the shared block at each of
+    its invocations), mamba2_ssd per mamba block, wkv6 per rwkv block."""
+    kinds = [k for rep, ks in cfg.pattern for _ in range(rep) for k in ks]
+    return {"flash_attention": sum(k in ("attn", "local", "global",
+                                         "shared_attn") for k in kinds),
+            "mamba2_ssd": kinds.count("mamba"), "wkv6": kinds.count("rwkv")}
 
 
 def top2_gap(logits):
@@ -599,7 +659,7 @@ def top2_gap(logits):
     return top[..., 0] - top[..., 1]
 
 
-def check_argmax(tag, want_logits, got_logits, vocab, atol):
+def check_argmax(tag, want_logits, got_logits, vocab, atol, phase="serve"):
     """Greedy tokens equal, except where the top-2 gap of ``want_logits``
     is under ``2 * atol`` (two logits that each moved by at most ``atol``
     may swap): such a row is reported.  Returns the number of those rows."""
@@ -614,24 +674,36 @@ def check_argmax(tag, want_logits, got_logits, vocab, atol):
                              f"{2 * atol})")
     swapped = int((a != b).sum())
     if swapped:
-        say("serve", f"{tag}: {swapped} greedy token(s) swapped at a top-2 "
+        say(phase, f"{tag}: {swapped} greedy token(s) swapped at a top-2 "
             f"gap under {2 * atol}: {gap[a != b].tolist()}")
     return swapped
 
 
-def record_first_flash_call(store):
-    """Patch the attention module's flash wrapper so that its first call
-    keeps a copy of its inputs in ``store``; returns the undo."""
-    from repro_torch.models import attention
-    real = attention.flash_attention
+def record_first_calls(store):
+    """Patch the model modules' kernel wrappers so that the first call of
+    each keeps a copy of its inputs in ``store[kernel]`` (``args``, a list
+    of tensors or None, and ``kw``); returns the undo."""
+    from repro_torch.models import attention, rwkv, ssm
+    saved = []
+    for module, name in ((attention, "flash_attention"), (ssm, "mamba2_ssd"),
+                         (rwkv, "wkv6")):
+        real = getattr(module, name)
 
-    def wrapper(q, k, v, **kw):
-        if not store:
-            store.update(q=q.clone(), k=k.clone(), v=v.clone(), kw=dict(kw))
-        return real(q, k, v, **kw)
+        def wrapper(*args, _real=real, _name=name, **kw):
+            if _name not in store:
+                store[_name] = dict(
+                    args=[a if a is None else a.clone() for a in args],
+                    kw={k: v.clone() if hasattr(v, "clone") else v
+                        for k, v in kw.items()})
+            return _real(*args, **kw)
 
-    attention.flash_attention = wrapper
-    return lambda: setattr(attention, "flash_attention", real)
+        setattr(module, name, wrapper)
+        saved.append((module, name, real))
+
+    def undo():
+        for module, name, real in saved:
+            setattr(module, name, real)
+    return undo
 
 
 def synced(device):
@@ -641,48 +713,66 @@ def synced(device):
     return time.perf_counter()
 
 
-def phase_serve(device, *, reduced=False, seq=6000, steps=16):
-    """The main serving path at full width; returns (params, flash
-    launches, the inputs layer 0's attention gave the kernel, metrics)."""
+def phase_serve(device, arch=SERVE_ARCH, *, tag="serve", reduced=False,
+                seq=6000, steps=16):
+    """A serving path at full width; returns (params, kernel launches in
+    the phase by kernel, the inputs each kernel's first call got, metrics).
+    Every launch counter is zeroed before the path runs and read after.
+
+    Prefill of the prompt plus k generated tokens must agree with k decode
+    steps.  For the dense model the bf16 bounds are BF16_LOGIT_TOL.  For a
+    model with a recurrent scan (zamba2, rwkv6) the same weights also run
+    in float32 arithmetic, where the two paths must agree within
+    F32_DEPTH_TOL: that holds the final state each scan hands to the decode
+    cache.  Their bf16 paths must then agree within BF16_LOGIT_TOL or within
+    the bf16 prefill's own distance from the float32 one, whichever is
+    larger: at full depth these random models' bf16 rounding noise (RMS
+    0.22 for rwkv6, 0.64 for zamba2 against float32, on an H100) is far
+    above the dense model's 0.02 that BF16_LOGIT_TOL was set for."""
+    import copy
+    import dataclasses
     import numpy as np
     import torch
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import model as M
     from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
-    cfg = serve_config(reduced)
+    cfg = serve_config(reduced, arch)
+    ops = kernel_ops()
     batch, check_ks = 2, (1, 8)
     t0 = synced(device)
     params = M.init_params(cfg, seed=0, device=device)
-    say("serve", f"{cfg.name} d={cfg.d_model} layers={cfg.layer_count()} "
-        f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} window="
-        f"{cfg.window} {cfg.param_dtype}: {cfg.param_count() / 1e9:.3f} B "
-        f"params initialised in {synced(device) - t0:.1f} s")
+    say(tag, f"{cfg.name} d={cfg.d_model} layers={cfg.layer_count()} "
+        f"pattern={cfg.pattern} heads={cfg.n_heads}/{cfg.n_kv_heads}x"
+        f"{cfg.head_dim} window={cfg.window} {cfg.param_dtype}: "
+        f"{cfg.param_count() / 1e9:.3f} B params initialised in "
+        f"{synced(device) - t0:.1f} s")
     rng = np.random.default_rng(0)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, seq)),
                              dtype=torch.int32, device=device)
     max_len = seq + steps
     prefill = make_prefill_step(cfg, max_len)
     decode = make_decode_step(cfg)
-    per_prefill = cfg.layer_count() if torch.device(device).type == "cuda" \
-        else 0
+    per_prefill = launches_per_prefill(cfg)
+    has_scan = per_prefill["mamba2_ssd"] + per_prefill["wkv6"] > 0
+    if torch.device(device).type != "cuda":
+        per_prefill = dict.fromkeys(per_prefill, 0)
     layer0: dict = {}
 
-    def run_prefill(tokens):
-        before = fa_ops.LAUNCHES
+    def run_prefill(tokens, step=prefill, weights=params):
+        before = {name: op.LAUNCHES for name, op in ops.items()}
         t = synced(device)
-        logits, caches = prefill(params, {"tokens": tokens})
+        logits, caches = step(weights, {"tokens": tokens})
         wall = synced(device) - t
-        n = fa_ops.LAUNCHES - before
+        n = {name: op.LAUNCHES - before[name] for name, op in ops.items()}
         if n != per_prefill:
             raise AssertionError(f"prefill of {tuple(tokens.shape)} launched "
-                                 f"flash_attention {n} times, expected "
-                                 f"{per_prefill}")
+                                 f"{n}, expected {per_prefill}")
         if not torch.isfinite(logits).all():
             raise AssertionError("prefill logits are not finite")
         return logits, caches, wall
 
-    fa_ops.LAUNCHES = 0
-    undo = record_first_flash_call(layer0)
+    for op in ops.values():
+        op.LAUNCHES = 0
+    undo = record_first_calls(layer0)
     try:
         run_prefill(prompt)                                  # warm-up
     finally:
@@ -700,38 +790,69 @@ def phase_serve(device, *, reduced=False, seq=6000, steps=16):
             raise AssertionError(f"decode step {i} logits are not finite")
         step_logits.append(logits)
         tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+    pf = {k: run_prefill(torch.cat([prompt] + gen[:k], dim=1))[0]
+          for k in check_ks}
+    tol = {k: dict(BF16_LOGIT_TOL) for k in check_ks}
+    n_prefills = 2 + len(check_ks)
+    if has_scan:
+        del caches
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    param_dtype="float32")
+        params32 = copy.deepcopy(params).float()
+        prefill32 = make_prefill_step(cfg32, max_len)
+        decode32 = make_decode_step(cfg32)
+        _, caches32, _ = run_prefill(prompt, prefill32, params32)
+        dec32 = []
+        for i in range(max(check_ks)):
+            pos = torch.full((batch,), seq + i, dtype=torch.int32,
+                             device=device)
+            logits32, _, caches32 = decode32(params32, caches32,
+                                             {"tokens": gen[i]}, pos)
+            dec32.append(logits32)
+        for k in check_ks:
+            pf32 = run_prefill(torch.cat([prompt] + gen[:k], dim=1),
+                               prefill32, params32)[0]
+            err, rms = logit_gap(pf32, dec32[k - 1])
+            say(tag, f"float32 arithmetic: prefill of prompt + {k} token(s) "
+                f"vs decode step {k}: max |logit diff| {err:.4g}, RMS "
+                f"{rms:.4g} (tolerance {F32_DEPTH_TOL})")
+            if err > F32_DEPTH_TOL["max"] or rms > F32_DEPTH_TOL["rms"]:
+                raise AssertionError(f"float32 prefill+{k} vs decode: "
+                                     f"logits beyond {F32_DEPTH_TOL}")
+            noise_max, noise_rms = logit_gap(pf[k], pf32)
+            tol[k] = dict(rms=max(tol[k]["rms"], noise_rms),
+                          max=max(tol[k]["max"], noise_max))
+            say(tag, f"bf16 prefill of prompt + {k} vs float32: max "
+                f"{noise_max:.4g}, RMS {noise_rms:.4g} (the bf16 noise)")
+        del params32, caches32
+        n_prefills += 1 + len(check_ks)
     worst = 0.0
     for k in check_ks:
-        tokens = torch.cat([prompt] + gen[:k], dim=1)
-        pf_logits, _, _ = run_prefill(tokens)
         want = step_logits[k - 1]
-        diff = (pf_logits - want).float()
-        err = float(diff.abs().max())
-        rms = float(diff.square().mean().sqrt()
-                    / want.float().square().mean().sqrt())
+        err, rms = logit_gap(pf[k], want)
         worst = max(worst, err)
-        say("serve", f"prefill of prompt + {k} generated token(s) vs decode "
+        say(tag, f"prefill of prompt + {k} generated token(s) vs decode "
             f"step {k}: max |logit diff| {err:.4g}, RMS diff / RMS logit "
-            f"{rms:.4g} (tolerance {BF16_LOGIT_TOL})")
-        if err > BF16_LOGIT_TOL["max"] or rms > BF16_LOGIT_TOL["rms"]:
+            f"{rms:.4g} (tolerance {tol[k]})")
+        if err > tol[k]["max"] or rms > tol[k]["rms"]:
             raise AssertionError(f"prefill+{k} vs decode: logits beyond "
-                                 f"{BF16_LOGIT_TOL}")
+                                 f"{tol[k]}")
         # A swap is excused only where this measured difference explains it.
-        check_argmax(f"prefill+{k} vs decode", want, pf_logits, cfg.vocab,
-                     err)
-    launches = fa_ops.LAUNCHES
+        check_argmax(f"prefill+{k} vs decode", want, pf[k], cfg.vocab,
+                     err, phase=tag)
+    launches = {name: op.LAUNCHES for name, op in ops.items()}
     decode_ms = sorted(step_s)[len(step_s) // 2] * 1e3
     metrics = dict(prefill_ms=prefill_s * 1e3,
                    prefill_tokens_per_s=batch * seq / prefill_s,
                    decode_ms_per_step=decode_ms,
                    decode_tokens_per_s=batch / (decode_ms / 1e3),
                    prefill_vs_decode_max_abs=worst)
-    say("serve", f"prefill B={batch} S={seq}: {metrics['prefill_ms']:.1f} ms "
+    say(tag, f"prefill B={batch} S={seq}: {metrics['prefill_ms']:.1f} ms "
         f"({metrics['prefill_tokens_per_s']:.0f} tokens/s); decode at B="
         f"{batch}: {decode_ms:.2f} ms/step median of {steps} (one token per "
         f"sequence, {metrics['decode_tokens_per_s']:.1f} tokens/s); "
-        f"flash_attention launches {launches} ({per_prefill} per prefill x "
-        f"{2 + len(check_ks)} prefills)")
+        f"kernel launches {launches} ({per_prefill} per prefill x "
+        f"{n_prefills} prefills)")
     return params, launches, layer0, metrics
 
 
@@ -778,14 +899,15 @@ def draws_off_lowest(calls) -> int:
                for _, args, out, _ in calls)
 
 
-def phase_serve_engine(device, params, *, reduced=False):
-    """ServeEngine on the card against the CPU; returns (token_select
-    launches, requests/s)."""
+def phase_serve_engine(device, params, *, arch=SERVE_ARCH, tag="serve_engine",
+                       reduced=False):
+    """ServeEngine on the card against the CPU (the arch's reduced config);
+    returns (token_select launches, requests/s)."""
     from repro_torch.kernels import parity
     from repro_torch.kernels.token_select import ops as tk_ops
     from repro_torch.kernels.token_select.ref import token_select_ref
     from repro_torch.models import model as M
-    cfg = serve_config(reduced)
+    cfg = serve_config(reduced, arch)
     tk_ops.LAUNCHES = 0
     admitted, calls, reqs, wall = run_engine(cfg, params, device)
     launches = tk_ops.LAUNCHES
@@ -804,8 +926,8 @@ def phase_serve_engine(device, params, *, reduced=False):
             got, token_select_ref(shares, qcount, u), shares, qcount, u)
         excused += lines
     for line in excused:
-        say("serve_engine", f"excused edge-band draw: {line}")
-    cpu_cfg = serve_config(True)
+        say(tag, f"excused edge-band draw: {line}")
+    cpu_cfg = serve_config(True, arch)
     cpu_adm, cpu_calls, _, _ = run_engine(
         cpu_cfg, M.init_params(cpu_cfg, seed=0, device="cpu"), "cpu")
     off = draws_off_lowest(cpu_calls)
@@ -816,10 +938,10 @@ def phase_serve_engine(device, params, *, reduced=False):
     if admitted != cpu_adm:
         first = next((i for i, (a, b) in enumerate(zip(admitted, cpu_adm))
                       if a != b), min(len(admitted), len(cpu_adm)))
-        say("serve_engine", f"admissions diverge from the CPU's at draw "
+        say(tag, f"admissions diverge from the CPU's at draw "
             f"{first}: {explain_divergence(calls, cpu_calls)}")
     rps = len(reqs) / wall
-    say("serve_engine", f"{len(reqs)} requests x 8 tokens over 3 tenants "
+    say(tag, f"{cfg.name}: {len(reqs)} requests x 8 tokens over 3 tenants "
         f"(size-fair, 4 slots, key seed {SERVE_ENGINE_SEED}) in {wall:.2f} s: "
         f"{rps:.2f} requests/s; token_select launches {launches}, each "
         f"draw equal to the plain version's ({len(excused)} excused); "
@@ -907,7 +1029,8 @@ def flash_check(q, k, v, kw, tag):
 
 
 def phase_flash(device, layer0, *, cases=FLASH_CASES, reps=10):
-    """Returns the flash_attention record for the kernels line."""
+    """Returns the flash_attention record for the kernels line; ``layer0``
+    is the first call the serve phase made (``record_first_calls``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -931,12 +1054,24 @@ def phase_flash(device, layer0, *, cases=FLASH_CASES, reps=10):
     if staging != {True, False}:
         raise AssertionError("the case list left a staging path of the "
                              "kernel unchecked")
-    q, k, v, kw = layer0["q"], layer0["k"], layer0["v"], layer0["kw"]
-    err = flash_check(q, k, v, kw, "serve layer 0")
-    worst = max(worst, err)
+    record = flash_at_shape(layer0, "flash", "serve layer 0", reps=reps)
+    record["max_abs_err"] = max(worst, record["max_abs_err"])
+    return record
+
+
+def flash_at_shape(layer0, phase, tag, *, reps=10):
+    """The flash kernel on the inputs a serve phase's first attention call
+    got: against its plain version, then its time beside its bound, the
+    plain version's and scaled_dot_product_attention's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    (q, k, v), kw = layer0["args"], layer0["kw"]
+    err = flash_check(q, k, v, kw, tag)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
-    say("flash", f"serve layer 0 inputs {tuple(q.shape)} / {tuple(k.shape)} "
+    say(phase, f"{tag} inputs {tuple(q.shape)} / {tuple(k.shape)} "
         f"{q.dtype} {kw}: max abs err {err:.3g}")
 
     ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), reps=reps)
@@ -959,45 +1094,265 @@ def phase_flash(device, layer0, *, cases=FLASH_CASES, reps=10):
     ops = 4 * d * pairs * b * h
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
     bound, by = bound_ms(nbytes, ops, peak)
-    say("flash", f"B={b} S={sq} H={h} Hk={hk} D={d} window={kw['window']} "
+    say(phase, f"B={b} S={sq} H={h} Hk={hk} D={d} window={kw['window']} "
         f"{q.dtype}: kernel {ms:.3f} ms, bound {bound:.4f} ms ({by}: "
         f"{ops / 1e9:.1f} GFLOP over {pairs} live pairs per head, "
         f"{nbytes / 1e6:.1f} MB), plain {plain:.3f} ms, "
         f"scaled_dot_product_attention {lib:.3f} ms (max abs diff from the "
         f"kernel {lib_err:.3g}); kernel / bound {ms / bound:.1f}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                library_ms=lib, max_abs_err=worst)
+                library_ms=lib, max_abs_err=err)
 
 
-def phase_serve_card_vs_cpu(device, *, reduced=False, n_layers=2, seq=1100,
-                            steps=8):
-    """Full width cut to ``n_layers``, float32, on the card and the CPU."""
+# -- the recurrent scans (mamba2_ssd, wkv6) ---------------------------------------
+
+#: (B, S, H, P, N, chunk, b/c dtype, h0, decay, b/c as views): the reduced
+#: (P=32, N=16) and full (P=N=64) widths, tests/test_kernels.py's shape,
+#: chunk 32/64/128, an initial state, decay near the 1e-20 clamp
+#: ("strong"), and b/c read in place as column slices of a wider tensor.
+MAMBA2_CASES = [
+    (2, 128, 2, 8, 16, 32, "float32", False, "normal", False),
+    (2, 256, 4, 32, 16, 32, "float32", False, "normal", False),
+    (2, 256, 4, 32, 16, 64, "bfloat16", True, "normal", False),
+    (1, 512, 8, 64, 64, 128, "float32", False, "normal", False),
+    (1, 256, 8, 64, 64, 64, "float32", True, "normal", True),
+    (2, 384, 80, 64, 64, 128, "bfloat16", True, "normal", False),
+    (1, 256, 4, 64, 64, 128, "float32", True, "strong", False),
+    (1, 256, 4, 32, 16, 64, "bfloat16", False, "strong", True),
+]
+#: (B, S, H, K, chunk, r/k/v dtype, s0, decay): the reduced (K=32) and full
+#: (K=64) widths, tests/test_kernels.py's shape, chunk 32/64/128 (128 with
+#: K=32: the block's shared memory limits chunk x K), an initial state, and
+#: lw down to -20 per step ("strong").
+WKV6_CASES = [
+    (2, 128, 3, 16, 32, "float32", False, "normal"),
+    (2, 256, 4, 32, 32, "float32", False, "normal"),
+    (2, 256, 4, 32, 64, "bfloat16", True, "normal"),
+    (1, 256, 2, 32, 128, "float32", True, "normal"),
+    (1, 512, 8, 64, 64, "float32", False, "normal"),
+    (2, 320, 64, 64, 64, "bfloat16", True, "normal"),
+    (1, 256, 4, 64, 32, "float32", True, "strong"),
+    (1, 256, 4, 64, 64, "bfloat16", False, "strong"),
+]
+
+
+def prefix_tol(prefix) -> float:
+    """Tolerance (atol and rtol) of a scan kernel against its plain version:
+    max(2e-5, 4 * max|prefix| * 2**-24).  Both sum the log decay of a chunk
+    into prefix sums (the kernel in order, the plain version's cumsum in
+    another), and the rounding of a prefix sum of that size enters each
+    gate's exponent; 2e-5 covers the rest of the float32 arithmetic, as
+    tests/test_kernels.py's float32 tolerance does."""
+    return max(2e-5, 4 * float(prefix.abs().max()) * 2.0 ** -24)
+
+
+def chunk_prefix(log_decay, chunk):
+    """In-chunk inclusive prefix sums of ``log_decay`` [B, S, ...]."""
+    b, s = log_decay.shape[:2]
+    return log_decay.reshape(b, s // chunk, chunk, -1).cumsum(dim=2)
+
+
+def mamba2_inputs(case, device, seed):
+    """x, a, b, c, h0 of a MAMBA2_CASES entry from ``seed`` (b and c
+    column slices of one wider tensor where the case asks)."""
+    import numpy as np
+    import torch
+    bsz, s, h, p, n, chunk, dtype, with_h0, decay, views = case
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    x = t(rng.standard_normal((bsz, s, h, p)) * 0.5)
+    if decay == "strong":
+        a = np.exp(-rng.uniform(2.0, 46.0, (bsz, s, h)))
+        a[:, ::7] = 1e-30                    # below the 1e-20 clamp
+    else:
+        a = 1 / (1 + np.exp(-rng.standard_normal((bsz, s, h)))) * 0.5 + 0.45
+    bc = t(rng.standard_normal((bsz, s, 2 * n + (8 if views else 0))) * 0.3)
+    bc = bc.to(getattr(torch, dtype))
+    b, c = bc[..., :n], bc[..., n:2 * n]
+    if not views:
+        b, c = b.contiguous(), c.contiguous()
+    h0 = t(rng.standard_normal((bsz, h, p, n))) if with_h0 else None
+    return x, t(a), b, c, h0
+
+
+def wkv6_inputs(case, device, seed):
+    """r, k, v, lw, u, s0 of a WKV6_CASES entry from ``seed``."""
+    import numpy as np
+    import torch
+    bsz, s, h, kd, chunk, dtype, with_s0, decay = case
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    r, k, v = (t(rng.standard_normal((bsz, s, h, kd)) * 0.5)
+               .to(getattr(torch, dtype)) for _ in range(3))
+    if decay == "strong":
+        lw = -np.exp(rng.uniform(np.log(2.0), np.log(20.0), (bsz, s, h, kd)))
+    else:
+        lw = -np.exp(rng.standard_normal((bsz, s, h, kd)) * 0.5 - 1.5)
+    u = t(rng.standard_normal((h, kd)) * 0.1)
+    s0 = t(rng.standard_normal((bsz, h, kd, kd))) if with_s0 else None
+    return r, k, v, t(lw), u, s0
+
+
+def scan_check(kernel, args, kw, tag, phase):
+    """A scan kernel against its plain version on the same inputs: output
+    and final state within ``prefix_tol`` (atol scaled by the output's
+    RMS where that exceeds 1).  Returns the max abs error over both."""
+    import torch
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2.ref import mamba2_ssd_ref
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    if kernel == "mamba2_ssd":
+        fn, ref = ssd_ops.mamba2_ssd, mamba2_ssd_ref
+        la = torch.log(torch.clamp_min(args[1], 1e-20))
+    else:
+        fn, ref = wkv_ops.wkv6, wkv6_ref
+        la = args[3]
+    tol = prefix_tol(chunk_prefix(la, kw["chunk"]))
+    got = fn(*args, **kw)
+    if args[0].is_cuda:
+        torch.cuda.synchronize()
+    want = ref(*args, **kw)
+    err = 0.0
+    for name, g, w in zip(("output", "final state"), got, want):
+        scale = max(1.0, float(w.square().mean().sqrt()))
+        e = float((g - w).abs().max())
+        err = max(err, e)
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{kernel} {tag}: {name} not finite")
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol * scale,
+                                   msg=lambda m: f"{kernel} {tag} {name}: {m}")
+    say(phase, f"{tag}: max abs err {err:.3g} (tolerance {tol:.3g})")
+    return err
+
+
+def mamba2_work(x, b, chunk):
+    """(bytes, fp32 operations, exponentials) the SSD scan needs on these
+    inputs: x, a, b, c read and y, the final state written once; per (b, h,
+    chunk) the gated intra-chunk product over j <= i, the inter-chunk
+    product and the state update, and the C . B^T Gram once per (b, chunk)
+    (shared across heads)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc, tri = s // chunk, chunk * (chunk + 1) // 2
+    nbytes = (2 * x.numel() * 4 + bsz * s * h * 4 + 2 * bsz * s * n
+              * b.element_size() + bsz * h * p * n * 4)
+    fma = bsz * nc * (h * (tri * (p + 1) + 2 * chunk * p * n) + tri * n)
+    exps = bsz * nc * h * (tri + 2 * chunk)
+    return nbytes, 2 * fma, exps
+
+
+def wkv6_work(r, chunk):
+    """(bytes, fp32 operations, exponentials) the WKV recurrence needs on
+    these inputs: r, k, v, lw read and y, the final state written once; per
+    (b, h, chunk) the strictly lower pairs over K (an exponential and three
+    operations each), their product with v, the bonus, the inter-chunk
+    product and the state update."""
+    bsz, s, h, kd = r.shape
+    nc, tri = s // chunk, chunk * (chunk - 1) // 2
+    nbytes = (3 * r.numel() * r.element_size() + 2 * r.numel() * 4
+              + h * kd * 4 + bsz * h * kd * kd * 4)
+    ops = bsz * nc * h * (3 * tri * kd + 2 * tri * kd + 3 * chunk * kd
+                          + 4 * chunk * kd * kd)
+    exps = bsz * nc * h * (tri * kd + 2 * chunk * kd + kd)
+    return nbytes, ops, exps
+
+
+def scan_bound(nbytes, ops, exps) -> tuple[float, str, str]:
+    """(bound ms, "bytes" or "operations", the pipe: HBM, FMA or SFU)."""
+    times = {"HBM": nbytes / HBM_BYTES_PER_S, "FMA": ops / FP32_OPS_PER_S,
+             "SFU": exps / SFU_OPS_PER_S}
+    pipe = max(times, key=times.get)
+    return times[pipe] * 1e3, "bytes" if pipe == "HBM" else "operations", pipe
+
+
+def phase_scan(device, kernel, layer0, *, reps=10):
+    """One scan kernel against its plain version over its case list and on
+    the serve phase's layer-0 inputs, then its time at that shape; returns
+    its record for the kernels line."""
+    import torch
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2.ref import mamba2_ssd_ref
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    phase = "mamba2" if kernel == "mamba2_ssd" else "wkv6"
+    worst = 0.0
+    if kernel == "mamba2_ssd":
+        for n, case in enumerate(MAMBA2_CASES):
+            x, a, b, c, h0 = mamba2_inputs(case, device, seed=n)
+            tag = ("B={} S={} H={} P={} N={} chunk={} b/c {} h0={} decay={} "
+                   "views={}".format(*case))
+            worst = max(worst, scan_check(kernel, (x, a, b, c),
+                                          dict(chunk=case[5], h0=h0), tag,
+                                          phase))
+    else:
+        for n, case in enumerate(WKV6_CASES):
+            r, k, v, lw, u, s0 = wkv6_inputs(case, device, seed=n)
+            tag = ("B={} S={} H={} K={} chunk={} r/k/v {} s0={} "
+                   "decay={}".format(*case))
+            worst = max(worst, scan_check(kernel, (r, k, v, lw, u),
+                                          dict(chunk=case[4], s0=s0), tag,
+                                          phase))
+    args, kw = layer0["args"], layer0["kw"]
+    shapes = [tuple(t.shape) for t in args if t is not None]
+    worst = max(worst, scan_check(kernel, args, kw,
+                                  f"serve layer 0 inputs {shapes} {kw}",
+                                  phase))
+    if kernel == "mamba2_ssd":
+        fn, ref = ssd_ops.mamba2_ssd, mamba2_ssd_ref
+        work = mamba2_work(args[0], args[2], kw["chunk"])
+    else:
+        fn, ref = wkv_ops.wkv6, wkv6_ref
+        work = wkv6_work(args[0], kw["chunk"])
+    ms = time_ms(lambda: fn(*args, **kw), reps=reps)
+    plain = time_ms(lambda: ref(*args, **kw), reps=3)
+    bound, by, pipe = scan_bound(*work)
+    nbytes, ops, exps = work
+    say(phase, f"{shapes} {kw}: kernel {ms:.3f} ms, bound {bound:.4f} ms "
+        f"({by}, {pipe}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP fp32, "
+        f"{exps / 1e9:.3f} G exponentials), plain {plain:.3f} ms; kernel / "
+        f"bound {ms / bound:.1f}; no PyTorch call computes this function")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                bound_pipe=pipe, library_ms=None, max_abs_err=worst)
+
+
+def model_card_vs_cpu(device, cfg, *, phase, seq, steps):
+    """``cfg`` (float32) on the card and on the CPU from the same
+    parameters: one ``seq``-token prompt and ``steps`` decode steps, logits
+    within F32_LOGIT_TOL, greedy tokens equal.  The card's prefill must
+    launch each kernel of ``cfg`` once per block (``launches_per_prefill``).
+    The card's prefill of the prompt plus the first and the last k
+    generated tokens must also agree with its k-th decode step within
+    F32_LOGIT_TOL: in float32 this holds the caches the prefill hands to
+    decode (a scan kernel's final state among them) far more tightly than
+    the bf16 serve phases can.  Returns the largest logit difference."""
     import copy
     import numpy as np
     import torch
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import model as M
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on; float32 parity needs "
                              "them off")
-    cfg = serve_config(reduced, n_layers=n_layers,
-                       pattern=((n_layers, ("attn",)),), dtype="float32",
-                       param_dtype="float32")
     cpu_params = M.init_params(cfg, seed=1, device="cpu")
     card_params = copy.deepcopy(cpu_params).to(device)
     prompt = np.random.default_rng(1).integers(0, cfg.vocab, (1, seq))
+    ops = kernel_ops()
+    before = {name: op.LAUNCHES for name, op in ops.items()}
     sides = {}
-    before = fa_ops.LAUNCHES
     for name, dev, params in (("card", device, card_params),
                               ("cpu", "cpu", cpu_params)):
         sides[name] = M.prefill(params, cfg, {"tokens": torch.as_tensor(
             prompt, dtype=torch.int32, device=dev)}, max_len=seq + steps)
-    if device != "cpu" and fa_ops.LAUNCHES - before != n_layers:
-        raise AssertionError("the card's prefill did not launch "
-                             "flash_attention once per layer")
+    launched = {name: op.LAUNCHES - before[name] for name, op in ops.items()}
+    if device != "cpu" and launched != launches_per_prefill(cfg):
+        raise AssertionError(f"the card's prefill launched {launched}, "
+                             f"expected {launches_per_prefill(cfg)}")
     worst, swapped = 0.0, 0
+    gen, card_steps = [], []
     for i in range(steps + 1):
         card_logits, cpu_logits = sides["card"][0], sides["cpu"][0]
+        if i:
+            card_steps.append(card_logits)
         err = float((card_logits.cpu() - cpu_logits).abs().max())
         worst = max(worst, err)
         torch.testing.assert_close(card_logits.cpu(), cpu_logits,
@@ -1005,19 +1360,60 @@ def phase_serve_card_vs_cpu(device, *, reduced=False, n_layers=2, seq=1100,
                                    msg=lambda m: f"step {i}: {m}")
         swapped += check_argmax(f"card vs CPU step {i}", cpu_logits,
                                 card_logits, cfg.vocab,
-                                F32_LOGIT_TOL["atol"])
+                                F32_LOGIT_TOL["atol"], phase=phase)
         if i == steps:
             break
         tok = torch.argmax(cpu_logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+        gen.append(tok)
         for name, dev, params in (("card", device, card_params),
                                   ("cpu", "cpu", cpu_params)):
             pos = torch.full((1,), seq + i, dtype=torch.int32, device=dev)
             sides[name] = M.decode_step(params, cfg, sides[name][1],
                                         {"tokens": tok.to(dev)}, pos)
-    say("serve_card_vs_cpu", f"{cfg.name} at full width, {n_layers} layers, "
-        f"float32, prompt {seq}, {steps} decode steps: logits max abs diff "
+    say(phase, f"{cfg.name} at full width, pattern {cfg.pattern}, float32, "
+        f"prompt {seq}, {steps} decode steps: logits max abs diff "
         f"{worst:.3g} ({F32_LOGIT_TOL}), greedy tokens equal"
         f"{f' except {swapped} swapped at a gap under tolerance' if swapped else ''}")
+    for k in sorted({1, steps}):
+        tokens = torch.cat([torch.as_tensor(prompt, dtype=torch.int32)]
+                           + gen[:k], dim=1).to(device)
+        pf, _ = M.prefill(card_params, cfg, {"tokens": tokens},
+                          max_len=seq + steps)
+        err = float((pf - card_steps[k - 1]).abs().max())
+        torch.testing.assert_close(
+            pf, card_steps[k - 1], **F32_LOGIT_TOL,
+            msg=lambda m: f"card prefill + {k} vs decode step {k}: {m}")
+        say(phase, f"{cfg.name}: the card's prefill of prompt + {k} token(s) "
+            f"vs its decode step {k}: max abs diff {err:.3g} "
+            f"({F32_LOGIT_TOL})")
+    return worst
+
+
+def phase_serve_card_vs_cpu(device, *, reduced=False, n_layers=2, seq=1100,
+                            steps=8):
+    """Full width cut to ``n_layers``, float32, on the card and the CPU."""
+    cfg = serve_config(reduced, n_layers=n_layers,
+                       pattern=((n_layers, ("attn",)),), dtype="float32",
+                       param_dtype="float32")
+    return model_card_vs_cpu(device, cfg, phase="serve_card_vs_cpu", seq=seq,
+                             steps=steps)
+
+
+#: The depth cuts of the ssm_card_vs_cpu phase: one mamba block and the
+#: shared attention block for zamba2, 2 layers for rwkv6.
+SSM_CUTS = {"zamba2-2.7b": dict(n_layers=2,
+                                pattern=((1, ("mamba", "shared_attn")),)),
+            "rwkv6-7b": dict(n_layers=2, pattern=((2, ("rwkv",)),))}
+
+
+def phase_ssm_card_vs_cpu(device, *, reduced=False, seq=1100, steps=8):
+    """zamba2 and rwkv6 at full width cut in depth, float32, on the card and
+    the CPU (the prompt is not a multiple of either scan's chunk)."""
+    return {arch: model_card_vs_cpu(
+        device, serve_config(reduced, arch, dtype="float32",
+                             param_dtype="float32", **cut),
+        phase="ssm_card_vs_cpu", seq=seq, steps=steps)
+        for arch, cut in SSM_CUTS.items()}
 
 
 def main() -> int:
@@ -1049,26 +1445,54 @@ def main() -> int:
     timed("fused_vs_scan", phase_fused_vs_scan, device)
     timed("card_vs_cpu", phase_card_vs_cpu, device)
     timed("anchor", phase_anchor, device)
-    params, launches["flash_attention"], layer0, serve = timed(
-        "serve", phase_serve, device)
+    params, served, layer0, serve = timed("serve", phase_serve, device)
+    launches["flash_attention"] = served["flash_attention"]
     say("serve", "metrics " + json.dumps(serve))
     engine_draws, rps = timed("serve_engine", phase_serve_engine, device,
                               params)
     launches["token_select"] += engine_draws
     del params
-    records["flash_attention"] = timed("flash", phase_flash, device, layer0)
+    records["flash_attention"] = timed("flash", phase_flash, device,
+                                       layer0["flash_attention"])
     del layer0
     timed("serve_card_vs_cpu", phase_serve_card_vs_cpu, device)
+    # The recurrent serving paths: zamba2 (mamba2_ssd and flash_attention)
+    # and rwkv6 (wkv6), each with every counter zeroed before it.
+    scan_inputs = {}
+    for arch, phase, kernel in (("zamba2-2.7b", "serve_zamba2", "mamba2_ssd"),
+                                ("rwkv6-7b", "serve_rwkv6", "wkv6")):
+        params, served, layer0, metrics = timed(
+            phase, phase_serve, device, arch, tag=phase)
+        say(phase, "metrics " + json.dumps(metrics))
+        launches["flash_attention"] += served["flash_attention"]
+        launches[kernel] = served[kernel]
+        scan_inputs[kernel] = layer0[kernel]
+        if "flash_attention" in layer0:
+            # zamba2's shared block: MHA 32/32 without a window.
+            timed(f"flash_{arch}", flash_at_shape, layer0["flash_attention"],
+                  phase, f"{arch} layer 0 attention")
+        if arch == "zamba2-2.7b":
+            engine_draws, _ = timed("serve_engine_zamba2", phase_serve_engine,
+                                    device, params, arch=arch,
+                                    tag="serve_engine_zamba2")
+            launches["token_select"] += engine_draws
+        del params, layer0
+    for kernel, phase in (("mamba2_ssd", "mamba2"), ("wkv6", "wkv6")):
+        records[kernel] = timed(phase, phase_scan, device, kernel,
+                                scan_inputs.pop(kernel))
+    timed("ssm_card_vs_cpu", phase_ssm_card_vs_cpu, device)
     say("done", f"phase seconds {json.dumps(seconds)}; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     replaces = {"token_select": "src/repro/kernels/token_select/kernel.py:65",
                 "tick_step": "src/repro/kernels/tick_step/kernel.py:95",
                 "flash_attention":
-                    "src/repro/kernels/flash_attention/kernel.py:77"}
+                    "src/repro/kernels/flash_attention/kernel.py:77",
+                "mamba2_ssd": "src/repro/kernels/mamba2/kernel.py:54",
+                "wkv6": "src/repro/kernels/rwkv6/kernel.py:67"}
     kernels = []
     for name in ("tick_step[themis]", "tick_step[fifo]", "token_select",
-                 "flash_attention"):
+                 "flash_attention", "mamba2_ssd", "wkv6"):
         r = records[name]
         base = name.split("[")[0]
         kernels.append(dict(

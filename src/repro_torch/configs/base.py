@@ -10,11 +10,11 @@ Block kinds: ``attn`` (self-attn + MLP), ``local`` / ``global`` (gemma3
 window/full alternation), ``attn_moe`` (self-attn + MoE FFN), ``mamba``
 (Mamba-2 SSD), ``shared_attn`` (zamba2 shared transformer block; parameters
 shared across invocations), ``rwkv`` (RWKV-6 time-mix + channel-mix),
-``cross`` (cross-attention to stub vision embeddings + MLP).  This slice
-ports the dense kinds ``attn``/``local``/``global`` and the three
-architectures built only of them (:data:`PORTED`); :func:`get_config` of
-any other architecture raises ``NotImplementedError`` naming the slice
-that will bring it.
+``cross`` (cross-attention to stub vision embeddings + MLP).  The port
+runs the dense kinds ``attn``/``local``/``global``, ``mamba`` with
+``shared_attn`` (zamba2) and ``rwkv``, and the architectures built only of
+them (:data:`PORTED`); :func:`get_config` of any other architecture raises
+``NotImplementedError`` naming the slice that will bring it.
 """
 from __future__ import annotations
 
@@ -134,18 +134,18 @@ def register(cfg: ModelConfig, reduced: ModelConfig) -> ModelConfig:
     return cfg
 
 
-#: Architectures this slice of the port runs (config module of each).
+#: Architectures the port runs (config module of each).
 PORTED = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "qwen3-32b": "qwen3_32b",
     "gemma3-4b": "gemma3_4b",
+    "zamba2-2.7b": "zamba2_2_7b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 #: The reference's other architectures, with the slice of the port that
 #: brings each (ROADMAP.md section 1).
 NOT_PORTED = {
-    "zamba2-2.7b": "the zamba2 serving slice (models/ssm.py, mamba2 kernel)",
-    "rwkv6-7b": "the rwkv6 serving slice (models/rwkv.py, wkv6 kernel)",
     "qwen3-moe-30b-a3b": "the slice of the remaining block kinds (attn_moe)",
     "mixtral-8x7b": "the slice of the remaining block kinds (attn_moe)",
     "minicpm3-4b": "the slice of the remaining block kinds (mla)",
@@ -167,7 +167,7 @@ def get_config(name: str, *, reduced: bool = False) -> ModelConfig:
 
 
 def list_archs() -> list[str]:
-    """The architectures this slice runs."""
+    """The architectures the port runs."""
     _ensure_loaded()
     return sorted(_REGISTRY)
 

@@ -96,7 +96,10 @@ def _map_tree(tree, fn):
 def params_from_numpy(jax_params, cfg, device="cpu"):
     """The reference's parameter pytree (numpy or JAX leaves) as the port's
     :class:`~repro_torch.models.model.ModelParams` on ``device``.  Every
-    path and shape must be the one the port's init would make for ``cfg``."""
+    path, shape and dtype must be the one the port's init would make for
+    ``cfg``: ``cfg.param_dtype``, or float32 for the leaves the reference
+    keeps in float32 in any model (the SSM decay, skip and bonus leaves),
+    which cross as float32."""
     from ..models.layers import Init
     from ..models.model import ModelParams, param_specs
 
@@ -106,6 +109,11 @@ def params_from_numpy(jax_params, cfg, device="cpu"):
             if shape != tuple(spec.shape):
                 raise ValueError(f"{path}: shape {shape}, the port's init "
                                  f"makes {tuple(spec.shape)}")
+            dtype = np.asarray(tree).dtype.name
+            want = spec.dtype or cfg.param_dtype
+            if dtype != want:
+                raise ValueError(f"{path}: dtype {dtype}, the port's init "
+                                 f"makes {want}")
             return
         if not isinstance(tree, dict) or set(tree) != set(spec):
             have = sorted(tree) if isinstance(tree, dict) else type(tree)

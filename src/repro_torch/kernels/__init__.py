@@ -1,3 +1,4 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version: ``token_select``, ``tick_step`` and ``flash_attention`` (sources in
-``csrc/``, built by ``_build``)."""
+version: ``token_select``, ``tick_step``, ``flash_attention``, ``mamba2``
+(the SSD scan) and ``rwkv6`` (the WKV recurrence); sources in ``csrc/``,
+built by ``_build``."""

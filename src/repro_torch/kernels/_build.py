@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("token_select", "tick_step", "flash_attention")
+KERNELS = ("token_select", "tick_step", "flash_attention", "mamba2_ssd",
+           "wkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 _CHECKOUT = Path(__file__).resolve().parents[3]

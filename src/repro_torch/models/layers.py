@@ -3,14 +3,15 @@
 The port of ``repro.models.layers``.  Layers are plain functions over
 parameter dicts of tensors (``{"w": ...}``, ``{"scale": ...}``), so the
 model code reads like the reference.  The reference's ``shard_act``
-annotations have no counterpart: this slice runs on one card.
+annotations have no counterpart: the port runs on one card.
 
-The ``*_init`` functions return trees of :class:`Init` leaves (shape and
-rule, nothing allocated); ``repro_torch.models.model.init_params`` draws
-them, ``normal * scale`` from an explicit ``torch.Generator`` in float32
-cast to the parameter dtype.  That does not reproduce ``jax.random``'s bits;
-tests carry the reference's parameters across with
-``repro_torch.core.convert.params_from_numpy`` instead.
+The ``*_init`` functions return trees of :class:`Init` leaves (shape,
+rule and, where the reference pins one, dtype; nothing allocated);
+``repro_torch.models.model.init_params`` draws them, ``normal * scale``
+from an explicit ``torch.Generator`` in float32 cast to the leaf's dtype.
+That does not reproduce ``jax.random``'s bits; tests carry the reference's
+parameters across with ``repro_torch.core.convert.params_from_numpy``
+instead.
 """
 from __future__ import annotations
 
@@ -22,20 +23,38 @@ import torch.nn.functional as F
 
 class Init(NamedTuple):
     """One parameter leaf: ``rule`` is ``normal`` (times ``scale``),
-    ``ones`` or ``zeros``."""
+    ``ones``, ``zeros``, ``full`` (every entry ``value``) or
+    ``log_linspace`` (``log(linspace(1, value, n))`` along the last axis,
+    the same for every leading index).  ``dtype`` pins the leaf's dtype
+    (the reference keeps some SSM leaves in float32 in a bf16 model);
+    ``None`` takes the model's parameter dtype."""
     rule: str
     shape: tuple
     scale: float = 1.0
+    value: float = 0.0
+    dtype: str | None = None
 
 
 def draw(spec: Init, gen: torch.Generator, dtype) -> torch.Tensor:
-    """Materialise one leaf on ``gen``'s device."""
+    """Materialise one leaf on ``gen``'s device, in ``spec.dtype`` if set,
+    else ``dtype``."""
+    dtype = getattr(torch, spec.dtype) if spec.dtype else dtype
+    dev = gen.device
     if spec.rule == "ones":
-        return torch.ones(spec.shape, dtype=dtype, device=gen.device)
+        return torch.ones(spec.shape, dtype=dtype, device=dev)
     if spec.rule == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype, device=gen.device)
+        return torch.zeros(spec.shape, dtype=dtype, device=dev)
+    if spec.rule == "full":
+        return torch.full(spec.shape, spec.value, dtype=torch.float32,
+                          device=dev).to(dtype)
+    if spec.rule == "log_linspace":
+        row = torch.log(torch.linspace(1.0, spec.value, spec.shape[-1],
+                                       dtype=torch.float32, device=dev))
+        return row.expand(spec.shape).to(dtype).contiguous()
+    if spec.rule != "normal":
+        raise ValueError(f"unknown init rule {spec.rule!r}")
     x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
+                    device=dev)
     return (x * spec.scale).to(dtype)
 
 

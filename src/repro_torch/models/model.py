@@ -1,12 +1,16 @@
-"""Decoder LM, dense subset: the ``attn`` / ``local`` / ``global`` blocks.
+"""Composable decoder LM: the dense, Mamba-2 hybrid and RWKV-6 blocks.
 
-The port of ``repro.models.model`` for the architectures built only of
-those kinds (h2o-danube-1.8b, qwen3-32b, gemma3-4b).  Parameters are a
-:class:`ModelParams` module whose parameter names are the reference's
+The port of ``repro.models.model`` for the block kinds ``attn`` /
+``local`` / ``global`` (h2o-danube-1.8b, qwen3-32b, gemma3-4b), ``mamba``
+with ``shared_attn`` (zamba2-2.7b) and ``rwkv`` (rwkv6-7b).  Parameters are
+a :class:`ModelParams` module whose parameter names are the reference's
 pytree paths (``seg0.blk0.attn.wq.w``), each segment's blocks stacked
 ``[repeat, ...]`` as the reference's ``lax.scan`` carries them; the port
-loops over the repeats in Python (``cfg.remat`` has no effect: this slice
-does not train).  Caches are nested dicts of the same stacked layout.
+loops over the repeats in Python (``cfg.remat`` has no effect: the port
+does not train yet).  The shared block's parameters live once in
+``params["shared"]``; its stacked entry is empty.  Caches are nested dicts
+of the same stacked layout: attention ``k``/``v``, mamba ``h`` (float32)
+and ``conv``, rwkv ``s`` (float32), ``prev`` and ``cm_prev``.
 
 Entry points:
   * ``init_params(cfg, seed, device)``                      — ModelParams
@@ -15,9 +19,8 @@ Entry points:
   * ``prefill(params, cfg, batch, max_len)``                — logits, caches
   * ``decode_step(params, cfg, caches, batch, pos)``        — logits, caches
 
-Other block kinds (``mamba``, ``rwkv``, ``mla``, ``attn_moe``, ``cross``,
-``shared_attn``), codebook inputs and ``loss_fn`` raise
-``NotImplementedError``.
+Other block kinds (``mla``, ``attn_moe``, ``cross``), codebook inputs and
+``loss_fn`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,18 +32,19 @@ from torch import nn
 
 from .._device import resolve_device
 from . import attention as A
-from .layers import (Init, draw, embed, embedding_init, linear_init, mlp,
-                     mlp_init, norm_apply, norm_init, sinusoidal_positions)
+from . import rwkv as RW
+from . import ssm as SSM
+from .layers import (Init, draw, embed, embedding_init, linear, linear_init,
+                     mlp, mlp_init, norm_apply, norm_init,
+                     sinusoidal_positions)
 
 NEG_INF = -1e30
 DENSE_KINDS = ("attn", "local", "global")
+KINDS = DENSE_KINDS + ("mamba", "shared_attn", "rwkv")
 
 #: Block kinds of the reference the port does not run yet, with the slice
 #: that brings each.
 _LATER = {
-    "mamba": "the zamba2 serving slice",
-    "shared_attn": "the zamba2 serving slice",
-    "rwkv": "the rwkv6 serving slice",
     "attn_moe": "the slice of the remaining block kinds",
     "mla": "the slice of the remaining block kinds",
     "cross": "the slice of the remaining block kinds",
@@ -52,14 +56,14 @@ def _dt(cfg, which="param") -> torch.dtype:
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not run."""
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
     for _, kinds in cfg.pattern:
         for kind in kinds:
             if kind in _LATER:
                 raise NotImplementedError(
                     f"block kind {kind!r} is not ported yet; it comes with "
                     f"{_LATER[kind]}")
-            if kind not in DENSE_KINDS:
+            if kind not in KINDS:
                 raise ValueError(f"unknown block kind {kind}")
     if cfg.n_codebooks:
         raise NotImplementedError(
@@ -75,14 +79,34 @@ def check_supported(cfg) -> None:
 # init
 # ---------------------------------------------------------------------------
 
-def _block_init(cfg) -> dict:
+def _block_init(kind: str, cfg) -> dict:
     d = cfg.d_model
-    return {"ln1": norm_init(cfg.norm, d),
+    if kind in DENSE_KINDS:
+        return {"ln1": norm_init(cfg.norm, d),
+                "attn": A.attn_init(cfg),
+                "ln2": norm_init(cfg.norm, d),
+                "mlp": mlp_init(d, cfg.d_ff, cfg.act,
+                                out_scale=cfg.d_ff ** -0.5
+                                / math.sqrt(2 * cfg.n_layers))}
+    if kind == "mamba":
+        return {"ln1": norm_init(cfg.norm, d), "mamba": SSM.mamba2_init(cfg)}
+    if kind == "rwkv":
+        return {"ln1": norm_init("ln", d), "tm": RW.rwkv6_init(cfg),
+                "ln2": norm_init("ln", d), "cm": RW.channelmix_init(cfg)}
+    return {}  # shared_attn: parameters live in params["shared"]
+
+
+def _shared_attn_init(cfg) -> dict:
+    d = cfg.d_model
+    return {"in_proj": linear_init(2 * d, d),
+            "ln1": norm_init(cfg.norm, d),
             "attn": A.attn_init(cfg),
             "ln2": norm_init(cfg.norm, d),
-            "mlp": mlp_init(d, cfg.d_ff, cfg.act,
-                            out_scale=cfg.d_ff ** -0.5
-                            / math.sqrt(2 * cfg.n_layers))}
+            "mlp": mlp_init(d, cfg.d_ff, cfg.act)}
+
+
+def _has_shared(cfg) -> bool:
+    return any("shared_attn" in kinds for _, kinds in cfg.pattern)
 
 
 def _stacked(tree, rep: int):
@@ -99,16 +123,18 @@ def param_specs(cfg) -> dict:
     if not cfg.tie_embeddings:
         specs["head"] = linear_init(cfg.d_model, cfg.vocab_padded)
     specs["final_norm"] = norm_init(cfg.norm, cfg.d_model)
+    if _has_shared(cfg):
+        specs["shared"] = _shared_attn_init(cfg)
     for si, (rep, kinds) in enumerate(cfg.pattern):
-        specs[f"seg{si}"] = {f"blk{j}": _stacked(_block_init(cfg), rep)
-                             for j in range(len(kinds))}
+        specs[f"seg{si}"] = {f"blk{j}": _stacked(_block_init(kind, cfg), rep)
+                             for j, kind in enumerate(kinds)}
     return specs
 
 
 class ModelParams(nn.Module):
     """A node of the parameter tree.  ``node["wq"]`` reads like the
     reference's dicts; leaves are ``nn.Parameter``s that need no gradient
-    (this slice serves, it does not train)."""
+    (the port serves, it does not train yet)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -136,8 +162,9 @@ def _materialize(specs, gen, dtype):
 
 
 def init_params(cfg, seed: int = 0, device="cuda") -> ModelParams:
-    """Random parameters from ``seed`` in ``cfg.param_dtype`` on ``device``
-    (the card unless the caller asks for the CPU)."""
+    """Random parameters from ``seed`` in ``cfg.param_dtype`` (float32 where
+    the reference pins it) on ``device`` (the card unless the caller asks
+    for the CPU)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -145,7 +172,7 @@ def init_params(cfg, seed: int = 0, device="cuda") -> ModelParams:
 
 
 def count_params(cfg, active_only: bool = False) -> int:
-    """Exact parameter count from the port's init shapes (dense kinds only:
+    """Exact parameter count from the port's init shapes (no MoE kinds yet:
     every parameter is active)."""
     def total(tree):
         if isinstance(tree, Init):
@@ -174,10 +201,40 @@ def _attn_kind_args(cfg, kind):
     return dict(window=0, theta=cfg.rope_theta)
 
 
-def _apply_block_seq(kind, p, cfg, x, ctx, want_cache):
+def _apply_block_seq(kind, p, shared, cfg, x, ctx, want_cache):
     """Returns (x, cache_entry_or_None)."""
-    ka = _attn_kind_args(cfg, kind)
-    h = norm_apply(cfg.norm, p["ln1"], x)
+    if kind == "mamba":
+        h = norm_apply(cfg.norm, p["ln1"], x)
+        if want_cache:
+            y, st = SSM.mamba2_forward(p["mamba"], cfg, h, chunk=cfg.ssm_chunk,
+                                       return_state=True)
+            return x + y, st
+        return x + SSM.mamba2_forward(p["mamba"], cfg, h,
+                                      chunk=cfg.ssm_chunk), None
+    if kind == "rwkv":
+        h = norm_apply("ln", p["ln1"], x)
+        if want_cache:
+            y, tm_state = RW.rwkv6_timemix(p["tm"], cfg, h,
+                                           chunk=cfg.rwkv_chunk,
+                                           return_state=True)
+            x = x + y
+            h2 = norm_apply("ln", p["ln2"], x)
+            y2, cm_prev = RW.channelmix(p["cm"], cfg, h2, return_state=True)
+            return x + y2, {"s": tm_state["s"], "prev": tm_state["prev"],
+                            "cm_prev": cm_prev}
+        x = x + RW.rwkv6_timemix(p["tm"], cfg, h, chunk=cfg.rwkv_chunk)
+        x = x + RW.channelmix(p["cm"], cfg, norm_apply("ln", p["ln2"], x))
+        return x, None
+    if kind == "shared_attn":
+        # The shared block projects [x, x0] (x0: the step's embedded input)
+        # and takes the config's window, as the reference's prefill does.
+        p = shared
+        h = linear(p["in_proj"], torch.cat([x, ctx["x0"]], dim=-1))
+        h = norm_apply(cfg.norm, p["ln1"], h)
+        ka = dict(window=cfg.window, theta=cfg.rope_theta)
+    else:
+        ka = _attn_kind_args(cfg, kind)
+        h = norm_apply(cfg.norm, p["ln1"], x)
     out = A.gqa_forward(p["attn"], cfg, h, ctx["positions"], causal=True,
                         schedule=cfg.attn_schedule, block_q=cfg.block_q,
                         block_k=cfg.block_k, return_kv=want_cache, **ka)
@@ -226,13 +283,15 @@ def embed_inputs(params, cfg, batch, *, pos_offset=0):
 @torch.no_grad()
 def forward_hidden(params, cfg, batch, *, want_caches=False, max_len=0):
     """Full-sequence forward. Returns (hidden, caches, aux); ``aux`` is 0
-    (no MoE in the dense kinds)."""
+    (no MoE kinds yet)."""
     check_supported(cfg)
     x = embed_inputs(params, cfg, batch)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
-    ctx = {"positions": positions, "max_len": max_len if max_len else s}
+    ctx = {"positions": positions, "x0": x,
+           "max_len": max_len if max_len else s}
+    shared = params["shared"] if _has_shared(cfg) else None
     caches = {}
     for si, (rep, kinds) in enumerate(cfg.pattern):
         seg_params = params[f"seg{si}"]
@@ -241,16 +300,17 @@ def forward_hidden(params, cfg, batch, *, want_caches=False, max_len=0):
             new_caches = {}
             for j, kind in enumerate(kinds):
                 x, cache = _apply_block_seq(
-                    kind, _layer(seg_params[f"blk{j}"], li), cfg, x, ctx,
-                    want_caches)
+                    kind, _layer(seg_params[f"blk{j}"], li), shared, cfg, x,
+                    ctx, want_caches)
                 if want_caches:
                     new_caches[f"blk{j}"] = cache
             layer_caches.append(new_caches)
         if want_caches:
+            # Each leaf stacked per repeat, as the reference's scan does.
             caches[f"seg{si}"] = {
                 f"blk{j}": {n: torch.stack([lc[f"blk{j}"][n]
                                             for lc in layer_caches])
-                            for n in ("k", "v")}
+                            for n in layer_caches[0][f"blk{j}"]}
                 for j in range(len(kinds))}
     x = norm_apply(cfg.norm, params["final_norm"], x)
     return x, (caches if want_caches else None), torch.zeros(())
@@ -280,23 +340,44 @@ def loss_fn(*args, **kwargs):
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg, batch_size: int, max_len: int, device="cuda"):
-    """Zeroed decode caches ``{"segI": {"blkJ": {"k", "v"}}}``, each
-    ``[repeat, B, C, Hk, D]`` with C the window for windowed layers."""
+    """Zeroed decode caches ``{"segI": {"blkJ": {...}}}``, each leaf
+    ``[repeat, B, ...]``: attention ``k``/``v`` ``[.., C, Hk, D]`` with C the
+    window for windowed layers; mamba ``h`` ``[.., H, P, N]`` (float32) and
+    ``conv`` ``[.., conv - 1, d_inner + 2 N]``; rwkv ``s`` ``[.., H, K, K]``
+    (float32), ``prev`` and ``cm_prev`` ``[.., 1, d]``."""
     check_supported(cfg)
     dev = resolve_device(device)
     adt = _dt(cfg, "act")
+    f32 = torch.float32
+
+    def zeros(shape, dtype=adt):
+        return torch.zeros((rep, batch_size) + shape, dtype=dtype, device=dev)
+
     caches = {}
     for si, (rep, kinds) in enumerate(cfg.pattern):
         seg = {}
         for j, kind in enumerate(kinds):
+            if kind == "mamba":
+                heads = cfg.ssm_d_inner // cfg.ssm_head_dim
+                seg[f"blk{j}"] = {
+                    "h": zeros((heads, cfg.ssm_head_dim, cfg.ssm_state), f32),
+                    "conv": zeros((cfg.ssm_conv - 1,
+                                   cfg.ssm_d_inner + 2 * cfg.ssm_state))}
+                continue
+            if kind == "rwkv":
+                heads = cfg.d_model // cfg.rwkv_head_dim
+                hd = cfg.rwkv_head_dim
+                seg[f"blk{j}"] = {"s": zeros((heads, hd, hd), f32),
+                                  "prev": zeros((1, cfg.d_model)),
+                                  "cm_prev": zeros((1, cfg.d_model))}
+                continue
             c_full = max_len
             if kind == "attn" and cfg.window > 0:
                 c_full = min(cfg.window, max_len)
             if kind == "local":
                 c_full = min(cfg.local_window, max_len)
-            shape = (rep, batch_size, c_full, cfg.n_kv_heads, cfg.head_dim)
-            seg[f"blk{j}"] = {"k": torch.zeros(shape, dtype=adt, device=dev),
-                              "v": torch.zeros(shape, dtype=adt, device=dev)}
+            shape = (c_full, cfg.n_kv_heads, cfg.head_dim)
+            seg[f"blk{j}"] = {"k": zeros(shape), "v": zeros(shape)}
         caches[f"seg{si}"] = seg
     return caches
 
@@ -309,18 +390,43 @@ def prefill(params, cfg, batch, max_len: int):
     return head_logits(params, cfg, x[:, -1:]), caches
 
 
-def _apply_block_decode(kind, p, cfg, x, cache, ctx):
+def _apply_block_decode(kind, p, shared, cfg, x, cache, ctx):
+    """One block of one decode step; ``cache`` (views of the stacked
+    caches) is updated in place."""
+    if kind == "mamba":
+        h = norm_apply(cfg.norm, p["ln1"], x)
+        y, st = SSM.mamba2_decode(p["mamba"], cfg, h, cache)
+        for name in ("h", "conv"):
+            cache[name].copy_(st[name])
+        return x + y
+    if kind == "rwkv":
+        h = norm_apply("ln", p["ln1"], x)
+        y, tm = RW.rwkv6_decode(p["tm"], cfg, h, {"s": cache["s"],
+                                                 "prev": cache["prev"]})
+        x = x + y
+        h2 = norm_apply("ln", p["ln2"], x)
+        y2, cm_prev = RW.channelmix(p["cm"], cfg, h2, state=cache["cm_prev"],
+                                    return_state=True)
+        cache["s"].copy_(tm["s"])
+        cache["prev"].copy_(tm["prev"])
+        cache["cm_prev"].copy_(cm_prev)
+        return x + y2
+    # Decode takes the window of _attn_kind_args (0 for shared_attn), where
+    # the shared block's prefill takes cfg.window, as in the reference.
     ka = _attn_kind_args(cfg, kind)
-    h = norm_apply(cfg.norm, p["ln1"], x)
+    if kind == "shared_attn":
+        p = shared
+        h = linear(p["in_proj"], torch.cat([x, ctx["x0"]], dim=-1))
+        h = norm_apply(cfg.norm, p["ln1"], h)
+    else:
+        h = norm_apply(cfg.norm, p["ln1"], x)
     # The reference's ring test (cache shorter than max_len) picks the
     # layer's window in both branches, so the window is passed as is and
     # decode needs no max_len (nor the reference's _caches_max_len).
-    y, ck, cv = A.gqa_decode(p["attn"], cfg, h, cache["k"], cache["v"],
-                             ctx["pos"], window=ka["window"],
-                             theta=ka["theta"])
+    y, _, _ = A.gqa_decode(p["attn"], cfg, h, cache["k"], cache["v"],
+                           ctx["pos"], window=ka["window"], theta=ka["theta"])
     x = x + y
-    x = x + mlp(p["mlp"], norm_apply(cfg.norm, p["ln2"], x), cfg.act)
-    return x, {"k": ck, "v": cv}
+    return x + mlp(p["mlp"], norm_apply(cfg.norm, p["ln2"], x), cfg.act)
 
 
 @torch.no_grad()
@@ -333,14 +439,15 @@ def decode_step(params, cfg, caches, batch, pos):
     """
     check_supported(cfg)
     x = embed_inputs(params, cfg, batch, pos_offset=pos[0])
-    ctx = {"pos": pos}
+    ctx = {"pos": pos, "x0": x}
+    shared = params["shared"] if _has_shared(cfg) else None
     for si, (rep, kinds) in enumerate(cfg.pattern):
         seg_params = params[f"seg{si}"]
         seg_cache = caches[f"seg{si}"]
         for li in range(rep):
             for j, kind in enumerate(kinds):
-                x, _ = _apply_block_decode(
-                    kind, _layer(seg_params[f"blk{j}"], li), cfg, x,
+                x = _apply_block_decode(
+                    kind, _layer(seg_params[f"blk{j}"], li), shared, cfg, x,
                     _layer(seg_cache[f"blk{j}"], li), ctx)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     return head_logits(params, cfg, x), caches

@@ -6,10 +6,11 @@ Skipped without a CUDA card.  On the card::
 
 Kernels are held to their plain versions with the tolerance of
 ``repro_torch.kernels.parity`` (flash attention: 2e-5 in float32, 2e-2 in
-bf16); the engine's fused and scan paths must agree bit for bit in integer
-state, the engine on the card must agree with the engine on the CPU
-(``chip_smoke.phase_card_vs_cpu``), and so must the dense model
-(``chip_smoke.phase_serve_card_vs_cpu``)."""
+bf16; the scans: ``chip_smoke.prefix_tol``); the engine's fused and scan
+paths must agree bit for bit in integer state, the engine on the card must
+agree with the engine on the CPU (``chip_smoke.phase_card_vs_cpu``), and so
+must the dense and the recurrent models
+(``chip_smoke.phase_serve_card_vs_cpu``, ``phase_ssm_card_vs_cpu``)."""
 import importlib.util
 from pathlib import Path
 
@@ -119,3 +120,41 @@ def test_dense_model_on_card_matches_cpu(card):
     700 tokens (through the flash kernel) and 3 decode steps, logits within
     1e-3 of the CPU's."""
     smoke.phase_serve_card_vs_cpu("cuda", n_layers=1, seq=700, steps=3)
+
+
+@pytest.mark.parametrize("case", smoke.MAMBA2_CASES,
+                         ids=lambda c: "B{}-S{}-H{}-P{}-N{}-L{}-{}-h0{}-{}-views{}"
+                         .format(*c))
+def test_mamba2_kernel_matches_plain_version(card, case):
+    """(B, S, H, P, N, chunk, b/c dtype, h0, decay, views) of chip_smoke's
+    mamba2 phase: output and final state within ``prefix_tol``; one launch
+    per call."""
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    x, a, b, c, h0 = smoke.mamba2_inputs(case, card, seed=case[1] + case[3])
+    before = ssd_ops.LAUNCHES
+    smoke.scan_check("mamba2_ssd", (x, a, b, c), dict(chunk=case[5], h0=h0),
+                     str(case), "mamba2")
+    assert ssd_ops.LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("case", smoke.WKV6_CASES,
+                         ids=lambda c: "B{}-S{}-H{}-K{}-L{}-{}-s0{}-{}"
+                         .format(*c))
+def test_wkv6_kernel_matches_plain_version(card, case):
+    """(B, S, H, K, chunk, r/k/v dtype, s0, decay) of chip_smoke's wkv6
+    phase: output and final state within ``prefix_tol``; one launch per
+    call."""
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    r, k, v, lw, u, s0 = smoke.wkv6_inputs(case, card, seed=case[1] + case[3])
+    before = wkv_ops.LAUNCHES
+    smoke.scan_check("wkv6", (r, k, v, lw, u), dict(chunk=case[4], s0=s0),
+                     str(case), "wkv6")
+    assert wkv_ops.LAUNCHES == before + 1
+
+
+def test_recurrent_models_on_card_match_cpu(card):
+    """zamba2 (one mamba block and the shared block) and rwkv6 (2 layers)
+    at full width in float32: prefill of 700 tokens (through the scan
+    kernels and flash) and 3 decode steps, logits within 1e-3 of the
+    CPU's."""
+    smoke.phase_ssm_card_vs_cpu("cuda", seq=700, steps=3)

@@ -1,4 +1,5 @@
-"""The port's dense LM path against the JAX package, on the CPU.
+"""The port's LM path (dense, zamba2 hybrid, rwkv6) against the JAX
+package, on the CPU.
 
 The same numpy inputs (and the reference's parameters, carried across with
 ``repro_torch.core.convert.params_from_numpy``) go through the reference's
@@ -27,7 +28,8 @@ from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 
-ARCHS = ("h2o-danube-1.8b", "qwen3-32b", "gemma3-4b")
+ARCHS = ("h2o-danube-1.8b", "qwen3-32b", "gemma3-4b", "zamba2-2.7b",
+         "rwkv6-7b")
 #: float32 on both sides; the two frameworks sum in other orders, so
 #: results agree to a few ulps per op, compounded over a few layers.
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -230,13 +232,15 @@ def test_gqa_decode_with_ring_cache(window):
 
 # -- the model: prefill and greedy decode ------------------------------------------
 
+#: 150 is not a multiple of zamba2's SSD chunk (128) nor of rwkv6's WKV
+#: chunk (64), so the padded tail of both scans runs.
 SEQ, DECODE_STEPS = 150, 6
 
 
 def _cfgs(arch):
     """Reduced config on both sides with 32 x 32 tiles, so a 150-token
     prompt takes the blocked path, past the window (64) and gemma3's local
-    window (32)."""
+    window (32), and zamba2's shared block takes it too."""
     return (dataclasses.replace(ref_get_config(arch, reduced=True),
                                 block_q=32, block_k=32),
             dataclasses.replace(tcfg.get_config(arch, reduced=True),
@@ -330,6 +334,56 @@ def test_param_count_matches_reference(arch):
             == dataclasses.asdict(ref_get_config(arch, reduced=reduced))
 
 
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-7b"])
+def test_params_from_numpy_keeps_float32_leaves(arch):
+    """In a bf16 model the reference keeps the SSM decay, skip and bonus
+    leaves in float32; they cross as float32, bit for bit, and the port's
+    own init makes them float32 too."""
+    rcfg = dataclasses.replace(ref_get_config(arch, reduced=True),
+                               param_dtype="bfloat16", dtype="bfloat16")
+    cfg = dataclasses.replace(tcfg.get_config(arch, reduced=True),
+                              param_dtype="bfloat16", dtype="bfloat16")
+    np_params = jax.tree.map(np.asarray,
+                             RM.init_params(jax.random.PRNGKey(3), rcfg))
+    params = convert.params_from_numpy(np_params, cfg)
+    own = dict(TM.init_params(cfg, device="cpu").named_parameters())
+    flat = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{path}{k}.")
+            else:
+                flat[f"{path}{k}"] = v
+    walk(np_params, "")
+    got = dict(params.named_parameters())
+    assert set(got) == set(flat) == set(own)
+    f32 = {n for n, a in flat.items() if a.dtype == np.float32}
+    want = ({"a_log", "dt_bias", "d_skip"} if arch == "zamba2-2.7b"
+            else {"w0", "u"})
+    assert {n.split(".")[-1] for n in f32} == want
+    for name, leaf in flat.items():
+        t = got[name]
+        assert t.dtype == (torch.float32 if name in f32 else torch.bfloat16)
+        assert own[name].dtype == t.dtype, name
+        back = convert.tensor_to_numpy(t)
+        assert back.dtype == leaf.dtype
+        np.testing.assert_array_equal(back.view(np.uint8), leaf.view(np.uint8))
+    # The port's constant leaves equal the reference's.
+    for name in flat:
+        if name.split(".")[-1] in ("a_log", "w0", "mu", "dt_bias", "d_skip"):
+            close(own[name].float(), np.asarray(flat[name], np.float32),
+                  rtol=1e-6, atol=1e-6)
+    leaf_name = next(iter(f32))
+    *path, last = leaf_name.split(".")
+    node = np_params
+    for k in path:
+        node = node[k]
+    node[last] = node[last].astype(jnp.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        convert.params_from_numpy(np_params, cfg)
+
+
 def test_params_from_numpy_round_trip_with_bf16():
     rcfg = dataclasses.replace(ref_get_config("h2o-danube-1.8b", reduced=True),
                                param_dtype="bfloat16")
@@ -356,9 +410,9 @@ def test_params_from_numpy_round_trip_with_bf16():
         convert.params_from_numpy(np_params, cfg)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-7b", "mixtral-8x7b",
-                                  "qwen3-moe-30b-a3b", "minicpm3-4b",
-                                  "llama-3.2-vision-11b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-30b-a3b",
+                                  "minicpm3-4b", "llama-3.2-vision-11b",
+                                  "musicgen-medium"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match=arch):
         tcfg.get_config(arch)
@@ -367,8 +421,7 @@ def test_unported_archs_raise(arch):
     assert arch not in tcfg.list_archs()
 
 
-@pytest.mark.parametrize("kind", ["mamba", "rwkv", "mla", "attn_moe",
-                                  "cross", "shared_attn"])
+@pytest.mark.parametrize("kind", ["mla", "attn_moe", "cross"])
 def test_unported_block_kinds_raise(kind):
     cfg = dataclasses.replace(tcfg.get_config("qwen3-32b", reduced=True),
                               pattern=((1, ("attn", kind)),))

@@ -6,8 +6,8 @@ with ``params_from_numpy``) and the same prompts.  The admission draws use
 bit-exact copies of ``jax.random``'s threefry and the same policy chain, so
 the tenant admission sequence must be equal, and so must every request's
 greedy tokens and the tokens decoded per tenant (float32, reduced
-h2o-danube-1.8b: the logits agree to ~1e-5, far inside every argmax gap
-these prompts meet).
+h2o-danube-1.8b, zamba2-2.7b and rwkv6-7b: the logits agree to ~1e-5, far
+inside every argmax gap these prompts meet).
 """
 import sys
 
@@ -189,6 +189,54 @@ def test_serve_cli_matches_reference(monkeypatch, capsys):
     eng, reqs = launch.main(["--requests", "9", "--policy", "size-fair",
                              "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
+    assert out[0].split(" (")[0] == ref_out[0]
+    assert out[1] == ref_out[1]
+    assert all(r.finished_at is not None for r in reqs)
+
+
+@pytest.fixture(scope="module", params=["zamba2-2.7b", "rwkv6-7b"])
+def recurrent_setup(request):
+    rcfg = ref_get_config(request.param, reduced=True)
+    cfg = get_config(request.param, reduced=True)
+    ref_params = RM.init_params(jax.random.PRNGKey(0), rcfg)
+    params = convert.params_from_numpy(jax.tree.map(np.asarray, ref_params),
+                                       cfg)
+    return rcfg, cfg, ref_params, params
+
+
+def test_recurrent_engine_matches_reference(recurrent_setup):
+    """Reduced zamba2 / rwkv6 in ServeEngine, request tokens equal to the
+    reference engine's.  Both engines feed a new slot's prompt by decode
+    steps over every slot, so the recurrent states (mamba h/conv, rwkv
+    s/prev/cm_prev) of the other active slots advance once per fed prompt
+    token: the requests admitted while another is decoding see that, and
+    the port must match the reference token for token all the same."""
+    def submit(eng, tenant_cls):
+        rng = np.random.default_rng(4)
+        tenants = [tenant_cls(tenant_id=i, user=i, size=1 + i)
+                   for i in range(2)]
+        return [eng.submit(tenants[i % 2],
+                           rng.integers(0, eng.cfg.vocab, size=3 + i % 4),
+                           max_new=4 + i % 3) for i in range(6)]
+    ref, ref_reqs, eng, reqs = both(recurrent_setup, submit, batch_slots=2,
+                                    max_len=48, policy="size-fair", seed=3)
+    assert all(r.finished_at is not None for r in reqs)
+    assert len(eng.admitted) == 6
+    assert_same(ref, ref_reqs, eng, reqs)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-7b"])
+def test_serve_cli_runs_recurrent_archs(arch, monkeypatch, capsys):
+    """``--arch zamba2-2.7b`` / ``rwkv6-7b`` with ``--device cpu``: the
+    same completions, ticks and tokens per tenant as the reference CLI."""
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch, "--requests",
+                                      "5"])
+    ref_launch.main()
+    ref_out = capsys.readouterr().out.splitlines()
+    eng, reqs = launch.main(["--arch", arch, "--requests", "5", "--device",
+                             "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert eng.cfg.name == arch
     assert out[0].split(" (")[0] == ref_out[0]
     assert out[1] == ref_out[1]
     assert all(r.finished_at is not None for r in reqs)

@@ -108,12 +108,85 @@ def test_serve_phases_rehearse_on_the_cpu(monkeypatch):
     monkeypatch.setattr(smoke, "time_ms", lambda fn, reps=1: (fn(), 1.0)[1])
     params, launches, layer0, metrics = smoke.phase_serve(
         "cpu", reduced=True, seq=600, steps=8)
-    assert launches == 0 and layer0["q"].shape == (2, 600, 8, 16)
+    assert launches == {"flash_attention": 0, "mamba2_ssd": 0, "wkv6": 0}
+    assert set(layer0) == {"flash_attention"}
+    assert layer0["flash_attention"]["args"][0].shape == (2, 600, 8, 16)
     assert metrics["prefill_vs_decode_max_abs"] < 1e-4
     draws, rps = smoke.phase_serve_engine("cpu", params, reduced=True)
     assert draws == 0 and rps > 0
     record = smoke.phase_flash(
-        "cpu", layer0, cases=[(1, 70, 70, 8, 2, 80, 16, True, 0, 0),
-                              (1, 36, 100, 4, 2, 18, 32, True, 64, 2)])
+        "cpu", layer0["flash_attention"],
+        cases=[(1, 70, 70, 8, 2, 80, 16, True, 0, 0),
+               (1, 36, 100, 4, 2, 18, 32, True, 64, 2)])
     assert record["max_abs_err"] == 0.0 and record["bound_by"] == "operations"
     smoke.phase_serve_card_vs_cpu("cpu", reduced=True, seq=600, steps=2)
+
+
+@pytest.mark.parametrize("arch,kernel", [("zamba2-2.7b", "mamba2_ssd"),
+                                         ("rwkv6-7b", "wkv6")])
+def test_recurrent_serve_phases_rehearse_on_the_cpu(monkeypatch, arch,
+                                                    kernel):
+    """serve_zamba2 / serve_rwkv6 at the reduced config on the CPU (the
+    plain scans, no launch; 600 tokens, not a multiple of either chunk),
+    the scan phase on the inputs they recorded with a short case list, and
+    zamba2's ServeEngine against its CPU self."""
+    monkeypatch.setattr(smoke, "time_ms", lambda fn, reps=1: (fn(), 1.0)[1])
+    monkeypatch.setattr(smoke, "MAMBA2_CASES", smoke.MAMBA2_CASES[:1]
+                        + smoke.MAMBA2_CASES[-1:])
+    monkeypatch.setattr(smoke, "WKV6_CASES", smoke.WKV6_CASES[:1])
+    params, launches, layer0, metrics = smoke.phase_serve(
+        "cpu", arch, tag=f"serve_{arch}", reduced=True, seq=600, steps=8)
+    assert launches == {"flash_attention": 0, "mamba2_ssd": 0, "wkv6": 0}
+    assert kernel in layer0
+    assert ("flash_attention" in layer0) == (arch == "zamba2-2.7b")
+    assert metrics["prefill_vs_decode_max_abs"] < 1e-4
+    if arch == "zamba2-2.7b":
+        draws, _ = smoke.phase_serve_engine("cpu", params, arch=arch,
+                                            reduced=True)
+        assert draws == 0
+    record = smoke.phase_scan("cpu", kernel, layer0[kernel])
+    assert record["max_abs_err"] == 0.0 and record["library_ms"] is None
+    assert record["bound_by"] == "operations"
+
+
+def test_scan_bounds_and_counts():
+    """Per-prefill launches from the pattern; the scans' work counts at the
+    serving shapes and the pipe that bounds each."""
+    from repro_torch.configs.base import get_config
+    assert smoke.launches_per_prefill(get_config("zamba2-2.7b")) == {
+        "flash_attention": 9, "mamba2_ssd": 54, "wkv6": 0}
+    assert smoke.launches_per_prefill(get_config("rwkv6-7b")) == {
+        "flash_attention": 0, "mamba2_ssd": 0, "wkv6": 32}
+    assert smoke.launches_per_prefill(get_config("h2o-danube-1.8b")) == {
+        "flash_attention": 24, "mamba2_ssd": 0, "wkv6": 0}
+    x = torch.empty(2, 6144, 80, 64, device="meta")
+    b = torch.empty(2, 6144, 64, dtype=torch.bfloat16, device="meta")
+    nbytes, ops, exps = smoke.mamba2_work(x, b, 128)
+    assert nbytes == 2 * x.numel() * 4 + 2 * 6144 * 80 * 4 \
+        + 2 * 2 * 6144 * 64 * 2 + 2 * 80 * 64 * 64 * 4
+    assert smoke.scan_bound(nbytes, ops, exps)[1:] == ("operations", "FMA")
+    r = torch.empty(2, 6016, 64, 64, dtype=torch.bfloat16, device="meta")
+    nbytes, ops, exps = smoke.wkv6_work(r, 64)
+    assert exps == 2 * 94 * 64 * (64 * 63 // 2 * 64 + 2 * 64 * 64 + 64)
+    assert smoke.scan_bound(nbytes, ops, exps)[1:] == ("operations", "SFU")
+    assert smoke.prefix_tol(torch.tensor([-1.0, -3.0])) == 2e-5
+    assert smoke.prefix_tol(torch.tensor([-2000.0])) == \
+        pytest.approx(4 * 2000 * 2.0 ** -24)
+
+
+def test_drift_probe_rehearses_on_the_cpu(monkeypatch, capsys):
+    """tools/profile_torch_drift.py at the reduced zamba2 config on the CPU
+    (float32 there, so every gap is float32 rounding and bf16 equals
+    float32)."""
+    root = Path(__file__).resolve().parent.parent
+    monkeypatch.syspath_prepend(str(root))         # the tool imports chip_smoke
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_drift", root / "tools" / "profile_torch_drift.py")
+    drift = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(drift)
+    monkeypatch.setattr(drift, "SEQ", 200)
+    drift.probe("zamba2-2.7b", device="cpu", reduced=True)
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split(":")[0] for ln in lines] == ["zamba2-2.7b k=1",
+                                                 "zamba2-2.7b k=8"]
+    assert all("prefill max 0 RMS 0" in ln for ln in lines)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's dense serving path spends its time, on a card.
+"""Where the PyTorch port's serving path spends its time, on a card.
 
-    python3 tools/profile_torch_serve.py
+    python3 tools/profile_torch_serve.py [--arch h2o-danube-1.8b]
 
-h2o-danube-1.8b at full width and depth in bf16 (random weights from a
-seed), the shapes of ``chip_smoke.py``'s serve phase: a batched prefill of
-2 x 6000 tokens and greedy decode steps at B = 2.  After one warm-up
+An architecture the port serves (h2o-danube-1.8b by default; zamba2-2.7b,
+rwkv6-7b, ...) at full width and depth in bf16 (random weights from a
+seed), at the shapes of ``chip_smoke.py``'s serve phases: a batched prefill
+of 2 x 6000 tokens and greedy decode steps at B = 2.  After one warm-up
 prefill and 3 warm-up decode steps it profiles one prefill and 8 decode
 steps with ``torch.profiler`` and prints, for each: the host's wall time,
 the device's busy time (the sum of kernel durations on the one stream), the
@@ -14,6 +15,7 @@ take the most device time.  Exits 2 without a card.
 """
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -22,9 +24,12 @@ ROOT = Path(__file__).resolve().parent.parent
 BATCH, SEQ, WARMUP_STEPS, STEPS = 2, 6000, 3, 8
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import numpy as np
     import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="h2o-danube-1.8b")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_serve: needs a CUDA card", file=sys.stderr)
         return 2
@@ -34,8 +39,8 @@ def main() -> int:
     from repro_torch.models import model as M
     from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
 
-    print(f"device: {torch.cuda.get_device_name(0)}")
-    cfg = get_config("h2o-danube-1.8b")
+    print(f"device: {torch.cuda.get_device_name(0)}; arch {args.arch}")
+    cfg = get_config(args.arch)
     params = M.init_params(cfg, seed=0)
     prompt = torch.as_tensor(
         np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, SEQ)),
