@@ -42,22 +42,26 @@ each printing its lines before the last:
                 CPU at the reduced config (a difference only as an
                 edge-band draw)
   flash         the flash_attention kernel against its plain version on the
-                card over a case list (float32 and bf16, MHA and GQA, with
-                and without a window, ragged S, head_dim 16-256, an offset
-                and a non-causal case, the serving shape, and inputs staged
-                by element: head_dim 18, 81 and 250, unaligned views) and
-                on the inputs layer 0 of the serve phase gave it; then its time at that shape beside its
-                bound, the plain version's and scaled_dot_product_attention's
+                card over a case list (float32 on the FMA kernel, bf16 on
+                the tensor-core kernel; MHA and GQA, with and without a
+                window, ragged S, head_dim 16-256, an offset and a
+                non-causal case, the serving shape; every staging path:
+                bf16 by cp.async, float32 by float4, and by element for
+                head_dim 18, 81 and 250 and unaligned views) and on the
+                inputs layer 0 of the serve phase gave it; then its time at
+                that shape beside its bound (tensor cores, SFU exponentials
+                or bytes), the plain version's and
+                scaled_dot_product_attention's
   serve_card_vs_cpu  full width cut to 2 layers, float32: one 1100-token
                 prompt and 8 decode steps on the card and on the CPU,
                 logits within rtol 1e-3 (atol 1e-3), greedy tokens equal
   serve_zamba2  zamba2-2.7b (54 Mamba-2 layers + a shared attention block
                 every 6) as the serve phase: full width and depth, bf16,
                 2 x 6000 tokens (not a multiple of the 128 SSD chunk, so the
-                padded tail runs), 16 decode steps; 54 mamba2_ssd and 9
-                flash_attention launches per prefill; prefill + k tokens
-                against k decode steps holds the scan's final state, which
-                fills the decode cache
+                padded tail runs), 16 decode steps; 54 mamba2_ssd calls
+                (each its three passes) and 9 flash_attention launches per
+                prefill; prefill + k tokens against k decode steps holds
+                the scan's final state, which fills the decode cache
   serve_rwkv6   rwkv6-7b the same way (6000 is not a multiple of the 64 WKV
                 chunk); 32 wkv6 launches per prefill
   serve_engine_zamba2  the serve_engine phase on zamba2-2.7b at full width:
@@ -67,8 +71,10 @@ each printing its lines before the last:
                 output and final state, over a case list (float32 and bf16
                 b/c or r/k/v, the reduced and the full widths, chunk 32, 64
                 and 128, an initial state, strong decay, strided views) and
-                on the inputs layer 0 of the serve phase gave it; then its
-                time at that shape beside its bound (bytes, FMA or
+                on the inputs layer 0 of the serve phase gave it, and each
+                of mamba2_ssd's three passes (chunk_state, state_pass,
+                chunk_scan) against its own plain version; then its time at
+                that shape (and each pass's) beside its bound (bytes, FMA or
                 exponential rate) and the plain version's
   ssm_card_vs_cpu  full width cut in depth, float32 (zamba2: one mamba
                 block plus the shared block; rwkv6: 2 layers): one
@@ -759,6 +765,7 @@ def phase_serve(device, arch=SERVE_ARCH, *, tag="serve", reduced=False,
 
     def run_prefill(tokens, step=prefill, weights=params):
         before = {name: op.LAUNCHES for name, op in ops.items()}
+        passes = dict(ssd_ops.PASS_LAUNCHES)
         t = synced(device)
         logits, caches = step(weights, {"tokens": tokens})
         wall = synced(device) - t
@@ -766,12 +773,19 @@ def phase_serve(device, arch=SERVE_ARCH, *, tag="serve", reduced=False,
         if n != per_prefill:
             raise AssertionError(f"prefill of {tuple(tokens.shape)} launched "
                                  f"{n}, expected {per_prefill}")
+        n_passes = {k: v - passes[k] for k, v in ssd_ops.PASS_LAUNCHES.items()}
+        if set(n_passes.values()) != {n["mamba2_ssd"]}:
+            raise AssertionError(f"prefill launched the mamba2_ssd passes "
+                                 f"{n_passes} times, expected each once per "
+                                 f"call ({n['mamba2_ssd']})")
         if not torch.isfinite(logits).all():
             raise AssertionError("prefill logits are not finite")
         return logits, caches, wall
 
+    ssd_ops = ops["mamba2_ssd"]
     for op in ops.values():
         op.LAUNCHES = 0
+    ssd_ops.PASS_LAUNCHES.update(dict.fromkeys(ssd_ops.PASS_LAUNCHES, 0))
     undo = record_first_calls(layer0)
     try:
         run_prefill(prompt)                                  # warm-up
@@ -953,8 +967,9 @@ def phase_serve_engine(device, params, *, arch=SERVE_ARCH, tag="serve_engine",
 
 #: (B, Sq, Sk, H, Hk, D, window, causal, q_offset, storage_offset): MHA
 #: and GQA 4:1, with and without a window, ragged S, every head_dim the
-#: configs use and more, the serving shape itself, and inputs the kernel
-#: stages one element at a time (head_dim not a multiple of 4, or views
+#: configs use and more (40 and 200 pad to the bf16 kernel's widths 48 and
+#: 256 with cp.async staging), the serving shape itself, and inputs the
+#: kernels stage one element at a time (head_dim 18, 81 or 250, or views
 #: ``storage_offset`` elements into their buffers, so not 16-byte aligned).
 FLASH_CASES = [
     (1, 200, 200, 4, 4, 16, 0, True, 0, 0),
@@ -972,6 +987,8 @@ FLASH_CASES = [
     (2, 300, 300, 4, 4, 81, 0, True, 0, 0),
     (1, 200, 200, 8, 2, 80, 64, True, 0, 2),
     (1, 136, 700, 4, 1, 250, 256, True, 564, 2),
+    (1, 200, 200, 4, 2, 40, 0, True, 0, 0),
+    (1, 136, 700, 4, 1, 200, 256, True, 564, 0),
 ]
 #: tests/test_kernels.py:129: 2e-5 in float32, 2e-2 in bf16 (in float32).
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -1003,13 +1020,25 @@ def flash_inputs(case, dtype, device, seed):
     return out
 
 
-def staged_by_float4(q, k, v) -> bool:
-    """Whether the kernel stages these inputs four elements per load
-    (head_dim a multiple of 4 and every operand aligned to 4 elements), as
-    ``csrc/flash_attention.cu``'s launcher decides."""
-    align = 4 * q.element_size()
-    return q.shape[-1] % 4 == 0 and all(t.data_ptr() % align == 0
+#: The staging paths of ``csrc/flash_attention.cu``, each reached by some
+#: FLASH_CASES entry.
+FLASH_PATHS = ("bf16 by cp.async", "bf16 by element", "float32 by float4",
+               "float32 by element")
+
+
+def flash_path(q, k, v) -> str:
+    """How the kernel stages these inputs, as its launcher decides: bf16 by
+    16-byte cp.async copies when head_dim is a multiple of 8 and every
+    operand is 16-byte aligned; float32 four elements per load when
+    head_dim is a multiple of 4 and every operand is aligned to 4 elements;
+    else element by element."""
+    if q.element_size() == 2:                      # bfloat16
+        fast = q.shape[-1] % 8 == 0 and all(t.data_ptr() % 16 == 0
+                                            for t in (q, k, v))
+        return FLASH_PATHS[0] if fast else FLASH_PATHS[1]
+    fast = q.shape[-1] % 4 == 0 and all(t.data_ptr() % 16 == 0
                                         for t in (q, k, v))
+    return FLASH_PATHS[2] if fast else FLASH_PATHS[3]
 
 
 def flash_check(q, k, v, kw, tag):
@@ -1032,9 +1061,6 @@ def phase_flash(device, layer0, *, cases=FLASH_CASES, reps=10):
     """Returns the flash_attention record for the kernels line; ``layer0``
     is the first call the serve phase made (``record_first_calls``)."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     worst = 0.0
     staging = set()
     for dtype in (torch.float32, torch.bfloat16):
@@ -1042,18 +1068,17 @@ def phase_flash(device, layer0, *, cases=FLASH_CASES, reps=10):
             b, sq, sk, h, hk, d, win, causal, off, store = case
             q, k, v = flash_inputs(case, dtype, device, seed=n)
             kw = dict(causal=causal, window=win, q_offset=off)
-            vec = staged_by_float4(q, k, v)
-            staging.add(vec)
+            path = flash_path(q, k, v)
+            staging.add(path)
             tag = (f"{str(dtype)[6:]} B={b} Sq={sq} Sk={sk} H={h} Hk={hk} "
                    f"D={d} window={win} causal={causal} q_offset={off} "
-                   f"storage_offset={store} staged "
-                   f"{'by float4' if vec else 'by element'}")
+                   f"storage_offset={store} staged {path}")
             err = flash_check(q, k, v, kw, tag)
             worst = max(worst, err)
             say("flash", f"{tag}: max abs err {err:.3g}")
-    if staging != {True, False}:
+    if staging != set(FLASH_PATHS):
         raise AssertionError("the case list left a staging path of the "
-                             "kernel unchecked")
+                             f"kernel unchecked: {set(FLASH_PATHS) - staging}")
     record = flash_at_shape(layer0, "flash", "serve layer 0", reps=reps)
     record["max_abs_err"] = max(worst, record["max_abs_err"])
     return record
@@ -1072,7 +1097,8 @@ def flash_at_shape(layer0, phase, tag, *, reps=10):
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     say(phase, f"{tag} inputs {tuple(q.shape)} / {tuple(k.shape)} "
-        f"{q.dtype} {kw}: max abs err {err:.3g}")
+        f"{q.dtype} {kw}, staged {flash_path(q, k, v)}: max abs err "
+        f"{err:.3g}")
 
     ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, **kw), reps=reps)
     plain = time_ms(lambda: flash_attention_ref(q, k, v, **kw), reps=3)
@@ -1091,17 +1117,22 @@ def flash_at_shape(layer0, phase, tag, *, reps=10):
                     .abs().max())
     pairs = live_pairs(sq, sk, kw["causal"], kw["window"], kw["q_offset"])
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
-    ops = 4 * d * pairs * b * h
-    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    bound, by = bound_ms(nbytes, ops, peak)
+    ops, exps = 4 * d * pairs * b * h, pairs * b * h
+    if q.dtype == torch.bfloat16:
+        bound, by, pipe = pipe_bound(nbytes, ops, exps, BF16_OPS_PER_S,
+                                     "tensor cores")
+    else:
+        bound, by, pipe = pipe_bound(nbytes, ops, exps)
     say(phase, f"B={b} S={sq} H={h} Hk={hk} D={d} window={kw['window']} "
-        f"{q.dtype}: kernel {ms:.3f} ms, bound {bound:.4f} ms ({by}: "
-        f"{ops / 1e9:.1f} GFLOP over {pairs} live pairs per head, "
+        f"{q.dtype}: kernel {ms:.3f} ms, bound {bound:.4f} ms ({by}, "
+        f"{pipe}: {ops / 1e9:.1f} GFLOP and {exps / 1e9:.3f} G "
+        f"exponentials over {pairs} live pairs per head, "
         f"{nbytes / 1e6:.1f} MB), plain {plain:.3f} ms, "
         f"scaled_dot_product_attention {lib:.3f} ms (max abs diff from the "
-        f"kernel {lib_err:.3g}); kernel / bound {ms / bound:.1f}")
+        f"kernel {lib_err:.3g}); kernel / bound {ms / bound:.1f}, kernel / "
+        f"scaled_dot_product_attention {ms / lib:.2f}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                library_ms=lib, max_abs_err=err)
+                bound_pipe=pipe, library_ms=lib, max_abs_err=err)
 
 
 # -- the recurrent scans (mamba2_ssd, wkv6) ---------------------------------------
@@ -1213,17 +1244,67 @@ def scan_check(kernel, args, kw, tag, phase):
     if args[0].is_cuda:
         torch.cuda.synchronize()
     want = ref(*args, **kw)
-    err = 0.0
-    for name, g, w in zip(("output", "final state"), got, want):
-        scale = max(1.0, float(w.square().mean().sqrt()))
-        e = float((g - w).abs().max())
-        err = max(err, e)
-        if not torch.isfinite(g).all():
-            raise AssertionError(f"{kernel} {tag}: {name} not finite")
-        torch.testing.assert_close(g, w, rtol=tol, atol=tol * scale,
-                                   msg=lambda m: f"{kernel} {tag} {name}: {m}")
+    err = max(held(name, g, w, tol, f"{kernel} {tag}")
+              for name, g, w in zip(("output", "final state"), got, want))
     say(phase, f"{tag}: max abs err {err:.3g} (tolerance {tol:.3g})")
     return err
+
+
+def held(name, got, want, tol, tag):
+    """``got`` within ``tol`` of ``want`` (atol scaled by ``want``'s RMS
+    where that exceeds 1), finite; returns the max abs error."""
+    import torch
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{tag} {name}: not finite")
+    scale = max(1.0, float(want.square().mean().sqrt()))
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol * scale,
+                               msg=lambda m: f"{tag} {name}: {m}")
+    return float((got - want).abs().max())
+
+
+def ssd_pass_check(args, kw, tag, phase):
+    """Each pass of the mamba2_ssd kernel against its plain version, on the
+    plain version's outputs of the passes before it: chunk_state (cum and
+    the chunks' own states), state_pass (the states entering each chunk
+    and the final state) and chunk_scan (y), within ``prefix_tol``.
+    Returns the max abs error over the three."""
+    import torch
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2 import ref as ssd_ref
+    x, a, b, c = args
+    chunk, h0 = kw["chunk"], kw["h0"]
+    tol = prefix_tol(chunk_prefix(torch.log(torch.clamp_min(a, 1e-20)),
+                                  chunk))
+    cum, states = ssd_ref.chunk_state_ref(x, a, b, chunk=chunk)
+    got = ssd_ops.chunk_state(x, a, b, chunk=chunk)
+    errs = [held(f"chunk_state {n}", g, w, tol, tag)
+            for n, g, w in zip(("cum", "states"), got, (cum, states))]
+    h_in, hf = ssd_ref.state_pass_ref(states.clone(), cum, h0=h0)
+    got = ssd_ops.state_pass(states.clone(), cum, h0=h0)
+    errs += [held(f"state_pass {n}", g, w, tol, tag)
+             for n, g, w in zip(("states", "final state"), got, (h_in, hf))]
+    y = ssd_ref.chunk_scan_ref(x, b, c, cum, h_in, chunk=chunk)
+    errs.append(held("chunk_scan y", ssd_ops.chunk_scan(x, b, c, cum, h_in,
+                                                        chunk=chunk),
+                     y, tol, tag))
+    say(phase, f"{tag}: passes max abs err chunk_state "
+        f"{max(errs[:2]):.3g}, state_pass {max(errs[2:4]):.3g}, chunk_scan "
+        f"{errs[4]:.3g} (tolerance {tol:.3g})")
+    return max(errs)
+
+
+def ssd_pass_times(args, kw, reps) -> dict:
+    """Device ms of each pass of the mamba2_ssd kernel on these inputs."""
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    x, a, b, c = args
+    chunk = kw["chunk"]
+    cum, states = ssd_ops.chunk_state(x, a, b, chunk=chunk)
+    return {"chunk_state": time_ms(lambda: ssd_ops.chunk_state(
+                x, a, b, chunk=chunk), reps=reps),
+            "state_pass": time_ms(lambda: ssd_ops.state_pass(
+                states, cum, h0=kw["h0"]), reps=reps),
+            "chunk_scan": time_ms(lambda: ssd_ops.chunk_scan(
+                x, b, c, cum, states, chunk=chunk), reps=reps)}
 
 
 def mamba2_work(x, b, chunk):
@@ -1258,9 +1339,12 @@ def wkv6_work(r, chunk):
     return nbytes, ops, exps
 
 
-def scan_bound(nbytes, ops, exps) -> tuple[float, str, str]:
-    """(bound ms, "bytes" or "operations", the pipe: HBM, FMA or SFU)."""
-    times = {"HBM": nbytes / HBM_BYTES_PER_S, "FMA": ops / FP32_OPS_PER_S,
+def pipe_bound(nbytes, ops, exps, ops_per_s=FP32_OPS_PER_S,
+               ops_pipe="FMA") -> tuple[float, str, str]:
+    """(bound ms, "bytes" or "operations", the pipe that bounds: HBM, the
+    operations' pipe (``ops_pipe`` at ``ops_per_s``) or the SFUs'
+    exponentials)."""
+    times = {"HBM": nbytes / HBM_BYTES_PER_S, ops_pipe: ops / ops_per_s,
              "SFU": exps / SFU_OPS_PER_S}
     pipe = max(times, key=times.get)
     return times[pipe] * 1e3, "bytes" if pipe == "HBM" else "operations", pipe
@@ -1270,7 +1354,6 @@ def phase_scan(device, kernel, layer0, *, reps=10):
     """One scan kernel against its plain version over its case list and on
     the serve phase's layer-0 inputs, then its time at that shape; returns
     its record for the kernels line."""
-    import torch
     from repro_torch.kernels.mamba2 import ops as ssd_ops
     from repro_torch.kernels.mamba2.ref import mamba2_ssd_ref
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
@@ -1282,9 +1365,10 @@ def phase_scan(device, kernel, layer0, *, reps=10):
             x, a, b, c, h0 = mamba2_inputs(case, device, seed=n)
             tag = ("B={} S={} H={} P={} N={} chunk={} b/c {} h0={} decay={} "
                    "views={}".format(*case))
-            worst = max(worst, scan_check(kernel, (x, a, b, c),
-                                          dict(chunk=case[5], h0=h0), tag,
-                                          phase))
+            kw = dict(chunk=case[5], h0=h0)
+            worst = max(worst, scan_check(kernel, (x, a, b, c), kw, tag,
+                                          phase),
+                        ssd_pass_check((x, a, b, c), kw, tag, phase))
     else:
         for n, case in enumerate(WKV6_CASES):
             r, k, v, lw, u, s0 = wkv6_inputs(case, device, seed=n)
@@ -1295,18 +1379,21 @@ def phase_scan(device, kernel, layer0, *, reps=10):
                                           phase))
     args, kw = layer0["args"], layer0["kw"]
     shapes = [tuple(t.shape) for t in args if t is not None]
-    worst = max(worst, scan_check(kernel, args, kw,
-                                  f"serve layer 0 inputs {shapes} {kw}",
-                                  phase))
+    tag = f"serve layer 0 inputs {shapes} {kw}"
+    worst = max(worst, scan_check(kernel, args, kw, tag, phase))
     if kernel == "mamba2_ssd":
         fn, ref = ssd_ops.mamba2_ssd, mamba2_ssd_ref
         work = mamba2_work(args[0], args[2], kw["chunk"])
+        worst = max(worst, ssd_pass_check(args, kw, tag, phase))
+        passes = ssd_pass_times(args, kw, reps)
+        say(phase, f"{shapes} {kw}: device ms per pass "
+            + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     else:
         fn, ref = wkv_ops.wkv6, wkv6_ref
         work = wkv6_work(args[0], kw["chunk"])
     ms = time_ms(lambda: fn(*args, **kw), reps=reps)
     plain = time_ms(lambda: ref(*args, **kw), reps=3)
-    bound, by, pipe = scan_bound(*work)
+    bound, by, pipe = pipe_bound(*work)
     nbytes, ops, exps = work
     say(phase, f"{shapes} {kw}: kernel {ms:.3f} ms, bound {bound:.4f} ms "
         f"({by}, {pipe}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP fp32, "

@@ -10,35 +10,66 @@
 //   i + q_offset; key j is live iff j < Sk, (causal) j <= i + q_offset and
 //   (window > 0) i + q_offset - j < window.
 //
-// Arithmetic follows the reference tile by tile in float32: q is scaled on
-// load, a masked score is -1e30, each k tile updates the running max m,
-// the sum l and the accumulator by exp(s - m_new) and exp(m - m_new), and
-// the output is acc / max(l, 1e-30).
+// Both kernels walk, for one 64-query tile of one (b, h), only the live
+// 64-key tiles (causally dead and out-of-window tiles are never loaded);
+// each k tile updates the running max m, the sum l and the accumulator,
+// and the output is acc / max(l, 1e-30).  The KV head of query head h is
+// h / (H / Hk): GQA reads K/V in place, never a repeated copy.  Ragged
+// Sq/Sk are masked at the edges, not padded.
 //
 // Bound on the H100 at the serving shape (B=2, S=6000, H=32, Hk=8, D=80,
 // window 4096, bf16): 16.19 M live (q, k) pairs per head, 4*D operations
 // each, 331 GFLOP per launch, against 154 MB of q/k/v/o; 0.335 ms at the
-// bf16 tensor-core peak (989 TFLOP/s) and 0.046 ms at 3.35 TB/s, so the
-// function is bound by operations.  This first kernel runs them on the fp32
-// FMA pipes (67 TFLOP/s peak), not on the tensor cores, so it sits well
-// above that bound; mma/wgmma, TMA and pipelining are later work.
+// bf16 tensor-core peak (989 TFLOP/s), 0.248 ms for the 1.04 G
+// exponentials on the special-function units (16 per clock per SM) and
+// 0.046 ms at 3.35 TB/s, so the tensor cores bound the function.
 //
-// Design: one 128-thread block per (64-query tile, b*h).  The block keeps
-// its scaled q tile in shared memory and walks only the live 64-key tiles
-// (causally dead and out-of-window tiles are never loaded), staging each K
-// and V tile in shared memory as float32.  Each thread owns a 4 x 8 patch
-// of the 64 x 64 score tile (rows rg + 16i, keys cg + 8j) and the same 4
-// rows of the output over 4-column chunks cg + 8e, so the row max and row
-// sum reduce over the 8 lanes of one row group with warp shuffles.  Every
-// shared load in the inner loops moves 4 floats (q, k and p along the
-// reduced dimension, v along the output columns), which keeps the loops on
-// the FMA pipes rather than on shared-memory issue; q/k/v rows have a
-// stride of an odd number of 16-byte chunks and p rows 8 mod 32 floats, so
-// those loads are free of bank conflicts.  The KV head of query head h is
-// h / (H / Hk): GQA reads K/V in place, never a repeated copy.  Ragged
-// Sq/Sk are masked at the edges, not padded.
+// bfloat16 (every serving prefill): flash_bf16_kernel, FlashAttention-2 on
+// mma.sync.m16n8k16 (bf16 in, float32 accumulate).  One 128-thread block
+// per (b*h, 64-query tile); each warp owns 16 query rows.  K and V tiles
+// are staged as bf16 in a ring of two stages by 16-byte cp.async copies,
+// the next tile's copy in flight while the current tile's products run;
+// rows are padded by 8 elements (an odd number of 16-byte chunks), so the
+// ldmatrix reads of 8 rows fall in 8 distinct bank groups.  S = Q K^T
+// accumulates in float32 and is masked to -inf; the online softmax runs per
+// row in registers (row max and sum over the 4 lanes of a quad) in score
+// units, p = 2^(s c - m c) with c = scale * log2(e) applied in float32 (one
+// FFMA and one ex2.approx.ftz per score; results below 2^-126 flush to 0,
+// invisible beside the row's largest p, 1); P is rounded to bf16 in registers
+// and used as the A operand of P V directly (the m16n8 accumulator layout
+// is the m16n8k16 A layout), so P never touches shared memory; l sums the
+// float32 p.  Rounding P costs ~2^-9 relative per probability, within the
+// bf16 tolerance of 2e-2.  The head width is padded with zeros to a
+// multiple of 16 (an instantiated width DP), and the store is masked.
+// Registers decide the rest: up to DP = 80 the kernel is cut to 128
+// registers, so 4 blocks share an SM, and reads its Q fragments from
+// shared memory per k-step (on an H100 at danube's serving shape 8.5 %
+// faster than 3 blocks with Q in registers: tools/probe_kernel_builds.py,
+// edit q_in_registers); for 96 <= DP <= 128 Q sits in
+// registers; wider heads read Q from shared memory again, the 16 x DP
+// float32 accumulator taking most of a thread's 255 registers.  Heads of a
+// width that is not a multiple of 8, or operands not aligned to 16 bytes,
+// are staged element by element instead of by cp.async.  Query tiles run
+// heaviest first (the last causal tile has the most live keys).  Like
+// every source here it is compiled with --fmad=false; the contractions the
+// kernel wants (the exponent s c - m c, the running sum l * corr + rowsum)
+// are written as __fmaf_rn.
+//
+// float32 (the card-vs-CPU parity checks): flash_fwd_kernel, on the fp32
+// FMA pipes, arithmetic as the reference's tile by tile: q is scaled on
+// load, a masked score is -1e30 and the exponentials are expf.  Each thread owns a 4 x 8 patch of
+// the 64 x 64 score tile (rows rg + 16i, keys cg + 8j) and the same 4 rows
+// of the output over 4-column chunks cg + 8e, so the row max and row sum
+// reduce over the 8 lanes of one row group with warp shuffles.  K and V
+// tiles are staged in shared memory as float32; every shared load in the
+// inner loops moves 4 floats; q/k/v rows have a stride of an odd number of
+// 16-byte chunks and p rows 8 mod 32 floats, so those loads are free of
+// bank conflicts.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -49,25 +80,11 @@ constexpr int kPStride = kBK + 8;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
-// Four consecutive elements from an address aligned to four of them.
+// Four consecutive floats from an address aligned to four of them.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __device__ __forceinline__ float4 scale4(float4 x, float s) {
@@ -328,9 +345,352 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
   return cudaErrorInvalidValue;  // D > 256
 }
 
+
+// ---- bfloat16 on the tensor cores ----------------------------------------
+
+namespace tc {
+
+constexpr int kRows = 64;      // queries per block, 16 per warp
+constexpr int kKeys = 64;      // keys per tile
+constexpr int kThreads = 128;  // 4 warps
+constexpr float kLog2e = 1.4426950408889634f;
+
+using async_copy::smem_addr;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a b for one m16n8k16 tile: a 16 x 16 bf16 (row), b 16 x 8 bf16
+// (col), d 16 x 8 float32.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Stage rows [row0, row0 + 64) of a [rows, D] bf16 operand (row stride
+// ``stride`` elements) into shared rows of ``ld`` elements.  ``async``: D
+// is a multiple of 8 and the operand 16-byte aligned; 16-byte cp.async
+// copies, rows at or past ``nrows`` zero-filled, columns [D, DP) left as
+// they are (zeroed once at the start).  Otherwise element by element, with
+// zeros past ``nrows`` and in columns [D, DP).
+template <int DP>
+__device__ __forceinline__ void stage(const __nv_bfloat16* src,
+                                      __nv_bfloat16* dst, long long stride,
+                                      int row0, int nrows, int D, int ld,
+                                      bool async) {
+  if (async) {
+    const int chunks = D / 8;
+    for (int idx = threadIdx.x; idx < kRows * chunks; idx += kThreads) {
+      const int r = idx / chunks, c = 8 * (idx - r * chunks);
+      const bool live = row0 + r < nrows;
+      const __nv_bfloat16* g = live ? src + (row0 + r) * stride + c : src;
+      async_copy::copy16(dst + r * ld + c, g, live ? 16 : 0);
+    }
+    return;
+  }
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  for (int idx = threadIdx.x; idx < kRows * DP; idx += kThreads) {
+    const int r = idx / DP, c = idx - r * DP;
+    dst[r * ld + c] = row0 + r < nrows && c < D
+                          ? src[(row0 + r) * stride + c] : zero;
+  }
+}
+
+// Blocks per SM the register budget is cut for: 4 for heads up to 80 wide
+// (their Q fragments then come from shared memory), else what the
+// fragments and the accumulator need.
+constexpr int min_blocks(int dp) { return dp <= 80 ? 4 : 1; }
+
+// DP: the head width padded to a multiple of 16 (an instantiated width).
+template <int DP>
+__global__ void __launch_bounds__(kThreads, min_blocks(DP))
+flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
+                  int Hk, int D, int causal, int window, int q_offset,
+                  float scale_log2, int async) {
+  constexpr int kLd = DP + 8;          // shared row stride, elements
+  constexpr int kSteps = DP / 16;      // k-steps of Q K^T
+  constexpr int kOut = DP / 8;         // n-tiles of the output
+  constexpr bool kQInRegs = DP > 80 && DP <= 128;
+  constexpr int kTile = kRows * kLd;   // elements of one staged tile
+  extern __shared__ uint4 smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kTile;      // [2][kKeys][kLd]
+  __nv_bfloat16* vs = ks + 2 * kTile;  // [2][kKeys][kLd]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int bi = bh / H, hi = bh - bi * H;
+  const int kvh = hi / (H / Hk);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heaviest first
+
+  const long long q_row = (long long)H * D;
+  const long long kv_row = (long long)Hk * D;
+  const __nv_bfloat16* qb = q + (long long)bi * Sq * q_row + (long long)hi * D;
+  const __nv_bfloat16* kb =
+      k + (long long)bi * Sk * kv_row + (long long)kvh * D;
+  const __nv_bfloat16* vb =
+      v + (long long)bi * Sk * kv_row + (long long)kvh * D;
+  __nv_bfloat16* ob = o + (long long)bi * Sq * q_row + (long long)hi * D;
+
+  // Live key tiles of this block: [kt_begin, kt_end).
+  const int qa0 = q0 + q_offset;
+  const int qa1 = min(q0 + kRows, Sq) - 1 + q_offset;
+  int kt_end = (Sk + kKeys - 1) / kKeys;
+  if (causal) kt_end = min(kt_end, qa1 / kKeys + 1);
+  int kt_begin = 0;
+  if (window > 0 && qa0 - window + 1 > 0)
+    kt_begin = (qa0 - window + 1) / kKeys;
+
+  if (async) {  // the pad columns [D, DP) stay zero
+    for (int i = threadIdx.x; i < 5 * kTile / 8; i += kThreads)
+      smem_raw[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
+  stage<DP>(qb, qs, q_row, q0, Sq, D, kLd, async);
+  if (kt_begin < kt_end) {
+    stage<DP>(kb, ks, kv_row, kt_begin * kKeys, Sk, D, kLd, async);
+    stage<DP>(vb, vs, kv_row, kt_begin * kKeys, Sk, D, kLd, async);
+  }
+  async_copy::commit();
+
+  // Rows of this thread: r0 = q0 + 16 warp + g and r0 + 8.
+  const int row_lo = q0 + warp * 16 + g;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[kOut][4];
+#pragma unroll
+  for (int n = 0; n < kOut; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  uint32_t qf[kQInRegs ? kSteps : 1][4];
+  // ldmatrix row addresses: A (Q) rows lane & 15, column half lane >> 4; B
+  // of K (two key n-tiles) rows (lane & 7) + 8 (lane >> 4), column half
+  // (lane >> 3) & 1; B of V (transposed) rows (lane & 7) + 8 ((lane >> 3)
+  // & 1), column half lane >> 4.
+  const uint32_t q_addr =
+      smem_addr(qs + (warp * 16 + (lane & 15)) * kLd + 8 * (lane >> 4));
+  const int k_off =
+      ((lane & 7) + 8 * (lane >> 4)) * kLd + 8 * ((lane >> 3) & 1);
+  const int v_off =
+      ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 8 * (lane >> 4);
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
+    const int k0 = kt * kKeys;
+    if (kt + 1 < kt_end) {
+      stage<DP>(kb, ks + (st ^ 1) * kTile, kv_row, k0 + kKeys, Sk, D, kLd,
+                async);
+      stage<DP>(vb, vs + (st ^ 1) * kTile, kv_row, k0 + kKeys, Sk, D, kLd,
+                async);
+      async_copy::commit();
+      async_copy::wait<1>();
+    } else {
+      async_copy::wait<0>();
+    }
+    __syncthreads();
+    if (kQInRegs && kt == kt_begin) {
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+        ldmatrix_x4(qf[kQInRegs ? s : 0], q_addr + 32 * s);
+    }
+
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys.
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+    const uint32_t k_addr = smem_addr(ks + st * kTile + k_off);
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      uint32_t a[4];
+      if (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kQInRegs ? s : 0][e];
+      } else {
+        ldmatrix_x4(a, q_addr + 32 * s);
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, k_addr + 2 * (16 * np * kLd + 16 * s));
+        mma(sc[2 * np], a, b[0], b[1]);
+        mma(sc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+
+    // Mask where the tile needs it.
+    const bool edge = k0 + kKeys > Sk
+                      || (causal && k0 + kKeys - 1 > qa0)
+                      || (window > 0 && qa1 - k0 >= window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          const int rel = row_lo + 8 * (e >> 1) + q_offset - kpos;
+          bool ok = kpos < Sk;
+          if (causal) ok = ok && rel >= 0;
+          if (window > 0) ok = ok && rel < window;
+          if (!ok) sc[j][e] = -INFINITY;
+        }
+    }
+
+    // Online softmax for rows row_lo (e = 0, 1) and row_lo + 8 (e = 2, 3),
+    // in score units; p = 2^(s c - m c) with c = scale * log2(e), one FFMA
+    // and one ex2 per score.  A row with no live key yet has m = -inf; it
+    // takes 0 for m c, so its p (and correction) are 0, not NaN.
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mt = fmaxf(mt, fmaxf(sc[j][2 * hr], sc[j][2 * hr + 1]));
+      const float m_new = fmaxf(m[hr], quad_max(mt));
+      const float ms = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+      const float corr = ex2(__fmaf_rn(m[hr], scale_log2, -ms));
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+          sc[j][e] = ex2(__fmaf_rn(sc[j][e], scale_log2, -ms));
+          rs += sc[j][e];
+        }
+      l[hr] = __fmaf_rn(l[hr], corr, rs);  // this thread's part of the sum
+      m[hr] = m_new;
+#pragma unroll
+      for (int n = 0; n < kOut; ++n) {
+        acc[n][2 * hr] *= corr;
+        acc[n][2 * hr + 1] *= corr;
+      }
+    }
+
+    // acc += P V: P (bf16) as A fragments, 4 k-steps of 16 keys.
+    const uint32_t v_addr = smem_addr(vs + st * kTile + v_off);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                             pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                             pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                             pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < kOut / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, v_addr + 2 * (16 * kk * kLd + 16 * np));
+        mma(acc[2 * np], a, b[0], b[1]);
+        mma(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+  async_copy::wait<0>();  // no copy outlives the block, even with no live tile
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row_lo + 8 * hr;
+    const float denom = fmaxf(quad_sum(l[hr]), 1e-30f);
+    if (row >= Sq) continue;
+    __nv_bfloat16* orow = ob + row * q_row;
+#pragma unroll
+    for (int n = 0; n < kOut; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (col < D) orow[col] = __float2bfloat16_rn(acc[n][2 * hr] / denom);
+      if (col + 1 < D)
+        orow[col + 1] = __float2bfloat16_rn(acc[n][2 * hr + 1] / denom);
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int Sq, int Sk, int H, int Hk, int D, int causal,
+                   int window, int q_offset, float scale,
+                   cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) * 5 * kRows * (DP + 8);
+  const int async = D % 8 == 0 && (size_t)q % 16 == 0 && (size_t)k % 16 == 0
+                    && (size_t)v % 16 == 0;
+  auto kernel = flash_bf16_kernel<DP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Sq, Sk, H, Hk, D, causal,
+      window, q_offset, scale * kLog2e, async);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
+                     int B, int Sq, int Sk, int H, int Hk, int D, int causal,
+                     int window, int q_offset, float scale,
+                     cudaStream_t stream) {
+  if ((Sq + kRows - 1) / kRows > 65535) return cudaErrorInvalidValue;
+#define FLASH_BF16_CASE(DP)                                                  \
+  if (D <= DP)                                                               \
+    return launch<DP>(q, k, v, o, B, Sq, Sk, H, Hk, D, causal, window,      \
+                      q_offset, scale, stream);
+  FLASH_BF16_CASE(16)
+  FLASH_BF16_CASE(32)
+  FLASH_BF16_CASE(48)
+  FLASH_BF16_CASE(64)
+  FLASH_BF16_CASE(80)
+  FLASH_BF16_CASE(96)
+  FLASH_BF16_CASE(128)
+  FLASH_BF16_CASE(160)
+  FLASH_BF16_CASE(192)
+  FLASH_BF16_CASE(256)
+#undef FLASH_BF16_CASE
+  return cudaErrorInvalidValue;  // D > 256
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Returns a cudaError_t (0 on success).
+// dtype: 0 float32 (flash_fwd_kernel), 1 bfloat16 (tc::flash_bf16_kernel).
+// Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Sk, int H, int Hk, int D, int causal,
@@ -344,7 +704,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)dispatch<float>(q, k, v, o, B, Sq, Sk, H, Hk, D, causal,
                                 window, q_offset, scale, st);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, Hk, D,
-                                        causal, window, q_offset, scale, st);
+    return (int)tc::dispatch(q, k, v, o, B, Sq, Sk, H, Hk, D, causal, window,
+                             q_offset, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,8 @@ Skipped without a CUDA card.  On the card::
 
 Kernels are held to their plain versions with the tolerance of
 ``repro_torch.kernels.parity`` (flash attention: 2e-5 in float32, 2e-2 in
-bf16; the scans: ``chip_smoke.prefix_tol``); the engine's fused and scan
+bf16; the scans and each pass of ``mamba2_ssd``:
+``chip_smoke.prefix_tol``); the engine's fused and scan
 paths must agree bit for bit in integer state, the engine on the card must
 agree with the engine on the CPU (``chip_smoke.phase_card_vs_cpu``), and so
 must the dense and the recurrent models
@@ -115,6 +116,22 @@ def test_flash_kernel_matches_plain_version(card, dtype, case):
     assert fa_ops.LAUNCHES == before + 1
 
 
+@pytest.mark.parametrize("d", [80, 128, 256, 81, 255])
+def test_flash_bf16_kernel_head_widths(card, d):
+    """The bf16 tensor-core kernel at the configs' head widths (80 danube
+    and zamba2, 128 qwen3, 256 gemma3) and at odd widths, staged element by
+    element: GQA 4:1, a window, ragged S; one launch per call."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    case = (2, 300, 300, 8, 2, d, 128, True, 0, 0)
+    q, k, v = smoke.flash_inputs(case, torch.bfloat16, card, seed=d)
+    assert smoke.flash_path(q, k, v) == ("bf16 by element" if d % 8
+                                         else "bf16 by cp.async")
+    before = fa_ops.LAUNCHES
+    smoke.flash_check(q, k, v, dict(causal=True, window=128, q_offset=0),
+                      str(case))
+    assert fa_ops.LAUNCHES == before + 1
+
+
 def test_dense_model_on_card_matches_cpu(card):
     """h2o-danube-1.8b at full width cut to one layer, float32: prefill of
     700 tokens (through the flash kernel) and 3 decode steps, logits within
@@ -127,14 +144,30 @@ def test_dense_model_on_card_matches_cpu(card):
                          .format(*c))
 def test_mamba2_kernel_matches_plain_version(card, case):
     """(B, S, H, P, N, chunk, b/c dtype, h0, decay, views) of chip_smoke's
-    mamba2 phase: output and final state within ``prefix_tol``; one launch
-    per call."""
+    mamba2 phase: output and final state within ``prefix_tol``; one call
+    (its three passes) per check."""
     from repro_torch.kernels.mamba2 import ops as ssd_ops
     x, a, b, c, h0 = smoke.mamba2_inputs(case, card, seed=case[1] + case[3])
-    before = ssd_ops.LAUNCHES
+    before = ssd_ops.LAUNCHES, dict(ssd_ops.PASS_LAUNCHES)
     smoke.scan_check("mamba2_ssd", (x, a, b, c), dict(chunk=case[5], h0=h0),
                      str(case), "mamba2")
-    assert ssd_ops.LAUNCHES == before + 1
+    assert ssd_ops.LAUNCHES == before[0] + 1
+    assert all(v == before[1][k] + 1 for k, v in ssd_ops.PASS_LAUNCHES.items())
+
+
+@pytest.mark.parametrize("case", smoke.MAMBA2_CASES, ids=lambda c: (
+    "B{}-S{}-H{}-P{}-N{}-L{}-{}-h0{}-{}-views{}".format(*c)))
+def test_mamba2_passes_match_plain_versions(card, case):
+    """Each of the mamba2_ssd kernel's three passes (chunk_state,
+    state_pass, chunk_scan) against its plain version on the plain
+    outputs of the passes before it, within ``prefix_tol``; one launch of
+    each."""
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    x, a, b, c, h0 = smoke.mamba2_inputs(case, card, seed=case[1] + case[3])
+    before = dict(ssd_ops.PASS_LAUNCHES)
+    smoke.ssd_pass_check((x, a, b, c), dict(chunk=case[5], h0=h0), str(case),
+                         "mamba2")
+    assert all(ssd_ops.PASS_LAUNCHES[k] == before[k] + 1 for k in before)
 
 
 @pytest.mark.parametrize("case", smoke.WKV6_CASES,

@@ -164,11 +164,19 @@ def test_scan_bounds_and_counts():
     nbytes, ops, exps = smoke.mamba2_work(x, b, 128)
     assert nbytes == 2 * x.numel() * 4 + 2 * 6144 * 80 * 4 \
         + 2 * 2 * 6144 * 64 * 2 + 2 * 80 * 64 * 64 * 4
-    assert smoke.scan_bound(nbytes, ops, exps)[1:] == ("operations", "FMA")
+    assert smoke.pipe_bound(nbytes, ops, exps)[1:] == ("operations", "FMA")
     r = torch.empty(2, 6016, 64, 64, dtype=torch.bfloat16, device="meta")
     nbytes, ops, exps = smoke.wkv6_work(r, 64)
     assert exps == 2 * 94 * 64 * (64 * 63 // 2 * 64 + 2 * 64 * 64 + 64)
-    assert smoke.scan_bound(nbytes, ops, exps)[1:] == ("operations", "SFU")
+    assert smoke.pipe_bound(nbytes, ops, exps)[1:] == ("operations", "SFU")
+    # danube's flash shape: 1.04 G exponentials on the SFUs (0.248 ms) stay
+    # under the tensor cores' 0.335 ms.
+    pairs = smoke.live_pairs(6000, 6000, True, 4096, 0) * 2 * 32
+    bound, by, pipe = smoke.pipe_bound(154e6, 4 * 80 * pairs, pairs,
+                                       smoke.BF16_OPS_PER_S, "tensor cores")
+    assert (by, pipe) == ("operations", "tensor cores")
+    assert bound == pytest.approx(0.335, abs=1e-3)
+    assert pairs / smoke.SFU_OPS_PER_S * 1e3 == pytest.approx(0.248, abs=1e-3)
     assert smoke.prefix_tol(torch.tensor([-1.0, -3.0])) == 2e-5
     assert smoke.prefix_tol(torch.tensor([-2000.0])) == \
         pytest.approx(4 * 2000 * 2.0 ** -24)
@@ -190,3 +198,17 @@ def test_drift_probe_rehearses_on_the_cpu(monkeypatch, capsys):
     assert [ln.split(":")[0] for ln in lines] == ["zamba2-2.7b k=1",
                                                  "zamba2-2.7b k=8"]
     assert all("prefill max 0 RMS 0" in ln for ln in lines)
+
+
+def test_probe_edits_still_apply():
+    """tools/probe_kernel_builds.py undoes design choices of the kernel
+    sources by text edits: each must still find its text, once."""
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "probe_kernel_builds", root / "tools" / "probe_kernel_builds.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    for kernel, edits in probe.EDITS.items():
+        builds = probe.sources(kernel, None)
+        assert set(builds) == {"checkout", *edits}
+        assert all(builds[name] != builds["checkout"] for name in edits)

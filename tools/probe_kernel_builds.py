@@ -1,0 +1,248 @@
+#!/usr/bin/env python3
+"""Time builds of the flash_attention and mamba2_ssd kernels side by side,
+on one card.
+
+    python3 tools/probe_kernel_builds.py [--other DIR]
+
+Compiles, with the flags of ``kernels/_build.py``, these builds of
+``csrc/flash_attention.cu`` and ``csrc/mamba2_ssd.cu`` into a temporary
+directory, all started together:
+
+  checkout       the sources as they are;
+  <edit name>    the sources with one design choice undone by a text edit
+                 (``EDITS``), to measure what that choice buys;
+  other          the sources under ``DIR/src/repro_torch/kernels/csrc``
+                 (another checkout, e.g. the parent commit unpacked with
+                 ``git archive``), when ``--other`` is given.
+
+Each build's output is first held to the checkout's plain version (flash:
+``chip_smoke.FLASH_TOL``; mamba2_ssd: ``chip_smoke.prefix_tol``, output and
+final state), then timed at the serving shapes of ``chip_smoke.py`` (flash:
+danube's GQA and zamba2's MHA shape, bf16; mamba2_ssd: zamba2's layer,
+bf16 b/c), the builds in turns, forward then backward, each time the median
+of CUDA-event timings (``chip_smoke.time_ms``).  Prints one line per shape
+with every build's best time and the card's nvidia-smi name and power
+limit.  Exits 2 without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+
+#: kernel -> edit name -> [(text in the source, its replacement)].
+EDITS = {
+    "flash_attention": {
+        # 3 blocks per SM with Q's fragments in registers at D <= 80.
+        "q_in_registers": [
+            ("return dp <= 80 ? 4 : 1;", "return 1;"),
+            ("kQInRegs = DP > 80 && DP <= 128;", "kQInRegs = DP <= 128;")],
+    },
+    "mamba2_ssd": {
+        # The gating with one whole 4 x 4 tile per thread, element by
+        # element (16 threads of a warp on one bank).
+        "gate_tile_per_thread": [(
+            """    for (int k = tid; k < 4 * n_lower; k += kScanThreads) {
+      const int t = k >> 2, i = 4 * (tij[t] & 0xffff) + (k & 3);
+      const int j0 = 4 * (tij[t] >> 16);
+      const float4 gram = tile4::ld4(cb + 4 * k);
+      const float4 cj = tile4::ld4(ch + j0);
+      const float ci = ch[i];
+      tile4::st4(gs + 4 * k,
+                 make_float4(j0 <= i ? gram.x * expf(ci - cj.x) : 0.f,
+                             j0 + 1 <= i ? gram.y * expf(ci - cj.y) : 0.f,
+                             j0 + 2 <= i ? gram.z * expf(ci - cj.z) : 0.f,
+                             j0 + 3 <= i ? gram.w * expf(ci - cj.w) : 0.f));
+    }""",
+            """    for (int t = tid; t < n_lower; t += kScanThreads) {
+      const int ti = tij[t] & 0xffff, tj = tij[t] >> 16;
+      for (int r = 0; r < 4; ++r)
+        for (int c = 0; c < 4; ++c) {
+          const int i = 4 * ti + r, j = 4 * tj + c;
+          const float g = j <= i ? expf(ch[i] - ch[j]) : 0.f;
+          gs[16 * t + 4 * r + c] = cb[16 * t + 4 * r + c] * g;
+        }
+    }""")],
+    },
+}
+
+#: (B, S, H, Hk, D, window) of the serve phases' first flash call.
+FLASH_SHAPES = [(2, 6000, 32, 8, 80, 4096), (2, 6000, 32, 32, 80, 0)]
+#: A chip_smoke.MAMBA2_CASES entry at zamba2's layer shape.
+MAMBA2_SHAPE = (2, 6016, 80, 64, 64, 128, "bfloat16", False, "normal", True)
+
+
+def sources(kernel, other):
+    """{build name: source text} of one kernel."""
+    text = (CSRC / f"{kernel}.cu").read_text()
+    out = {"checkout": text}
+    for name, edits in EDITS[kernel].items():
+        edited = text
+        for old, new in edits:
+            if edited.count(old) != 1:
+                raise SystemExit(f"probe edit {name!r} of {kernel}.cu no "
+                                 f"longer applies: {old[:60]!r}")
+            edited = edited.replace(old, new)
+        out[name] = edited
+    if other is not None:
+        out["other"] = (other / "src" / "repro_torch" / "kernels" / "csrc"
+                        / f"{kernel}.cu").read_text()
+    return out
+
+
+def build_all(other, tmp: Path) -> dict:
+    """{(kernel, build name): ctypes library}; the builds run together."""
+    from repro_torch.kernels import _build
+    procs = {}
+    for kernel in EDITS:
+        for name, text in sources(kernel, other).items():
+            # Next to the checkout's headers (or the other checkout's).
+            inc = (CSRC if name != "other" else
+                   other / "src" / "repro_torch" / "kernels" / "csrc")
+            src = tmp / f"{kernel}-{name}.cu"
+            src.write_text(text)
+            so = tmp / f"{kernel}-{name}.so"
+            procs[kernel, name] = (subprocess.Popen(
+                [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(inc), "-o",
+                 str(so), str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for key, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {key}:\n{log}")
+        libs[key] = ctypes.CDLL(str(so))
+    return libs
+
+
+def flash_call(lib, q, k, v, window):
+    import torch
+    fn = lib.flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
+    b, sq, h, d = q.shape
+    out = torch.empty_like(q)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            k.shape[1], h, k.shape[2], d, 1, window, 0, 1, d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash launch failed: CUDA error {rc}")
+    return out
+
+
+def mamba2_call(lib, x, a, b, c, chunk):
+    """(y, final state) through the three-pass interface, or through the
+    one-launch interface of a build that has it."""
+    import torch
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    stream = torch.cuda.current_stream().cuda_stream
+    y = torch.empty_like(x)
+    hf = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    strides = [*x.stride()[:3], *a.stride()[:2], *b.stride()[:2],
+               *c.stride()[:2]]
+    if hasattr(lib, "mamba2_ssd_launch"):
+        fn = lib.mamba2_ssd_launch
+        fn.argtypes = [P] * 7 + [I] * 6 + [L] * 9 + [I, P]
+        rcs = [fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                  None, y.data_ptr(), hf.data_ptr(), bsz, s, h, p, n, chunk,
+                  *strides, 1, stream)]
+    else:
+        cum = torch.empty((bsz, s // chunk, h, chunk), dtype=torch.float32,
+                          device=x.device)
+        st = torch.empty((bsz, s // chunk, h, n, p), dtype=torch.float32,
+                         device=x.device)
+        f1, f2, f3 = (lib.mamba2_chunk_state_launch,
+                      lib.mamba2_state_pass_launch,
+                      lib.mamba2_chunk_scan_launch)
+        f1.argtypes = [P] * 5 + [I] * 6 + [L] * 7 + [I, P]
+        f2.argtypes = [P] * 4 + [I] * 6 + [P]
+        f3.argtypes = [P] * 6 + [I] * 6 + [L] * 7 + [I, P]
+        rcs = [f1(x.data_ptr(), a.data_ptr(), b.data_ptr(), cum.data_ptr(),
+                  st.data_ptr(), bsz, s, h, p, n, chunk, *strides[:7], 1,
+                  stream),
+               f2(cum.data_ptr(), st.data_ptr(), None, hf.data_ptr(), bsz,
+                  s // chunk, h, p, n, chunk, stream),
+               f3(x.data_ptr(), b.data_ptr(), c.data_ptr(), cum.data_ptr(),
+                  st.data_ptr(), y.data_ptr(), bsz, s, h, p, n, chunk,
+                  *strides[:3], *strides[5:], 1, stream)]
+    if any(rcs):
+        raise RuntimeError(f"mamba2_ssd launch failed: CUDA errors {rcs}")
+    return y, hf
+
+
+def timed_in_turns(calls: dict) -> dict:
+    """{name: best of two medians}, the builds timed forward then back."""
+    import chip_smoke as cs
+    names = list(calls)
+    times = {name: [] for name in names}
+    for order in (names, names[::-1]):
+        for name in order:
+            times[name].append(cs.time_ms(calls[name], reps=10))
+    return {name: min(t) for name, t in times.items()}
+
+
+def main(argv=None) -> int:
+    import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--other", type=Path, default=None,
+                    help="root of another checkout whose kernels to time")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("probe_kernel_builds: needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    import chip_smoke as cs
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.mamba2.ref import mamba2_ssd_ref
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_all(args.other, Path(tmp))
+        for shape in FLASH_SHAPES:
+            b, s, h, hk, d, window = shape
+            q, k, v = cs.flash_inputs((b, s, s, h, hk, d, window, True, 0, 0),
+                                      torch.bfloat16, "cuda", seed=1)
+            want = flash_attention_ref(q, k, v, window=window).float()
+            calls = {}
+            for (kernel, name), lib in libs.items():
+                if kernel != "flash_attention":
+                    continue
+                got = flash_call(lib, q, k, v, window).float()
+                tol = cs.FLASH_TOL["bfloat16"]
+                torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+                calls[name] = (lambda lib=lib: flash_call(lib, q, k, v,
+                                                          window))
+            best = timed_in_turns(calls)
+            print(f"flash_attention B={b} S={s} H={h} Hk={hk} D={d} window="
+                  f"{window} bf16: " + ", ".join(
+                      f"{n} {t:.3f} ms" for n, t in best.items()), flush=True)
+        x, a, b, c, _ = cs.mamba2_inputs(MAMBA2_SHAPE, "cuda", seed=0)
+        chunk = MAMBA2_SHAPE[5]
+        want = mamba2_ssd_ref(x, a, b, c, chunk=chunk)
+        tol = cs.prefix_tol(cs.chunk_prefix(
+            torch.log(torch.clamp_min(a, 1e-20)), chunk))
+        calls = {}
+        for (kernel, name), lib in libs.items():
+            if kernel != "mamba2_ssd":
+                continue
+            for g, w in zip(mamba2_call(lib, x, a, b, c, chunk), want):
+                cs.held(f"{name} build", g, w, tol, "mamba2_ssd")
+            calls[name] = lambda lib=lib: mamba2_call(lib, x, a, b, c, chunk)
+        best = timed_in_turns(calls)
+        print(f"mamba2_ssd {tuple(x.shape)} chunk {chunk} b/c bf16: "
+              + ", ".join(f"{n} {t:.3f} ms" for n, t in best.items()),
+              flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
