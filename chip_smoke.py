@@ -47,7 +47,8 @@ each printing its lines before the last:
                 window, ragged S, head_dim 16-256, an offset and a
                 non-causal case, the serving shape; every staging path:
                 bf16 by cp.async, float32 by float4, and by element for
-                head_dim 18, 81 and 250 and unaligned views) and on the
+                head_dim 18, 81 and 250 and unaligned views; rows with no
+                live key, written by the second kernel) and on the
                 inputs layer 0 of the serve phase gave it; then its time at
                 that shape beside its bound (tensor cores, SFU exponentials
                 or bytes), the plain version's and
@@ -72,10 +73,11 @@ each printing its lines before the last:
                 b/c or r/k/v, the reduced and the full widths, chunk 32, 64
                 and 128, an initial state, strong decay, strided views) and
                 on the inputs layer 0 of the serve phase gave it, and each
-                of mamba2_ssd's three passes (chunk_state, state_pass,
-                chunk_scan) against its own plain version; then its time at
-                that shape (and each pass's) beside its bound (bytes, FMA or
-                exponential rate) and the plain version's
+                of its three passes (chunk_state, state_pass, chunk_scan)
+                against its own plain version; then its time at that shape
+                and each pass's beside its bound (bytes, FMA or exponential
+                rate; for wkv6 also the HBM floor of the passes' own
+                traffic) and the plain version's
   ssm_card_vs_cpu  full width cut in depth, float32 (zamba2: one mamba
                 block plus the shared block; rwkv6: 2 layers): one
                 1100-token prompt and 8 decode steps on the card and on the
@@ -968,9 +970,12 @@ def phase_serve_engine(device, params, *, arch=SERVE_ARCH, tag="serve_engine",
 #: (B, Sq, Sk, H, Hk, D, window, causal, q_offset, storage_offset): MHA
 #: and GQA 4:1, with and without a window, ragged S, every head_dim the
 #: configs use and more (40 and 200 pad to the bf16 kernel's widths 48 and
-#: 256 with cp.async staging), the serving shape itself, and inputs the
+#: 256 with cp.async staging), the serving shape itself, inputs the
 #: kernels stage one element at a time (head_dim 18, 81 or 250, or views
-#: ``storage_offset`` elements into their buffers, so not 16-byte aligned).
+#: ``storage_offset`` elements into their buffers, so not 16-byte aligned),
+#: and continuations whose last rows have no live key (the window ends
+#: before the first key: Sq + q_offset >= Sk + window), causal and not,
+#: with Sk above and below the plain version's 512-key tile.
 FLASH_CASES = [
     (1, 200, 200, 4, 4, 16, 0, True, 0, 0),
     (2, 200, 200, 8, 2, 32, 64, True, 0, 0),
@@ -989,6 +994,8 @@ FLASH_CASES = [
     (1, 136, 700, 4, 1, 250, 256, True, 564, 2),
     (1, 200, 200, 4, 2, 40, 0, True, 0, 0),
     (1, 136, 700, 4, 1, 200, 256, True, 564, 0),
+    (1, 300, 700, 8, 2, 80, 128, True, 600, 0),
+    (1, 100, 60, 4, 4, 64, 16, False, 50, 0),
 ]
 #: tests/test_kernels.py:129: 2e-5 in float32, 2e-2 in bf16 (in float32).
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -1153,8 +1160,9 @@ MAMBA2_CASES = [
 ]
 #: (B, S, H, K, chunk, r/k/v dtype, s0, decay): the reduced (K=32) and full
 #: (K=64) widths, tests/test_kernels.py's shape, chunk 32/64/128 (128 with
-#: K=32: the block's shared memory limits chunk x K), an initial state, and
-#: lw down to -20 per step ("strong").
+#: K=64 only in bf16: the block's shared memory limits chunk x K, and r, k,
+#: v stay in their own type there), an initial state, and lw down to -20
+#: per step ("strong").
 WKV6_CASES = [
     (2, 128, 3, 16, 32, "float32", False, "normal"),
     (2, 256, 4, 32, 32, "float32", False, "normal"),
@@ -1164,6 +1172,7 @@ WKV6_CASES = [
     (2, 320, 64, 64, 64, "bfloat16", True, "normal"),
     (1, 256, 4, 64, 32, "float32", True, "strong"),
     (1, 256, 4, 64, 64, "bfloat16", False, "strong"),
+    (1, 256, 4, 64, 128, "bfloat16", True, "normal"),
 ]
 
 
@@ -1293,6 +1302,62 @@ def ssd_pass_check(args, kw, tag, phase):
     return max(errs)
 
 
+def wkv6_pass_check(args, kw, tag, phase):
+    """Each pass of the wkv6 kernel against its plain version, on the plain
+    version's outputs of the passes before it: chunk_state (cwl and the
+    chunks' own states), state_pass (the states entering each chunk and
+    the final state) and chunk_scan (y), within ``prefix_tol``.  Returns
+    the max abs error over the three."""
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    r, k, v, lw, u = args
+    chunk, s0 = kw["chunk"], kw["s0"]
+    tol = prefix_tol(chunk_prefix(lw, chunk))
+    cwl, states = wkv_ref.chunk_state_ref(k, v, lw, chunk=chunk)
+    got = wkv_ops.chunk_state(k, v, lw, chunk=chunk)
+    errs = [held(f"chunk_state {n}", g, w, tol, tag)
+            for n, g, w in zip(("cwl", "states"), got, (cwl, states))]
+    s_in, sf = wkv_ref.state_pass_ref(states.clone(), cwl, s0=s0)
+    got = wkv_ops.state_pass(states.clone(), cwl, s0=s0)
+    errs += [held(f"state_pass {n}", g, w, tol, tag)
+             for n, g, w in zip(("states", "final state"), got, (s_in, sf))]
+    y = wkv_ref.chunk_scan_ref(r, k, v, lw, u, s_in, chunk=chunk)
+    errs.append(held("chunk_scan y", wkv_ops.chunk_scan(
+        r, k, v, lw, u, s_in, chunk=chunk), y, tol, tag))
+    say(phase, f"{tag}: passes max abs err chunk_state "
+        f"{max(errs[:2]):.3g}, state_pass {max(errs[2:4]):.3g}, chunk_scan "
+        f"{errs[4]:.3g} (tolerance {tol:.3g})")
+    return max(errs)
+
+
+def wkv6_pass_times(args, kw, reps) -> dict:
+    """Device ms of each pass of the wkv6 kernel on these inputs."""
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    r, k, v, lw, u = args
+    chunk = kw["chunk"]
+    cwl, states = wkv_ops.chunk_state(k, v, lw, chunk=chunk)
+    return {"chunk_state": time_ms(lambda: wkv_ops.chunk_state(
+                k, v, lw, chunk=chunk), reps=reps),
+            "state_pass": time_ms(lambda: wkv_ops.state_pass(
+                states, cwl, s0=kw["s0"]), reps=reps),
+            "chunk_scan": time_ms(lambda: wkv_ops.chunk_scan(
+                r, k, v, lw, u, states, chunk=chunk), reps=reps)}
+
+
+def wkv6_design_bytes(r, chunk) -> int:
+    """Bytes the three-pass design moves on these inputs, its scratch
+    included: r once, k, v and lw twice (chunk_state and chunk_scan), u, y,
+    the final state, cwl written and read once, and the states scratch
+    written by chunk_state, read and rewritten by state_pass and read by
+    chunk_scan."""
+    bsz, s, h, kd = r.shape
+    n, e = r.numel(), r.element_size()
+    scratch = bsz * (s // chunk) * h * kd * kd * 4
+    cwl = bsz * (s // chunk) * h * kd * 4
+    return (n * e + 2 * n * (2 * e + 4) + h * kd * 4 + n * 4
+            + bsz * h * kd * kd * 4 + 4 * scratch + 2 * cwl)
+
+
 def ssd_pass_times(args, kw, reps) -> dict:
     """Device ms of each pass of the mamba2_ssd kernel on these inputs."""
     from repro_torch.kernels.mamba2 import ops as ssd_ops
@@ -1374,9 +1439,10 @@ def phase_scan(device, kernel, layer0, *, reps=10):
             r, k, v, lw, u, s0 = wkv6_inputs(case, device, seed=n)
             tag = ("B={} S={} H={} K={} chunk={} r/k/v {} s0={} "
                    "decay={}".format(*case))
-            worst = max(worst, scan_check(kernel, (r, k, v, lw, u),
-                                          dict(chunk=case[4], s0=s0), tag,
-                                          phase))
+            kw = dict(chunk=case[4], s0=s0)
+            worst = max(worst, scan_check(kernel, (r, k, v, lw, u), kw, tag,
+                                          phase),
+                        wkv6_pass_check((r, k, v, lw, u), kw, tag, phase))
     args, kw = layer0["args"], layer0["kw"]
     shapes = [tuple(t.shape) for t in args if t is not None]
     tag = f"serve layer 0 inputs {shapes} {kw}"
@@ -1386,11 +1452,18 @@ def phase_scan(device, kernel, layer0, *, reps=10):
         work = mamba2_work(args[0], args[2], kw["chunk"])
         worst = max(worst, ssd_pass_check(args, kw, tag, phase))
         passes = ssd_pass_times(args, kw, reps)
-        say(phase, f"{shapes} {kw}: device ms per pass "
-            + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     else:
         fn, ref = wkv_ops.wkv6, wkv6_ref
         work = wkv6_work(args[0], kw["chunk"])
+        worst = max(worst, wkv6_pass_check(args, kw, tag, phase))
+        passes = wkv6_pass_times(args, kw, reps)
+        design = wkv6_design_bytes(args[0], kw["chunk"])
+        say(phase, f"{shapes} {kw}: the three passes move "
+            f"{design / 1e6:.1f} MB, an HBM floor of "
+            f"{design / HBM_BYTES_PER_S * 1e3:.4f} ms (the design's; the "
+            "bound below counts the function's)")
+    say(phase, f"{shapes} {kw}: device ms per pass "
+        + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     ms = time_ms(lambda: fn(*args, **kw), reps=reps)
     plain = time_ms(lambda: ref(*args, **kw), reps=3)
     bound, by, pipe = pipe_bound(*work)
@@ -1400,7 +1473,8 @@ def phase_scan(device, kernel, layer0, *, reps=10):
         f"{exps / 1e9:.3f} G exponentials), plain {plain:.3f} ms; kernel / "
         f"bound {ms / bound:.1f}; no PyTorch call computes this function")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                bound_pipe=pipe, library_ms=None, max_abs_err=worst)
+                bound_pipe=pipe, library_ms=None, max_abs_err=worst,
+                pass_ms=passes)
 
 
 def model_card_vs_cpu(device, cfg, *, phase, seq, steps):
@@ -1588,7 +1662,8 @@ def main() -> int:
             replaces=replaces[base], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r.get("library_ms")))
+            library_ms=r.get("library_ms"),
+            **({"pass_ms": r["pass_ms"]} if "pass_ms" in r else {})))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,9 @@
 // each k tile updates the running max m, the sum l and the accumulator,
 // and the output is acc / max(l, 1e-30).  The KV head of query head h is
 // h / (H / Hk): GQA reads K/V in place, never a repeated copy.  Ragged
-// Sq/Sk are masked at the edges, not padded.
+// Sq/Sk are masked at the edges, not padded.  Rows with no live key (a
+// window that ends before the first key) take the reference's value from
+// dead_rows_kernel, launched after them only when the geometry has them.
 //
 // Bound on the H100 at the serving shape (B=2, S=6000, H=32, Hk=8, D=80,
 // window 4096, bf16): 16.19 M live (q, k) pairs per head, 4*D operations
@@ -68,6 +70,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "async_copy.cuh"
 
@@ -687,6 +691,45 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace tc
 
+// ---- rows with no live key -----------------------------------------------
+//
+// Query row i (key position p = i + q_offset) has no live key when
+// window > 0 and p - window + 1 >= Sk.  The reference's online softmax
+// masks with -1e30, so such a row keeps m = -1e30 and gives every key slot
+// of every tile it visits p = 1: it comes out as the sum of V over the Sk
+// keys divided by the key slots of the reference's tiles (Sk padded to its
+// block_k; the padding's V is zero).  The kernels above walk only live
+// tiles (the bf16 kernel leaves such a row 0); this kernel writes the rows
+// [first, Sq) after them, on the same stream.  One block per (b, KV head),
+// one thread per column; V summed in key order in float32.
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
+__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__global__ void dead_rows_kernel(const T* __restrict__ v, T* __restrict__ o,
+                                 int Sq, int Sk, int H, int Hk, int D,
+                                 int first, int slots) {
+  const int bi = blockIdx.x / Hk, kvh = blockIdx.x - bi * Hk;
+  const int rep = H / Hk;
+  const long long kv_row = (long long)Hk * D, q_row = (long long)H * D;
+  const T* vb = v + (long long)bi * Sk * kv_row + (long long)kvh * D;
+  T* ob = o + (long long)bi * Sq * q_row + (long long)kvh * rep * D;
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float sum = 0.f;
+    for (int j = 0; j < Sk; ++j) sum += widen(vb[j * kv_row + c]);
+    const float mean = sum / (float)slots;
+    for (int i = first; i < Sq; ++i)
+      for (int hh = 0; hh < rep; ++hh)
+        narrow(ob + i * q_row + hh * D + c, mean);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 float32 (flash_fwd_kernel), 1 bfloat16 (tc::flash_bf16_kernel).
@@ -707,4 +750,32 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)tc::dispatch(q, k, v, o, B, Sq, Sk, H, Hk, D, causal, window,
                              q_offset, scale, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The rows with no live key, after flash_attention_launch on the same
+// stream: rows [first, Sq) of every head take sum_j V[j] / slots (see
+// dead_rows_kernel); slots >= Sk.  Does nothing when no row is dead.
+// Returns a cudaError_t (0 on success).
+extern "C" int flash_attention_dead_rows_launch(const void* v, void* o, int B,
+                                                int Sq, int Sk, int H, int Hk,
+                                                int D, int window,
+                                                int q_offset, int slots,
+                                                int dtype, void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || Hk < 1 || H % Hk != 0 || D < 1
+      || slots < Sk || window < 0 || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long first = std::max(0LL, (long long)Sk + window - 1 - q_offset);
+  if (window == 0 || first >= Sq) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int threads = 32 * ((std::min(D, 256) + 31) / 32);
+  if (dtype == 0)
+    dead_rows_kernel<float><<<B * Hk, threads, 0, st>>>(
+        (const float*)v, (float*)o, Sq, Sk, H, Hk, D, (int)first, slots);
+  else if (dtype == 1)
+    dead_rows_kernel<__nv_bfloat16><<<B * Hk, threads, 0, st>>>(
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Sq, Sk, H, Hk, D,
+        (int)first, slots);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

@@ -2,7 +2,10 @@
 
 A CPU tensor goes to the plain version (``ref.py``) with the caller's
 ``block_q``/``block_k``; a CUDA tensor goes to the kernel (which tiles by
-its own 64 x 64) or raises.  ``LAUNCHES`` counts kernel launches.
+its own 64 x 64) or raises.  Rows with no live key (``first_dead_row``)
+take the reference's value, which depends on ``block_k``: a second kernel
+writes them after the first, only when the geometry has them.
+``LAUNCHES`` counts calls that launch the kernel.
 """
 from __future__ import annotations
 
@@ -30,6 +33,33 @@ def _launcher():
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _dead_rows_launcher():
+    fn = _build.load("flash_attention").flash_attention_dead_rows_launch
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def first_dead_row(sq: int, sk: int, window: int, q_offset: int) -> int:
+    """The first query row with no live key (``sq`` if none): with a window,
+    row i (key position i + q_offset) sees keys from i + q_offset - window
+    + 1 on, none of them below ``sk`` once i + q_offset >= sk + window - 1.
+    Causal or not, every other row has a live key."""
+    if window <= 0:
+        return sq
+    return min(sq, max(0, sk + window - 1 - q_offset))
+
+
+def key_slots(sk: int, block_k: int) -> int:
+    """Key slots of the reference's tiles: ``sk`` padded to a whole number of
+    ``min(block_k, sk)``-key tiles.  A row with no live key is the sum of V
+    over the keys divided by this (the -1e30 mask gives every slot p = 1)."""
+    bk = min(block_k, sk)
+    return -(-sk // bk) * bk
 
 
 def check_inputs(q, k, v, window: int, q_offset: int) -> None:
@@ -90,6 +120,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                          out.data_ptr(), b, sq, sk, h, hk, d, int(causal),
                          window, q_offset, _DTYPES[q.dtype], scale, stream)
+        if rc == 0 and first_dead_row(sq, sk, window, q_offset) < sq:
+            rc = _dead_rows_launcher()(
+                v.data_ptr(), out.data_ptr(), b, sq, sk, h, hk, d, window,
+                q_offset, key_slots(sk, block_k), _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")

@@ -1,9 +1,15 @@
 """Wrapper of the RWKV-6 WKV kernel (``csrc/wkv6.cu``).
 
 A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor goes to
-the kernel or raises.  The kernel reads r, k, v and lw in their
-``[B, S, H, K]`` layout (contiguous), one block per (batch, head): no
-transposed copy and no tiled ``u``.  ``LAUNCHES`` counts kernel launches.
+the kernel or raises.  The kernel runs as three passes, each one launch
+with a wrapper of its own here: ``chunk_state`` (each chunk's total log
+decay and its own state), ``state_pass`` (the state carried from chunk to
+chunk, written in place over the chunks' own states) and ``chunk_scan``
+(the output).  ``wkv6`` runs the three in order with their scratch; one
+call makes three device launches.  The kernels read r, k, v and lw in
+their ``[B, S, H, K]`` layout (contiguous): no transposed copy and no
+tiled ``u``.  ``LAUNCHES`` counts calls of ``wkv6`` on the card (one per
+rwkv layer), ``PASS_LAUNCHES`` the launches of each pass, from any wrapper.
 """
 from __future__ import annotations
 
@@ -13,44 +19,80 @@ import functools
 import torch
 
 from .. import _build
-from .ref import wkv6_ref
+from .ref import chunk_scan_ref, chunk_state_ref, state_pass_ref, wkv6_ref
 
-#: Kernel launches made by :func:`wkv6` in this process.
+#: Calls of :func:`wkv6` on the card in this process.
 LAUNCHES = 0
+
+#: Kernel launches of each pass in this process.
+PASS_LAUNCHES = {"chunk_state": 0, "state_pass": 0, "chunk_scan": 0}
 
 #: Shared memory one block may use on the H100 (bytes).
 MAX_SMEM = 232448
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = _build.load("wkv6").wkv6_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
+def _launcher(name: str):
+    lib = _build.load("wkv6")
+    fn = getattr(lib, f"wkv6_{name}_launch")
+    fn.argtypes = {
+        "chunk_state": [_PTR] * 5 + [_INT] * 6 + [_PTR],
+        "state_pass": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+        "chunk_scan": [_PTR] * 7 + [_INT] * 6 + [_PTR],
+    }[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(chunk: int, kd: int) -> int:
-    """Shared memory of one block, as ``csrc/wkv6.cu`` lays it out."""
-    return 4 * (5 * chunk * (kd + 4) + chunk * (chunk + 4) + kd * (kd + 4)
-                + chunk + 2 * kd)
+def _launch(name: str, device, *args) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    # The C launcher runs on the current device: make it the tensors'.
+    with torch.cuda.device(device):
+        rc = _launcher(name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6 {name} kernel launch failed: CUDA error "
+                           f"{rc}")
+    PASS_LAUNCHES[name] += 1
+
+
+def smem_bytes(chunk: int, kd: int, itemsize: int = 4) -> int:
+    """Shared memory of the larger block of the passes, as ``csrc/wkv6.cu``
+    lays them out, for r, k, v of ``itemsize`` bytes (4: float32, 2:
+    bfloat16)."""
+    staged = itemsize * chunk * (kd + 16 // itemsize)
+    state = 2 * staged + 4 * (2 * chunk * (kd + 4) + kd)
+    scan = 3 * staged + 4 * (2 * chunk * (kd + 4) + kd * (kd + 4)
+                             + chunk * (chunk + 4) + chunk)
+    return max(state, scan)
+
+
+def _check_devices(name, tensors) -> None:
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"{name} inputs on several devices: {devices}")
+    if next(iter(devices)).type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {devices}")
 
 
 def check_inputs(r, k, v, lw, u, chunk: int, s0) -> None:
-    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+    """Raises unless the inputs are what ``wkv6`` takes (``r``/``u`` None: a
+    pass that does not read them)."""
+    r_ = k if r is None else r
+    if r_.dtype not in _DTYPES or k.dtype != r_.dtype or v.dtype != r_.dtype:
         raise TypeError("wkv6 takes r, k, v all float32 or all bfloat16, got "
-                        f"{r.dtype}, {k.dtype}, {v.dtype}")
-    if lw.dtype != torch.float32 or u.dtype != torch.float32:
+                        f"{r_.dtype}, {k.dtype}, {v.dtype}")
+    u_dtype = torch.float32 if u is None else u.dtype
+    if lw.dtype != torch.float32 or u_dtype != torch.float32:
         raise TypeError(f"wkv6 takes float32 lw and u, got {lw.dtype}, "
-                        f"{u.dtype}")
-    if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, lw)):
+                        f"{u_dtype}")
+    if k.dim() != 4 or any(t.shape != k.shape for t in (r_, v, lw)):
         raise ValueError("wkv6 takes r, k, v, lw of one shape [B,S,H,K], got "
-                         f"{[tuple(t.shape) for t in (r, k, v, lw)]}")
-    bsz, s, h, kd = r.shape
-    if tuple(u.shape) != (h, kd):
+                         f"{[tuple(t.shape) for t in (r_, k, v, lw)]}")
+    bsz, s, h, kd = k.shape
+    if u is not None and tuple(u.shape) != (h, kd):
         raise ValueError(f"wkv6: u must be {(h, kd)}, got {tuple(u.shape)}")
     if min(bsz, s, h, kd, chunk) < 1 or s % chunk:
         raise ValueError(f"wkv6 needs non-empty inputs and S ({s}) a "
@@ -59,12 +101,120 @@ def check_inputs(r, k, v, lw, u, chunk: int, s0) -> None:
                            or tuple(s0.shape) != (bsz, h, kd, kd)):
         raise ValueError(f"wkv6: s0 must be float32 {(bsz, h, kd, kd)}, got "
                          f"{s0.dtype} {tuple(s0.shape)}")
-    tensors = [r, k, v, lw, u] + ([s0] if s0 is not None else [])
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"wkv6 inputs on several devices: {devices}")
-    if r.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"wkv6 runs on cpu or cuda, not {r.device}")
+    _check_devices("wkv6", [r, k, v, lw, u, s0])
+
+
+def _check_kernel(tensors, kd, chunk, dtype) -> None:
+    """What the kernels take beyond ``check_inputs``."""
+    quantum = 16 // dtype.itemsize
+    if kd % quantum or kd > 128 or chunk % 4:
+        raise ValueError(f"wkv6 kernel copies rows in 16-byte pieces and "
+                         f"splits a diagonal tile over at most a warp: it "
+                         f"needs K ({kd}) a multiple of {quantum} for "
+                         f"{dtype}, at most 128, and chunk ({chunk}) a "
+                         "multiple of 4")
+    need = smem_bytes(chunk, kd, dtype.itemsize)
+    if need > MAX_SMEM:
+        raise ValueError(f"wkv6 kernel: chunk {chunk} with K={kd} needs "
+                         f"{need} bytes of shared memory, more than "
+                         f"{MAX_SMEM}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors if t is not None):
+        raise ValueError("wkv6 kernel takes contiguous, 16-byte aligned "
+                         "tensors")
+
+
+def _scratch_shapes(k, chunk):
+    bsz, s, h, kd = k.shape
+    nc = s // chunk
+    return (bsz, nc, h, kd), (bsz, nc, h, kd, kd)
+
+
+def _run_chunk_state(k, v, lw, chunk, cwl, states) -> None:
+    bsz, s, h, kd = k.shape
+    _launch("chunk_state", k.device, k.data_ptr(), v.data_ptr(),
+            lw.data_ptr(), cwl.data_ptr(), states.data_ptr(), bsz, s, h, kd,
+            chunk, _DTYPES[k.dtype])
+
+
+def _run_state_pass(states, cwl, s0, sf) -> None:
+    bsz, nc, h, kd, _ = states.shape
+    _launch("state_pass", states.device, cwl.data_ptr(), states.data_ptr(),
+            s0.data_ptr() if s0 is not None else None, sf.data_ptr(), bsz, nc,
+            h, kd)
+
+
+def _run_chunk_scan(r, k, v, lw, u, s_in, chunk, y) -> None:
+    bsz, s, h, kd = r.shape
+    _launch("chunk_scan", r.device, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            lw.data_ptr(), u.data_ptr(), s_in.data_ptr(), y.data_ptr(), bsz,
+            s, h, kd, chunk, _DTYPES[r.dtype])
+
+
+def chunk_state(k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor, *,
+                chunk: int):
+    """Pass 1: (cwl [B,nc,H,K], each chunk's total log decay; states
+    [B,nc,H,K,K], each chunk's own state, k-major), float32."""
+    check_inputs(None, k, v, lw, None, chunk, None)
+    if k.device.type == "cpu":
+        return chunk_state_ref(k, v, lw, chunk=chunk)
+    _check_kernel([k, v, lw], k.shape[-1], chunk, k.dtype)
+    shape_cwl, shape_states = _scratch_shapes(k, chunk)
+    cwl = torch.empty(shape_cwl, dtype=torch.float32, device=k.device)
+    states = torch.empty(shape_states, dtype=torch.float32, device=k.device)
+    _run_chunk_state(k, v, lw, chunk, cwl, states)
+    return cwl, states
+
+
+def state_pass(states: torch.Tensor, cwl: torch.Tensor, *,
+               s0: torch.Tensor | None = None):
+    """Pass 2: overwrites ``states`` (each chunk's own state, k-major,
+    [B,nc,H,K,K]) with the state entering each chunk, carried from ``s0``
+    [B,H,K,K] (or zeros) by ``S <- exp(cwl) S + d_c``; returns (states,
+    final state [B,H,K,K])."""
+    bsz, nc, h, kd, _ = states.shape
+    if states.dtype != torch.float32 or cwl.dtype != torch.float32 \
+            or tuple(states.shape[3:]) != (kd, kd) \
+            or tuple(cwl.shape) != (bsz, nc, h, kd):
+        raise ValueError(f"state_pass takes float32 states [B,nc,H,K,K] and "
+                         f"cwl [B,nc,H,K], got {states.dtype} "
+                         f"{tuple(states.shape)}, {cwl.dtype} "
+                         f"{tuple(cwl.shape)}")
+    if s0 is not None and (s0.dtype != torch.float32
+                           or tuple(s0.shape) != (bsz, h, kd, kd)):
+        raise ValueError(f"state_pass: s0 must be float32 "
+                         f"{(bsz, h, kd, kd)}, got {s0.dtype} "
+                         f"{tuple(s0.shape)}")
+    _check_devices("state_pass", [states, cwl, s0])
+    if states.device.type == "cpu":
+        return state_pass_ref(states, cwl, s0=s0)
+    if kd % 4 or not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                         for t in (states, cwl, s0) if t is not None):
+        raise ValueError("state_pass kernel takes contiguous, 16-byte "
+                         "aligned states, cwl and s0, and K a multiple of 4")
+    sf = torch.empty((bsz, h, kd, kd), dtype=torch.float32,
+                     device=states.device)
+    _run_state_pass(states, cwl, s0, sf)
+    return states, sf
+
+
+def chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               lw: torch.Tensor, u: torch.Tensor, s_in: torch.Tensor, *,
+               chunk: int):
+    """Pass 3: y [B,S,H,K] float32 from r, k, v, lw, u and the state
+    entering each chunk ``s_in`` [B,nc,H,K,K] (k-major)."""
+    check_inputs(r, k, v, lw, u, chunk, None)
+    want = _scratch_shapes(k, chunk)[1]
+    if s_in.dtype != torch.float32 or tuple(s_in.shape) != want:
+        raise ValueError(f"chunk_scan: s_in must be float32 {want}, got "
+                         f"{s_in.dtype} {tuple(s_in.shape)}")
+    _check_devices("chunk_scan", [r, s_in])
+    if r.device.type == "cpu":
+        return chunk_scan_ref(r, k, v, lw, u, s_in, chunk=chunk)
+    _check_kernel([r, k, v, lw, u, s_in], k.shape[-1], chunk, k.dtype)
+    y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    _run_chunk_scan(r, k, v, lw, u, s_in, chunk, y)
+    return y
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,33 +223,22 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Chunked RWKV-6 recurrence: r, k, v [B,S,H,K] float32 or bfloat16, lw
     [B,S,H,K] float32 log decay (<= 0), u [H,K] float32 bonus, s0
     [B,H,K,K] float32 or None (zeros); S a multiple of ``chunk``.  Returns
-    (y [B,S,H,K], final state [B,H,K,K] k-major), both float32."""
+    (y [B,S,H,K], final state [B,H,K,K] k-major), both float32.  On the
+    card: ``chunk_state``, ``state_pass``, ``chunk_scan``, three launches
+    with float32 scratch of K / chunk + 1 / chunk times y's size."""
     global LAUNCHES
     check_inputs(r, k, v, lw, u, chunk, s0)
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, lw, u, chunk=chunk, s0=s0)
+    _check_kernel([r, k, v, lw, u, s0], k.shape[-1], chunk, k.dtype)
     bsz, s, h, kd = r.shape
-    if kd % 4 or chunk % 4:
-        raise ValueError(f"wkv6 kernel needs K ({kd}) and chunk ({chunk}) "
-                         "multiples of 4")
-    if smem_bytes(chunk, kd) > MAX_SMEM:
-        raise ValueError(f"wkv6 kernel: chunk {chunk} with K={kd} needs "
-                         f"{smem_bytes(chunk, kd)} bytes of shared memory, "
-                         f"more than {MAX_SMEM}")
-    tensors = [r, k, v, lw, u] + ([s0] if s0 is not None else [])
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("wkv6 kernel takes contiguous tensors")
-    y = torch.empty((bsz, s, h, kd), dtype=torch.float32, device=r.device)
+    shape_cwl, shape_states = _scratch_shapes(k, chunk)
+    cwl = torch.empty(shape_cwl, dtype=torch.float32, device=r.device)
+    states = torch.empty(shape_states, dtype=torch.float32, device=r.device)
     sf = torch.empty((bsz, h, kd, kd), dtype=torch.float32, device=r.device)
-    dev = r.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = _launcher()(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-            u.data_ptr(), s0.data_ptr() if s0 is not None else None,
-            y.data_ptr(), sf.data_ptr(), bsz, s, h, kd, chunk,
-            _DTYPES[r.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {rc}")
+    y = torch.empty((bsz, s, h, kd), dtype=torch.float32, device=r.device)
+    _run_chunk_state(k, v, lw, chunk, cwl, states)
+    _run_state_pass(states, cwl, s0, sf)
+    _run_chunk_scan(r, k, v, lw, u, states, chunk, y)
     LAUNCHES += 1
     return y, sf

@@ -6,7 +6,7 @@ Skipped without a CUDA card.  On the card::
 
 Kernels are held to their plain versions with the tolerance of
 ``repro_torch.kernels.parity`` (flash attention: 2e-5 in float32, 2e-2 in
-bf16; the scans and each pass of ``mamba2_ssd``:
+bf16; the scans and each pass of ``mamba2_ssd`` and ``wkv6``:
 ``chip_smoke.prefix_tol``); the engine's fused and scan
 paths must agree bit for bit in integer state, the engine on the card must
 agree with the engine on the CPU (``chip_smoke.phase_card_vs_cpu``), and so
@@ -132,6 +132,26 @@ def test_flash_bf16_kernel_head_widths(card, d):
     assert fa_ops.LAUNCHES == before + 1
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_rows_without_a_live_key(card, dtype):
+    """A continuation whose last rows see no key (Sq + q_offset >= Sk +
+    window): the second kernel gives them the plain version's sum of V over
+    its key slots (1024 for Sk = 700 in 512-key tiles), within the
+    tolerance.  One counted launch per call."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    case = (2, 300, 700, 8, 2, 80, 128, True, 600, 0)
+    q, k, v = smoke.flash_inputs(case, getattr(torch, dtype), card, seed=5)
+    kw = dict(causal=True, window=128, q_offset=600)
+    assert fa_ops.first_dead_row(300, 700, 128, 600) == 227
+    before = fa_ops.LAUNCHES
+    smoke.flash_check(q, k, v, kw, str(case))
+    assert fa_ops.LAUNCHES == before + 1
+    got = fa_ops.flash_attention(q, k, v, **kw)[:, 227:].float()
+    want = (v.float().sum(1, keepdim=True) / 1024).repeat_interleave(4, 2)
+    torch.testing.assert_close(got, want.expand_as(got), rtol=2e-2,
+                               atol=2e-2)
+
+
 def test_dense_model_on_card_matches_cpu(card):
     """h2o-danube-1.8b at full width cut to one layer, float32: prefill of
     700 tokens (through the flash kernel) and 3 decode steps, logits within
@@ -183,6 +203,24 @@ def test_wkv6_kernel_matches_plain_version(card, case):
     smoke.scan_check("wkv6", (r, k, v, lw, u), dict(chunk=case[4], s0=s0),
                      str(case), "wkv6")
     assert wkv_ops.LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("case", smoke.WKV6_CASES,
+                         ids=lambda c: "B{}-S{}-H{}-K{}-L{}-{}-s0{}-{}"
+                         .format(*c))
+def test_wkv6_passes_match_plain_versions(card, case):
+    """Each of the wkv6 kernel's three passes (chunk_state, state_pass,
+    chunk_scan) against its plain version on the plain outputs of the
+    passes before it, within ``prefix_tol``; one launch of each, and a
+    call of ``wkv6`` launches each once more."""
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    r, k, v, lw, u, s0 = smoke.wkv6_inputs(case, card, seed=case[1] + case[3])
+    before = dict(wkv_ops.PASS_LAUNCHES)
+    smoke.wkv6_pass_check((r, k, v, lw, u), dict(chunk=case[4], s0=s0),
+                          str(case), "wkv6")
+    assert all(wkv_ops.PASS_LAUNCHES[k] == before[k] + 1 for k in before)
+    wkv_ops.wkv6(r, k, v, lw, u, chunk=case[4], s0=s0)
+    assert all(wkv_ops.PASS_LAUNCHES[k] == before[k] + 2 for k in before)
 
 
 def test_recurrent_models_on_card_match_cpu(card):

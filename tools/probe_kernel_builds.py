@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Time builds of the flash_attention and mamba2_ssd kernels side by side,
-on one card.
+"""Time builds of the flash_attention, mamba2_ssd and wkv6 kernels side by
+side, on one card.
 
     python3 tools/probe_kernel_builds.py [--other DIR]
 
 Compiles, with the flags of ``kernels/_build.py``, these builds of
-``csrc/flash_attention.cu`` and ``csrc/mamba2_ssd.cu`` into a temporary
-directory, all started together:
+``csrc/flash_attention.cu``, ``csrc/mamba2_ssd.cu`` and ``csrc/wkv6.cu``
+into a temporary directory, all started together:
 
   checkout       the sources as they are;
   <edit name>    the sources with one design choice undone by a text edit
@@ -16,13 +16,14 @@ directory, all started together:
                  ``git archive``), when ``--other`` is given.
 
 Each build's output is first held to the checkout's plain version (flash:
-``chip_smoke.FLASH_TOL``; mamba2_ssd: ``chip_smoke.prefix_tol``, output and
+``chip_smoke.FLASH_TOL``; the scans: ``chip_smoke.prefix_tol``, output and
 final state), then timed at the serving shapes of ``chip_smoke.py`` (flash:
 danube's GQA and zamba2's MHA shape, bf16; mamba2_ssd: zamba2's layer,
-bf16 b/c), the builds in turns, forward then backward, each time the median
-of CUDA-event timings (``chip_smoke.time_ms``).  Prints one line per shape
-with every build's best time and the card's nvidia-smi name and power
-limit.  Exits 2 without a card.
+bf16 b/c; wkv6: rwkv6's layer, bf16 r/k/v), the builds in turns, forward
+then backward, each time the median of CUDA-event timings
+(``chip_smoke.time_ms``).  Prints one line per shape with every build's
+best time and the card's nvidia-smi name and power limit.  Exits 2
+without a card.
 """
 from __future__ import annotations
 
@@ -70,12 +71,60 @@ EDITS = {
         }
     }""")],
     },
+    "wkv6": {
+        # Accurate expf for every exponential, in place of ex2.approx.ftz.
+        "accurate_expf": [(
+            """  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x * kLog2e));
+  return y;""", "  return expf(x);")],
+        # cwe written by chunk_state to a [B, nc, H, L, K] scratch and read
+        # by chunk_scan, in place of chunk_scan's own prefix sums.
+        "cwe_scratch": [
+            ("constexpr float kLog2e = 1.4426950408889634f;\n",
+             """constexpr float kLog2e = 1.4426950408889634f;
+__device__ float* g_cwe;
+void cwe_buffer(size_t n) {
+  static float* buf = nullptr;
+  static size_t cap = 0;
+  if (n <= cap) return;
+  cudaFree(buf);
+  cudaMalloc(&buf, n * sizeof(float));
+  cap = n;
+  cudaMemcpyToSymbol(g_cwe, &buf, sizeof(buf));
+}
+"""),
+            ("""      cwl[unit * K + kk] = tot[kk];
+    }
+    __syncthreads();
+""", """      cwl[unit * K + kk] = tot[kk];
+    }
+    __syncthreads();
+    for (int idx = tid; idx < L * K; idx += kThreads)
+      g_cwe[unit * L * K + idx] = cs[(idx / K) * lk + idx % K];
+    __syncthreads();
+"""),
+            ("""    for (int kk = tid; kk < K; kk += kThreads)
+      prefix(ds, cs, ds, lk, L, kk);
+""", """    for (int idx = tid; idx < L * K; idx += kThreads) {
+      const int i = idx / K, kk = idx - i * K;
+      const float c = g_cwe[(unit0 + h) * L * K + idx];
+      cs[i * lk + kk] = c;
+      ds[i * lk + kk] = c + ds[i * lk + kk];
+    }
+"""),
+            ("""  const int hpb = heads_per_block(B, S / L, H, per_sm, 0.0);
+""", """  const int hpb = heads_per_block(B, S / L, H, per_sm, 0.0);
+  cwe_buffer((size_t)B * S * H * K);
+""")],
+    },
 }
 
 #: (B, S, H, Hk, D, window) of the serve phases' first flash call.
 FLASH_SHAPES = [(2, 6000, 32, 8, 80, 4096), (2, 6000, 32, 32, 80, 0)]
 #: A chip_smoke.MAMBA2_CASES entry at zamba2's layer shape.
 MAMBA2_SHAPE = (2, 6016, 80, 64, 64, 128, "bfloat16", False, "normal", True)
+#: A chip_smoke.WKV6_CASES entry at rwkv6's layer shape.
+WKV6_SHAPE = (2, 6016, 64, 64, 64, "bfloat16", False, "normal")
 
 
 def sources(kernel, other):
@@ -178,6 +227,45 @@ def mamba2_call(lib, x, a, b, c, chunk):
     return y, hf
 
 
+def wkv6_call(lib, r, k, v, lw, u, chunk):
+    """(y, final state) through the three-pass interface, or through the
+    one-launch interface of a build that has it."""
+    import torch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    bsz, s, h, kd = r.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    sf = torch.empty((bsz, h, kd, kd), dtype=torch.float32, device=r.device)
+    dtype = 1 if r.dtype == torch.bfloat16 else 0
+    if hasattr(lib, "wkv6_launch"):
+        fn = lib.wkv6_launch
+        fn.argtypes = [P] * 8 + [I] * 6 + [P]
+        rcs = [fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+                  u.data_ptr(), None, y.data_ptr(), sf.data_ptr(), bsz, s, h,
+                  kd, chunk, dtype, stream)]
+    else:
+        nc = s // chunk
+        cwl = torch.empty((bsz, nc, h, kd), dtype=torch.float32,
+                          device=r.device)
+        st = torch.empty((bsz, nc, h, kd, kd), dtype=torch.float32,
+                         device=r.device)
+        f1, f2, f3 = (lib.wkv6_chunk_state_launch, lib.wkv6_state_pass_launch,
+                      lib.wkv6_chunk_scan_launch)
+        f1.argtypes = [P] * 5 + [I] * 6 + [P]
+        f2.argtypes = [P] * 4 + [I] * 4 + [P]
+        f3.argtypes = [P] * 7 + [I] * 6 + [P]
+        rcs = [f1(k.data_ptr(), v.data_ptr(), lw.data_ptr(), cwl.data_ptr(),
+                  st.data_ptr(), bsz, s, h, kd, chunk, dtype, stream),
+               f2(cwl.data_ptr(), st.data_ptr(), None, sf.data_ptr(), bsz, nc,
+                  h, kd, stream),
+               f3(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+                  u.data_ptr(), st.data_ptr(), y.data_ptr(), bsz, s, h, kd,
+                  chunk, dtype, stream)]
+    if any(rcs):
+        raise RuntimeError(f"wkv6 launch failed: CUDA errors {rcs}")
+    return y, sf
+
+
 def timed_in_turns(calls: dict) -> dict:
     """{name: best of two medians}, the builds timed forward then back."""
     import chip_smoke as cs
@@ -187,6 +275,69 @@ def timed_in_turns(calls: dict) -> dict:
         for name in order:
             times[name].append(cs.time_ms(calls[name], reps=10))
     return {name: min(t) for name, t in times.items()}
+
+
+def probe_flash(libs, cs) -> None:
+    import torch
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    for b, s, h, hk, d, window in FLASH_SHAPES:
+        q, k, v = cs.flash_inputs((b, s, s, h, hk, d, window, True, 0, 0),
+                                  torch.bfloat16, "cuda", seed=1)
+        want = flash_attention_ref(q, k, v, window=window).float()
+        calls = {}
+        for (kernel, name), lib in libs.items():
+            if kernel != "flash_attention":
+                continue
+            got = flash_call(lib, q, k, v, window).float()
+            tol = cs.FLASH_TOL["bfloat16"]
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            calls[name] = lambda lib=lib: flash_call(lib, q, k, v, window)
+        best = timed_in_turns(calls)
+        print(f"flash_attention B={b} S={s} H={h} Hk={hk} D={d} window="
+              f"{window} bf16: " + ", ".join(
+                  f"{n} {t:.3f} ms" for n, t in best.items()), flush=True)
+
+
+def probe_mamba2(libs, cs) -> None:
+    import torch
+    from repro_torch.kernels.mamba2.ref import mamba2_ssd_ref
+    x, a, b, c, _ = cs.mamba2_inputs(MAMBA2_SHAPE, "cuda", seed=0)
+    chunk = MAMBA2_SHAPE[5]
+    want = mamba2_ssd_ref(x, a, b, c, chunk=chunk)
+    tol = cs.prefix_tol(cs.chunk_prefix(torch.log(torch.clamp_min(a, 1e-20)),
+                                        chunk))
+    calls = {}
+    for (kernel, name), lib in libs.items():
+        if kernel != "mamba2_ssd":
+            continue
+        for g, w in zip(mamba2_call(lib, x, a, b, c, chunk), want):
+            cs.held(f"{name} build", g, w, tol, "mamba2_ssd")
+        calls[name] = lambda lib=lib: mamba2_call(lib, x, a, b, c, chunk)
+    best = timed_in_turns(calls)
+    print(f"mamba2_ssd {tuple(x.shape)} chunk {chunk} b/c bf16: "
+          + ", ".join(f"{n} {t:.3f} ms" for n, t in best.items()), flush=True)
+
+
+def probe_wkv6(libs, cs) -> None:
+    from repro_torch.kernels.rwkv6.ref import wkv6_ref
+    r, k, v, lw, u, _ = cs.wkv6_inputs(WKV6_SHAPE, "cuda", seed=0)
+    chunk = WKV6_SHAPE[4]
+    want = wkv6_ref(r, k, v, lw, u, chunk=chunk)
+    tol = cs.prefix_tol(cs.chunk_prefix(lw, chunk))
+    calls = {}
+    for (kernel, name), lib in libs.items():
+        if kernel != "wkv6":
+            continue
+        for g, w in zip(wkv6_call(lib, r, k, v, lw, u, chunk), want):
+            cs.held(f"{name} build", g, w, tol, "wkv6")
+        calls[name] = lambda lib=lib: wkv6_call(lib, r, k, v, lw, u, chunk)
+    best = timed_in_turns(calls)
+    print(f"wkv6 {tuple(r.shape)} chunk {chunk} r/k/v bf16: "
+          + ", ".join(f"{n} {t:.3f} ms" for n, t in best.items()), flush=True)
+
+
+PROBES = {"flash_attention": probe_flash, "mamba2_ssd": probe_mamba2,
+          "wkv6": probe_wkv6}
 
 
 def main(argv=None) -> int:
@@ -200,44 +351,10 @@ def main(argv=None) -> int:
         return 2
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke as cs
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.mamba2.ref import mamba2_ssd_ref
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_all(args.other, Path(tmp))
-        for shape in FLASH_SHAPES:
-            b, s, h, hk, d, window = shape
-            q, k, v = cs.flash_inputs((b, s, s, h, hk, d, window, True, 0, 0),
-                                      torch.bfloat16, "cuda", seed=1)
-            want = flash_attention_ref(q, k, v, window=window).float()
-            calls = {}
-            for (kernel, name), lib in libs.items():
-                if kernel != "flash_attention":
-                    continue
-                got = flash_call(lib, q, k, v, window).float()
-                tol = cs.FLASH_TOL["bfloat16"]
-                torch.testing.assert_close(got, want, rtol=tol, atol=tol)
-                calls[name] = (lambda lib=lib: flash_call(lib, q, k, v,
-                                                          window))
-            best = timed_in_turns(calls)
-            print(f"flash_attention B={b} S={s} H={h} Hk={hk} D={d} window="
-                  f"{window} bf16: " + ", ".join(
-                      f"{n} {t:.3f} ms" for n, t in best.items()), flush=True)
-        x, a, b, c, _ = cs.mamba2_inputs(MAMBA2_SHAPE, "cuda", seed=0)
-        chunk = MAMBA2_SHAPE[5]
-        want = mamba2_ssd_ref(x, a, b, c, chunk=chunk)
-        tol = cs.prefix_tol(cs.chunk_prefix(
-            torch.log(torch.clamp_min(a, 1e-20)), chunk))
-        calls = {}
-        for (kernel, name), lib in libs.items():
-            if kernel != "mamba2_ssd":
-                continue
-            for g, w in zip(mamba2_call(lib, x, a, b, c, chunk), want):
-                cs.held(f"{name} build", g, w, tol, "mamba2_ssd")
-            calls[name] = lambda lib=lib: mamba2_call(lib, x, a, b, c, chunk)
-        best = timed_in_turns(calls)
-        print(f"mamba2_ssd {tuple(x.shape)} chunk {chunk} b/c bf16: "
-              + ", ".join(f"{n} {t:.3f} ms" for n, t in best.items()),
-              flush=True)
+        for kernel in EDITS:
+            PROBES[kernel](libs, cs)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
