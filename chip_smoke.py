@@ -226,6 +226,37 @@ def phase_build():
         f"(each: {', '.join(f'{k} {v:.1f} s' for k, v in per.items())})")
 
 
+#: Device time per launch at the fleet shape before the warp-per-row
+#: redesign (PERF.md section 6, run G of the wkv6 redesign: H100 80GB HBM3
+#: at 700 W), microseconds; printed beside this run's times.
+EARLIER_US = {"token_select": 9.44, "tick_step[themis]": 20.77,
+              "tick_step[fifo]": 10.30}
+
+
+def fused_equals_scan(shares, qcount, free, u):
+    """The fused tick (tick_step themis, one launch) against the scan path
+    (one token_select launch per worker on the live queue counts): picks
+    and final counts bit-identical.  Returns the scan path's launches."""
+    import torch
+    from repro_torch.kernels.tick_step import ops as ts_ops
+    from repro_torch.kernels.token_select import ops as tk_ops
+    window = torch.zeros(qcount.shape + u.shape[1:], device=qcount.device)
+    sel, valid, _, qout, _ = ts_ops.tick_step(shares, qcount, window, free,
+                                              u, mode="themis")
+    q = qcount.clone()
+    rows = torch.arange(q.shape[0], device=q.device)
+    for w in range(u.shape[1]):
+        pick = tk_ops.token_select(shares, q, u[:, w:w + 1].contiguous())[:, 0]
+        if not torch.equal(pick, sel[:, w]):
+            raise AssertionError(f"fused vs scan draw {w}: picks differ")
+        ok = free[:, w] & (pick >= 0)
+        q = q.index_put((rows, pick.clamp_min(0).long()), -ok.to(q.dtype),
+                        accumulate=True)
+    if not torch.equal(q, qout):
+        raise AssertionError("fused vs scan: final queue counts differ")
+    return u.shape[1]
+
+
 def phase_kernels(device, s=128, j=1024, w=4):
     """Every kernel against its plain version; returns per-kernel records."""
     import torch
@@ -240,7 +271,7 @@ def phase_kernels(device, s=128, j=1024, w=4):
              ("zero-shares", s, j, w, dict(zero_shares=True)),
              ("single-live", s, j, w, dict(single_live=True)),
              ("no-demand", s, j, w, dict(no_demand=True)),
-             ("tiny", 3, 5, 2, {})]
+             ("tiny", 3, 5, 2, {}), ("J4096", s, 4096, w, {})]
     names = ("token_select", "tick_step[themis]", "tick_step[fifo]")
     excused = dict.fromkeys(names, 0)
     err = dict.fromkeys(names, 0)
@@ -255,40 +286,70 @@ def phase_kernels(device, s=128, j=1024, w=4):
         err[kernel] = max(err[kernel], e)
 
     for k, (name, cs, cj, cw, kw) in enumerate(cases):
-        shares, qcount, window, free, u = kernel_inputs(cs, cj, cw, device,
-                                                        seed=k, **kw)
-        got = tk_ops.token_select(shares, qcount, u)
-        torch.cuda.synchronize()
-        tally("token_select", name, parity.compare_token_select(
-            got, token_select_ref(shares, qcount, u), shares, qcount, u))
-        for mode in ("themis", "fifo"):
-            got = ts_ops.tick_step(shares, qcount, window, free, u, mode=mode)
+        inputs = kernel_inputs(cs, cj, cw, device, seed=k, **kw)
+        for dtype in (torch.float32, torch.bfloat16):
+            # bf16 shares: both sides widen them and draw in float32.
+            shares, qcount, window, free, u = inputs
+            shares = shares.to(dtype)
+            wide = shares.float()
+            tag = f"{name} {str(dtype)[6:]}"
+            got = tk_ops.token_select(shares, qcount, u)
             torch.cuda.synchronize()
-            want = tick_step_ref(shares, qcount, window, free, u, mode=mode)
-            tally(f"tick_step[{mode}]", name, parity.compare_tick_step(
-                got, want, shares, qcount, u, mode))
-        say("kernels", f"case {name} (S={cs} J={cj} W={cw}): token_select, "
-            "tick_step themis+fifo agree with their plain versions")
+            tally("token_select", tag, parity.compare_token_select(
+                got, token_select_ref(shares, qcount, u), wide, qcount, u))
+            for mode in ("themis", "fifo"):
+                got = ts_ops.tick_step(shares, qcount, window, free, u,
+                                       mode=mode)
+                torch.cuda.synchronize()
+                want = tick_step_ref(shares, qcount, window, free, u,
+                                     mode=mode)
+                tally(f"tick_step[{mode}]", tag, parity.compare_tick_step(
+                    got, want, wide, qcount, u, mode))
+        say("kernels", f"case {name} (S={cs} J={cj} W={cw}), float32 and "
+            "bf16 shares: token_select, tick_step themis+fifo agree with "
+            "their plain versions")
     say("kernels", f"edge-band draws excused: {excused} (tolerance: a themis "
         "pick may differ only where u lies within J*2^-24 of a float64 "
         "segment end; fifo and all other outputs exact)")
+    shares, qcount, _, free, u = kernel_inputs(s, j, w, device, seed=98)
+    for dtype in (torch.float32, torch.bfloat16):
+        fused_equals_scan(shares.to(dtype), qcount, free, u)
+    say("kernels", f"fused tick_step themis = {w} token_select launches on "
+        f"the live counts, bit for bit (S={s} J={j} W={w}, float32 and bf16 "
+        "shares)")
 
     records = {}
+
+    def report(name, ms, plain, b, by, nbytes, bf16_ms):
+        say("kernels", f"{name} S={s} J={j}: {ms * 1e3:.2f} us (bf16 shares "
+            f"{bf16_ms * 1e3:.2f} us; before the redesign "
+            f"{EARLIER_US[name]:.2f} us), bound {b * 1e3:.3f} us ({by}, "
+            f"{nbytes} bytes), kernel / bound {ms / b:.1f}, plain "
+            f"{plain * 1e3:.1f} us")
+        records[name] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                             max_abs_err=err[name], bf16_ms=bf16_ms)
+
+    # What one launch costs on this card under the same timing, whatever
+    # it computes: a one-element add_.
+    one = torch.zeros(1, device=device)
+    floor_ms = time_ms(lambda: one.add_(1))
+    say("kernels", f"one launch of a one-element add_: {floor_ms * 1e3:.2f} "
+        "us (the fixed cost of a launch under this timing)")
     # token_select at the scan path's shape (one draw per row per launch).
     shares, qcount, window, free, u = kernel_inputs(s, j, w, device, seed=99)
+    half = shares.to(torch.bfloat16)
     u1 = u[:, :1].contiguous()
     ms = time_ms(lambda: tk_ops.token_select(shares, qcount, u1))
+    bf16_ms = time_ms(lambda: tk_ops.token_select(half, qcount, u1))
     plain = time_ms(lambda: token_select_ref(shares, qcount, u1))
     nbytes = needed_bytes("token_select", qcount, u1)
     b, by = bound_ms(nbytes, s * j * (8 + 1))
-    records["token_select"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
-                                   bound_by=by, max_abs_err=err["token_select"])
-    say("kernels", f"token_select S={s} J={j} W=1: {ms * 1e3:.1f} us, bound "
-        f"{b * 1e3:.3f} us ({by}, {nbytes} bytes), plain "
-        f"{plain * 1e3:.1f} us")
+    report("token_select", ms, plain, b, by, nbytes, bf16_ms)
     for mode in ("themis", "fifo"):
         ms = time_ms(lambda: ts_ops.tick_step(shares, qcount, window, free, u,
                                               mode=mode))
+        bf16_ms = time_ms(lambda: ts_ops.tick_step(half, qcount, window, free,
+                                                   u, mode=mode))
         plain = time_ms(lambda: tick_step_ref(shares, qcount, window, free, u,
                                               mode=mode))
         pops = ts_ops.tick_step(shares, qcount, window, free, u,
@@ -296,12 +357,7 @@ def phase_kernels(device, s=128, j=1024, w=4):
         nbytes = needed_bytes("tick_step", qcount, u, mode=mode, pops=pops)
         ops = s * w * j * (9 if mode == "themis" else 2)
         b, by = bound_ms(nbytes, ops)
-        say("kernels", f"tick_step[{mode}] S={s} J={j} W={w}: "
-            f"{ms * 1e3:.1f} us, bound {b * 1e3:.3f} us ({by}, {nbytes} "
-            f"bytes), plain {plain * 1e3:.1f} us")
-        records[f"tick_step[{mode}]"] = dict(
-            ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-            max_abs_err=err[f"tick_step[{mode}]"])
+        report(f"tick_step[{mode}]", ms, plain, b, by, nbytes, bf16_ms)
     launched = {"token_select": tk_ops.LAUNCHES - before["token_select"],
                 "tick_step": ts_ops.LAUNCHES - before["tick_step"]}
     say("kernels", f"kernel launches in this phase: {launched}")
@@ -1176,6 +1232,44 @@ WKV6_CASES = [
 ]
 
 
+#: Geometry the scan wrappers bring into the kernels' layout before they
+#: launch (``kernel_layout``): (kernel, a case of the lists above, view).
+#: wkv6 with K not a multiple of its 16-byte quantum (60 in bf16, 30 in
+#: float32) and a strided v; mamba2_ssd with P and N not multiples of 4
+#: and an x misaligned by one float.
+LAYOUT_CASES = [
+    ("wkv6", (2, 128, 2, 60, 32, "bfloat16", True, "normal"), None),
+    ("wkv6", (1, 128, 2, 30, 64, "float32", True, "normal"), None),
+    ("wkv6", (1, 128, 2, 32, 32, "float32", False, "normal"), "strided v"),
+    ("mamba2_ssd", (2, 128, 2, 30, 18, 32, "float32", True, "normal", False),
+     None),
+    ("mamba2_ssd", (1, 128, 2, 32, 16, 64, "bfloat16", False, "normal",
+                    True), "misaligned x"),
+]
+
+
+def layout_inputs(kernel, case, view, device, seed):
+    """(args, kw) of a LAYOUT_CASES entry, the view applied."""
+    import torch
+
+    def shifted(t):
+        """``t`` as a view one element into a wider tensor."""
+        wide = torch.zeros(t.shape[:-1] + (t.shape[-1] + 1,), dtype=t.dtype,
+                           device=t.device)
+        wide[..., 1:] = t
+        return wide[..., 1:]
+
+    if kernel == "wkv6":
+        r, k, v, lw, u, s0 = wkv6_inputs(case, device, seed)
+        if view == "strided v":
+            v = shifted(v)
+        return (r, k, v, lw, u), dict(chunk=case[4], s0=s0)
+    x, a, b, c, h0 = mamba2_inputs(case, device, seed)
+    if view == "misaligned x":
+        x = shifted(x)
+    return (x, a, b, c), dict(chunk=case[5], h0=h0)
+
+
 def prefix_tol(prefix) -> float:
     """Tolerance (atol and rtol) of a scan kernel against its plain version:
     max(2e-5, 4 * max|prefix| * 2**-24).  Both sum the log decay of a chunk
@@ -1443,6 +1537,12 @@ def phase_scan(device, kernel, layer0, *, reps=10):
             worst = max(worst, scan_check(kernel, (r, k, v, lw, u), kw, tag,
                                           phase),
                         wkv6_pass_check((r, k, v, lw, u), kw, tag, phase))
+    for n, (name, case, view) in enumerate(LAYOUT_CASES):
+        if name == kernel:
+            args, kw = layout_inputs(name, case, view, device, seed=n)
+            tag = (f"{[tuple(t.shape) for t in args]} {view or 'contiguous'}"
+                   f" {args[0].dtype} in the kernel's layout")
+            worst = max(worst, scan_check(kernel, args, kw, tag, phase))
     args, kw = layer0["args"], layer0["kw"]
     shapes = [tuple(t.shape) for t in args if t is not None]
     tag = f"serve layer 0 inputs {shapes} {kw}"

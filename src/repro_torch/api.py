@@ -10,10 +10,11 @@
 
 :class:`Experiment` and :class:`RunResult` follow the reference ``repro.api``.
 ``device`` defaults to ``"cuda"``; ``device="cpu"`` runs the plain
-versions of the kernels.  Not ported yet: the batch/sweep runs and the
-functional plane (``run_batch``, ``sweep`` and ``serve`` raise
-``NotImplementedError``), and the scenario sugar (``phase``/``bursts``/
-``ramp``) that builds combinator trees.
+versions of the kernels.  Every other public member of the reference's
+``RunResult`` and ``Experiment`` is not ported yet and raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it: the
+metrics ``job_gbps``/``cov_gbps``/``counters``, the scenario builders, the
+batch/sweep runs, ``solo`` and the functional and batch planes.
 """
 from __future__ import annotations
 
@@ -29,6 +30,12 @@ from .core.params import SchedulerParams
 from .core.policy import Policy
 from .core.scheduler import get_scheduler
 from .scenario.lowering import normalize_phases
+
+
+def _not_ported(name: str, item: int):
+    raise NotImplementedError(f"{name} is not ported to repro_torch yet "
+                              f"(ROADMAP.md section 1, item {item})")
+
 
 _LEGACY_KEYS = ("gbps", "bin_s", "issued", "completed", "dropped",
                 "idle_worker_ticks", "ticks", "state")
@@ -86,6 +93,15 @@ class RunResult:
 
     def params_hash(self) -> str:
         return self.params.params_hash()
+
+    def job_gbps(self, job: int):
+        _not_ported("RunResult.job_gbps", 1)
+
+    def cov_gbps(self, job=None, t0=0.0, t1=None):
+        _not_ported("RunResult.cov_gbps", 1)
+
+    def counters(self):
+        _not_ported("RunResult.counters", 1)
 
 
 class Experiment:
@@ -151,6 +167,32 @@ class Experiment:
             self.jobs.append(copy.deepcopy(dict(spec)))
         return self
 
+    def phase(self, job=None, **kw):
+        _not_ported("Experiment.phase", 6)
+
+    def bursts(self, job=None, **kw):
+        _not_ported("Experiment.bursts", 6)
+
+    def ramp(self, job=None, **kw):
+        _not_ported("Experiment.ramp", 6)
+
+    def arrivals(self, **kw):
+        _not_ported("Experiment.arrivals", 1)
+
+    def scenario(self, name: str = ""):
+        _not_ported("Experiment.scenario", 6)
+
+    def to_json(self, name: str = ""):
+        _not_ported("Experiment.to_json", 6)
+
+    @classmethod
+    def from_scenario(cls, scenario, **kw):
+        _not_ported("Experiment.from_scenario", 6)
+
+    @staticmethod
+    def batch(queue="bb-heavy", **kw):
+        _not_ported("Experiment.batch", 8)
+
     def _slots(self) -> int:
         return self.max_jobs if self.max_jobs else max(8, len(self.jobs))
 
@@ -168,6 +210,9 @@ class Experiment:
         wl, table = make_workload(cfg, self.jobs)
         return cfg, wl, table
 
+    def resolved_params(self):
+        _not_ported("Experiment.resolved_params", 1)
+
     def run(self, seconds: float) -> RunResult:
         """One engine run -> :class:`RunResult`."""
         if not self.jobs:
@@ -184,13 +229,13 @@ class Experiment:
             state=raw["state"])
 
     def run_batch(self, seconds: float, seeds=tuple(range(8))):
-        raise NotImplementedError(
-            "run_batch is not ported to repro_torch yet; loop over run() "
-            "with seed=")
+        _not_ported("Experiment.run_batch (loop over run() with seed=)", 4)
 
     def sweep(self, grid, seconds: float, seeds=tuple(range(4)), **kw):
-        raise NotImplementedError("sweep is not ported to repro_torch yet")
+        _not_ported("Experiment.sweep", 4)
+
+    def solo(self, job: int, seconds: float, **kw):
+        _not_ported("Experiment.solo", 1)
 
     def serve(self, **kw):
-        raise NotImplementedError(
-            "the functional plane (serve) is not ported to repro_torch yet")
+        _not_ported("Experiment.serve (the functional plane)", 8)

@@ -8,7 +8,10 @@ carried from chunk to chunk, written in place over the chunks' own states)
 and ``chunk_scan`` (the output).  ``mamba2_ssd`` runs the three in order
 with their scratch; one call makes three device launches.  The kernels read
 x, a, b and c in place through their strides (innermost dimension
-contiguous), so the slices of the model's fused projection need no copy.
+contiguous), so the slices of the model's fused projection need no copy;
+``mamba2_ssd`` brings other layouts to one the kernel reads
+(``kernel_layout``: P and N zero-padded to multiples of 4, copies where
+the strides do not fit).
 ``LAUNCHES`` counts calls of ``mamba2_ssd`` on the card (one per mamba
 layer), ``PASS_LAUNCHES`` the launches of each pass, from any wrapper.
 """
@@ -18,6 +21,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .ref import (chunk_scan_ref, chunk_state_ref, mamba2_ssd_ref,
@@ -137,6 +141,47 @@ def _check_kernel(x, a, b, c, chunk, h0) -> None:
         raise ValueError("mamba2_ssd kernel takes a contiguous h0")
 
 
+def _takes(x, a, b, c, h0) -> bool:
+    """Whether the kernel reads these tensors as they lie."""
+    return (x.stride(3) == 1 and a.stride(2) == 1 and b.stride(2) == 1
+            and c.stride(2) == 1 and x.data_ptr() % 16 == 0
+            and all(st % 4 == 0 for st in x.stride()[:3])
+            and (h0 is None or h0.is_contiguous()))
+
+
+def kernel_layout(x, a, b, c, h0):
+    """``(x, a, b, c, h0)`` as the kernel takes them, and the real (P, N).
+
+    P and N are zero-padded up to multiples of 4; where the kernel could
+    not read a tensor through its strides (innermost dimension strided, x
+    misaligned or with strides not multiples of 4, h0 not contiguous),
+    every input is copied into a contiguous, 16-byte aligned tensor.  The
+    padding is exact: x = 0 in the padded P columns keeps their y and state
+    at zero, and b = c = 0 (h0 = 0) in the padded N channels adds only exact
+    zeros to the real channels' C.B products and state, which
+    ``from_kernel_layout`` slices back out."""
+    p, n = x.shape[-1], b.shape[-1]
+    pad_p, pad_n = -p % 4, -n % 4
+    if pad_p or pad_n:
+        x = F.pad(x, (0, pad_p))
+        b, c = F.pad(b, (0, pad_n)), F.pad(c, (0, pad_n))
+        if h0 is not None:
+            h0 = F.pad(h0, (0, pad_n, 0, pad_p))
+    if not _takes(x, a, b, c, h0):
+        x, a, b, c, h0 = (t if t is None
+                          else t.clone(memory_format=torch.contiguous_format)
+                          for t in (x, a, b, c, h0))
+    return (x, a, b, c, h0), (p, n)
+
+
+def from_kernel_layout(y, hf, pn):
+    """``(y, final state)`` of the padded run cut back to (P, N) = ``pn``."""
+    p, n = pn
+    if tuple(hf.shape[-2:]) == (p, n):
+        return y, hf
+    return y[..., :p].contiguous(), hf[..., :p, :n].contiguous()
+
+
 def _scratch_shapes(x, b, chunk):
     bsz, s, h, p = x.shape
     nc = s // chunk
@@ -250,12 +295,14 @@ def mamba2_ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     float32 decay in (0, 1], b/c [B,S,N] float32 or bfloat16 (shared across
     heads), h0 [B,H,P,N] float32 or None (zeros); S a multiple of
     ``chunk``.  Returns (y [B,S,H,P], h_final [B,H,P,N]), both float32.
-    On the card: ``chunk_state``, ``state_pass``, ``chunk_scan``, three
+    On the card: the inputs in ``kernel_layout``, then ``chunk_state``,
+    ``state_pass``, ``chunk_scan``, three
     launches with float32 scratch of N / chunk + 1 / P times x's size."""
     global LAUNCHES
     check_inputs(x, a, b, c, chunk, h0)
     if x.device.type == "cpu":
         return mamba2_ssd_ref(x, a, b, c, chunk=chunk, h0=h0)
+    (x, a, b, c, h0), pn = kernel_layout(x, a, b, c, h0)
     _check_kernel(x, a, b, c, chunk, h0)
     shape_cum, shape_states = _scratch_shapes(x, b, chunk)
     cum = torch.empty(shape_cum, dtype=torch.float32, device=x.device)
@@ -267,4 +314,4 @@ def mamba2_ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     _run_state_pass(states, cum, h0, hf)
     _run_chunk_scan(x, b, c, cum, states, chunk, y)
     LAUNCHES += 1
-    return y, hf
+    return from_kernel_layout(y, hf, pn)

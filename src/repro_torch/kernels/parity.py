@@ -5,14 +5,22 @@ Two implementations of the same draw sum the renormalised shares in
 different orders, so their segment ends can differ in the last bits, and a
 uniform ``u`` that lies within those bits of a segment end may pick the
 neighbouring job.  Such a draw is excused; any other mismatch is a fault.
-The band is ``J * 2**-24`` around every segment end computed in float64
-from the same shares and queue counts.  Where the two sides computed their
-share tables apart (the engine on the card against the engine on the CPU),
-the band also covers each draw that lies between the two tables' ends.
+The band is ``J`` times the unit roundoff of the dtype the draws sum in
+(``sum_dtype``) around every segment end computed in float64 from the same
+shares and queue counts: ``J * 2**-24`` where both sides sum in float32 (the
+port's kernels and plain versions, bf16 shares widened), ``J * 2**-8``
+where one side sums in bf16 (the reference with bf16 shares renormalises
+and prefix-sums in bf16, so a J-term prefix of values in [0, 1] may be off
+by up to about J bf16 roundings).  Where the two sides computed their share
+tables apart (the engine on the card against the engine on the CPU), the
+band also covers each draw that lies between the two tables' ends.
 """
 from __future__ import annotations
 
 import torch
+
+#: Unit roundoff of each dtype a draw may sum in.
+UNIT_ROUNDOFF = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
 
 
 def segment_ends(shares: torch.Tensor, qcount: torch.Tensor) -> torch.Tensor:
@@ -30,18 +38,21 @@ def segment_ends(shares: torch.Tensor, qcount: torch.Tensor) -> torch.Tensor:
 
 
 def edge_band(shares: torch.Tensor, qcount: torch.Tensor, u: torch.Tensor,
-              other_shares: torch.Tensor | None = None) -> torch.Tensor:
-    """bool ``[S, W]``: draw ``u[s, w]`` lies within ``J * 2**-24`` of a
-    float64 segment end of row ``s``.  With ``other_shares`` (the share table
-    the other side computed on its own) a draw is also in the band where it
-    lies near that table's ends, or between the two tables' ends."""
+              other_shares: torch.Tensor | None = None,
+              sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """bool ``[S, W]``: draw ``u[s, w]`` lies within ``J`` unit roundoffs of
+    ``sum_dtype`` of a float64 segment end of row ``s``.  With
+    ``other_shares`` (the share table the other side computed on its own) a
+    draw is also in the band where it lies near that table's ends, or
+    between the two tables' ends."""
     j = shares.shape[-1]
+    width = j * UNIT_ROUNDOFF[sum_dtype]
     u64 = u.to(torch.float64)[:, :, None]
     dist = segment_ends(shares, qcount)[:, None, :] - u64
-    band = dist.abs().amin(dim=-1) <= j * 2.0 ** -24
+    band = dist.abs().amin(dim=-1) <= width
     if other_shares is not None:
         other = segment_ends(other_shares, qcount)[:, None, :] - u64
-        band |= other.abs().amin(dim=-1) <= j * 2.0 ** -24
+        band |= other.abs().amin(dim=-1) <= width
         band |= (dist * other <= 0).any(dim=-1)
     return band
 
@@ -55,14 +66,15 @@ def _cpu(t):
     return None if t is None else t.cpu()
 
 
-def compare_token_select(got, want, shares, qcount, u,
-                         other_shares=None) -> tuple[list[str], int]:
+def compare_token_select(got, want, shares, qcount, u, other_shares=None,
+                         sum_dtype=torch.float32) -> tuple[list[str], int]:
     """Hold token_select's output ``got`` to ``want``.  Returns (one line per
     excused edge-band draw, max |got - want| over the other draws); raises
     ``AssertionError`` on a mismatch outside the band (``edge_band``)."""
     got, want, u = got.cpu(), want.cpu(), u.cpu()
     diff = got != want
-    band = edge_band(shares.cpu(), qcount.cpu(), u, _cpu(other_shares))
+    band = edge_band(shares.cpu(), qcount.cpu(), u, _cpu(other_shares),
+                     sum_dtype)
     bad = diff & ~band
     if bad.any():
         s, w = (int(i) for i in bad.nonzero()[0])
@@ -75,7 +87,8 @@ def compare_token_select(got, want, shares, qcount, u,
 
 
 def compare_tick_step(got, want, shares, qcount, u, mode: str,
-                      other_shares=None) -> tuple[list[str], int]:
+                      other_shares=None,
+                      sum_dtype=torch.float32) -> tuple[list[str], int]:
     """Hold tick_step's outputs ``got`` to ``want`` (both 5-tuples).
 
     fifo: every output equal.  themis: per server, workers are compared in
@@ -97,7 +110,7 @@ def compare_tick_step(got, want, shares, qcount, u, mode: str,
     excused = {}
     if mode == "themis":
         excused = _themis_excused_rows(got, want, shares, qcount, u,
-                                       _cpu(other_shares))
+                                       _cpu(other_shares), sum_dtype)
     keep = torch.ones(qcount.shape[0], dtype=torch.bool)
     for s in excused:
         keep[s] = False
@@ -112,8 +125,8 @@ def compare_tick_step(got, want, shares, qcount, u, mode: str,
     return list(excused.values()), err
 
 
-def _themis_excused_rows(got, want, shares, qcount, u,
-                         other_shares) -> dict[int, str]:
+def _themis_excused_rows(got, want, shares, qcount, u, other_shares,
+                         sum_dtype) -> dict[int, str]:
     """``{row: its first differing draw}`` over rows whose first differing
     pick is an edge-band draw; raises on a differing pick outside the band."""
     sel_g, sel_w = got[0], want[0]
@@ -127,7 +140,7 @@ def _themis_excused_rows(got, want, shares, qcount, u,
                 in_band = edge_band(
                     shares[s:s + 1], q[None, :], u[s:s + 1, w:w + 1],
                     None if other_shares is None
-                    else other_shares[s:s + 1])[0, 0]
+                    else other_shares[s:s + 1], sum_dtype)[0, 0]
                 line = _describe(sel_g, sel_w, u, s, w)
                 if not bool(in_band):
                     raise AssertionError("tick_step themis: pick mismatch "

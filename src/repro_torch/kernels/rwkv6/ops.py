@@ -8,7 +8,9 @@ chunk, written in place over the chunks' own states) and ``chunk_scan``
 (the output).  ``wkv6`` runs the three in order with their scratch; one
 call makes three device launches.  The kernels read r, k, v and lw in
 their ``[B, S, H, K]`` layout (contiguous): no transposed copy and no
-tiled ``u``.  ``LAUNCHES`` counts calls of ``wkv6`` on the card (one per
+tiled ``u``; ``wkv6`` first brings other layouts to it
+(``kernel_layout``: K zero-padded to 16 bytes, strided or misaligned
+tensors copied).  ``LAUNCHES`` counts calls of ``wkv6`` on the card (one per
 rwkv layer), ``PASS_LAUNCHES`` the launches of each pass, from any wrapper.
 """
 from __future__ import annotations
@@ -17,6 +19,7 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 from .ref import chunk_scan_ref, chunk_state_ref, state_pass_ref, wkv6_ref
@@ -124,6 +127,40 @@ def _check_kernel(tensors, kd, chunk, dtype) -> None:
                          "tensors")
 
 
+def _aligned(t) -> bool:
+    return t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
+def kernel_layout(r, k, v, lw, u, s0):
+    """``(r, k, v, lw, u, s0)`` as the kernel takes them, and the real K.
+
+    K is zero-padded up to the 16-byte quantum (8 bf16 or 4 float32
+    values); every tensor that is not contiguous and 16-byte aligned is
+    copied into one that is.  The padding is exact: with r = k = v = 0,
+    lw = 0 and u = 0 (and s0 = 0) in the padded channels, their state rows
+    never fill, their value columns stay zero, and they add only exact
+    zeros to the real channels' y and state, which ``from_kernel_layout``
+    slices back out."""
+    kd = k.shape[-1]
+    pad = -kd % (16 // k.dtype.itemsize)
+    if pad:
+        r, k, v, lw, u = (F.pad(t, (0, pad)) for t in (r, k, v, lw, u))
+        if s0 is not None:
+            s0 = F.pad(s0, (0, pad, 0, pad))
+    fixed = [t if t is None or _aligned(t)
+             else t.clone(memory_format=torch.contiguous_format)
+             for t in (r, k, v, lw, u, s0)]
+    return tuple(fixed), kd
+
+
+def from_kernel_layout(y, sf, kd):
+    """``(y, final state)`` of the padded channels' run cut back to K =
+    ``kd``."""
+    if y.shape[-1] == kd:
+        return y, sf
+    return y[..., :kd].contiguous(), sf[..., :kd, :kd].contiguous()
+
+
 def _scratch_shapes(k, chunk):
     bsz, s, h, kd = k.shape
     nc = s // chunk
@@ -224,12 +261,14 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B,S,H,K] float32 log decay (<= 0), u [H,K] float32 bonus, s0
     [B,H,K,K] float32 or None (zeros); S a multiple of ``chunk``.  Returns
     (y [B,S,H,K], final state [B,H,K,K] k-major), both float32.  On the
-    card: ``chunk_state``, ``state_pass``, ``chunk_scan``, three launches
-    with float32 scratch of K / chunk + 1 / chunk times y's size."""
+    card: the inputs in ``kernel_layout``, then ``chunk_state``,
+    ``state_pass``, ``chunk_scan``, three launches with float32 scratch of
+    K / chunk + 1 / chunk times y's size."""
     global LAUNCHES
     check_inputs(r, k, v, lw, u, chunk, s0)
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, lw, u, chunk=chunk, s0=s0)
+    (r, k, v, lw, u, s0), k_real = kernel_layout(r, k, v, lw, u, s0)
     _check_kernel([r, k, v, lw, u, s0], k.shape[-1], chunk, k.dtype)
     bsz, s, h, kd = r.shape
     shape_cwl, shape_states = _scratch_shapes(k, chunk)
@@ -241,4 +280,4 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _run_state_pass(states, cwl, s0, sf)
     _run_chunk_scan(r, k, v, lw, u, states, chunk, y)
     LAUNCHES += 1
-    return y, sf
+    return from_kernel_layout(y, sf, k_real)

@@ -11,16 +11,22 @@ import functools
 import torch
 
 from .. import _build
+from ..token_select.ops import SHARE_DTYPES
 from .ref import MODES, tick_step_ref
 
 #: Kernel launches made by :func:`tick_step` in this process.
 LAUNCHES = 0
 
+#: Largest J the kernel takes: beyond 1024 a row's slots live in a per-warp
+#: shared-memory slab of 3 arrays of 32 * ceil(J / 32) 4-byte values, and
+#: one warp's slab must fit the H100's 232,448 bytes of a block.
+MAX_J = 32 * (232448 // (3 * 4 * 32))
+
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("tick_step").tick_step_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -29,9 +35,11 @@ def _launcher():
 def check_inputs(shares, qcount, window, free, u, mode) -> None:
     if mode not in MODES:
         raise ValueError(f"unknown tick-step mode {mode!r}; one of {MODES}")
-    if shares.dtype != torch.float32 or window.dtype != torch.float32 \
+    if shares.dtype not in SHARE_DTYPES or window.dtype != torch.float32 \
             or u.dtype != torch.float32:
-        raise TypeError("tick_step takes float32 shares, window and u")
+        raise TypeError("tick_step takes float32 or bfloat16 shares and "
+                        f"float32 window and u, got {shares.dtype}, "
+                        f"{window.dtype}, {u.dtype}")
     if qcount.dtype != torch.int32 or free.dtype != torch.bool:
         raise TypeError(f"tick_step takes qcount int32 and free bool, got "
                         f"{qcount.dtype} and {free.dtype}")
@@ -66,8 +74,9 @@ def tick_step(shares, qcount, window, free, u, *, mode: str = "themis"):
         raise ValueError("tick_step kernel takes contiguous tensors")
     s, j = qcount.shape
     w = u.shape[1]
-    if j * 12 > 227 * 1024:
-        raise ValueError(f"J={j} exceeds the kernel's shared memory")
+    if j > MAX_J:
+        raise ValueError(f"J={j} exceeds the kernel's shared memory (J <= "
+                         f"{MAX_J})")
     dev = shares.device
     sel = torch.empty((s, w), dtype=torch.int32, device=dev)
     valid = torch.empty((s, w), dtype=torch.bool, device=dev)
@@ -81,7 +90,8 @@ def tick_step(shares, qcount, window, free, u, *, mode: str = "themis"):
                          window.data_ptr(), free.data_ptr(), u.data_ptr(),
                          sel.data_ptr(), valid.data_ptr(), dany.data_ptr(),
                          qout.data_ptr(), pops.data_ptr(), s, j, w,
-                         MODES.index(mode), stream)
+                         MODES.index(mode), SHARE_DTYPES[shares.dtype],
+                         stream)
     if rc != 0:
         raise RuntimeError(f"tick_step kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -3,7 +3,7 @@
 The op sequence of the reference's ``repro.kernels.tick_step.ref``: the W
 workers' sequential select -> pop -> ring-head advance for every server.
 
-    shares  f32[S, J]    per-tick share table (themis mode)
+    shares  f32[S, J]    per-tick share table (themis mode; bf16 is widened)
     qcount  i32[S, J]    queued requests per (server, job) at tick start
     window  f32[S, J, W] next W ring arrival stamps per (server, job)
     free    bool[S, W]   worker is free this tick

@@ -16,19 +16,27 @@ from .ref import token_select_ref
 #: Kernel launches made by :func:`token_select` in this process.
 LAUNCHES = 0
 
+#: Share dtypes the kernel takes, by the code its launcher reads.
+SHARE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Largest J the kernel takes: beyond 1024 a row's slots live in a per-warp
+#: shared-memory slab of 2 arrays of 32 * ceil(J / 32) 4-byte values, and
+#: one warp's slab must fit the H100's 232,448 bytes of a block.
+MAX_J = 32 * (232448 // (2 * 4 * 32))
+
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("token_select").token_select_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def check_inputs(shares, qcount, u) -> None:
-    if shares.dtype != torch.float32:
-        raise TypeError(f"token_select takes float32 shares, got {shares.dtype} "
-                        "(bf16 shares are not ported yet)")
+    if shares.dtype not in SHARE_DTYPES:
+        raise TypeError("token_select takes float32 or bfloat16 shares, got "
+                        f"{shares.dtype}")
     if qcount.dtype != torch.int32 or u.dtype != torch.float32:
         raise TypeError("token_select takes qcount int32 and u float32, got "
                         f"{qcount.dtype} and {u.dtype}")
@@ -48,8 +56,9 @@ def check_inputs(shares, qcount, u) -> None:
 
 def token_select(shares: torch.Tensor, qcount: torch.Tensor,
                  u: torch.Tensor) -> torch.Tensor:
-    """All W worker draws for every server row: shares f32[S, J],
-    qcount i32[S, J], u f32[S, W] -> i32[S, W] (-1 = idle)."""
+    """All W worker draws for every server row: shares f32 or bf16 [S, J]
+    (bf16 widened to float32), qcount i32[S, J], u f32[S, W] -> i32[S, W]
+    (-1 = idle)."""
     global LAUNCHES
     check_inputs(shares, qcount, u)
     if shares.device.type == "cpu":
@@ -59,15 +68,17 @@ def token_select(shares: torch.Tensor, qcount: torch.Tensor,
         raise ValueError("token_select kernel takes contiguous tensors")
     s, j = shares.shape
     w = u.shape[1]
-    if j * 4 > 227 * 1024:
-        raise ValueError(f"J={j} exceeds the kernel's shared memory")
+    if j > MAX_J:
+        raise ValueError(f"J={j} exceeds the kernel's shared memory (J <= "
+                         f"{MAX_J})")
     dev = shares.device
     out = torch.empty((s, w), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     # The C launcher runs on the current device: make it the tensors'.
     with torch.cuda.device(dev):
         rc = _launcher()(shares.data_ptr(), qcount.data_ptr(), u.data_ptr(),
-                         out.data_ptr(), s, j, w, stream)
+                         out.data_ptr(), s, j, w, SHARE_DTYPES[shares.dtype],
+                         stream)
     if rc != 0:
         raise RuntimeError(f"token_select kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -2,9 +2,10 @@
 
 The op sequence of the reference's ``repro.kernels.token_select.ref``
 (opportunity renormalisation -> uniform fallback -> segment search ->
-demand guard), vectorised over a trailing worker axis.  The CPU path of
-``ops.token_select`` runs it; on the card it is only the comparison the
-kernel is held to.
+demand guard), vectorised over a trailing worker axis.  bf16 shares are widened to
+float32 first and the draw runs in float32, as the kernel runs it.  The CPU
+path of ``ops.token_select`` runs it; on the card it is only the comparison
+the kernel is held to.
 """
 from __future__ import annotations
 
@@ -13,8 +14,9 @@ import torch
 
 def token_select_ref(shares: torch.Tensor, qcount: torch.Tensor,
                      u: torch.Tensor) -> torch.Tensor:
-    """shares f32[S, J], qcount i32[S, J], u f32[S, W] -> i32[S, W] (-1 =
-    idle)."""
+    """shares f32 or bf16 [S, J], qcount i32[S, J], u f32[S, W] -> i32[S, W]
+    (-1 = idle)."""
+    shares = shares.float()
     demand = qcount > 0
     dm = demand.to(shares.dtype)
     masked = shares * dm

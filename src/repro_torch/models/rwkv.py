@@ -62,7 +62,14 @@ def wkv6_chunked(r, k, v, lw, u, *, chunk: int, s0=None):
     r,k,v: [B,S,H,K]; lw: [B,S,H,K] log-decay (<= 0); u: [H,K] bonus.
     Returns y [B,S,H,K] and final state [B,H,K,K] (k-major, v-minor), both
     float32: the ``wkv6`` kernel for CUDA tensors, its plain version for CPU
-    tensors."""
+    tensors.  The kernel has no backward yet: a CUDA input that requires grad
+    is refused (the plain version differentiates)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.is_cuda and t.requires_grad
+            for t in (r, k, v, lw, u, s0)):
+        raise NotImplementedError(
+            "wkv6_chunked has no backward on the card yet (the training slice "
+            "ports the scan's backward)")
     return wkv6(r, k, v, lw, u, chunk=chunk, s0=s0)
 
 

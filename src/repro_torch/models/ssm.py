@@ -77,7 +77,14 @@ def ssd_chunked(x, a, b, c, dt=None, *, chunk: int, h0=None):
     b,c: [B,S,N] (shared across heads, Mamba-2 style), dt is already folded
     into x (unused, as in the reference). Returns (y [B,S,H,P], h_final
     [B,H,P,N]), float32: the ``mamba2_ssd`` kernel for CUDA tensors, its
-    plain version for CPU tensors."""
+    plain version for CPU tensors.  The kernel has no backward yet: a CUDA
+    input that requires grad is refused (the plain version differentiates)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.is_cuda and t.requires_grad
+            for t in (x, a, b, c, h0)):
+        raise NotImplementedError(
+            "ssd_chunked has no backward on the card yet (the training slice "
+            "ports the scan's backward)")
     return mamba2_ssd(x, a, b, c, chunk=chunk, h0=h0)
 
 

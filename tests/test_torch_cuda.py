@@ -76,6 +76,81 @@ def test_kernels_match_plain_versions(card, s, j, w):
         assert err == 0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("j", [5, 33, 1000, 1024, 4096])
+def test_draw_kernels_share_dtypes_and_widths(card, j, dtype):
+    """token_select and tick_step (themis and fifo) on float32 and bf16
+    shares against their plain versions (both widen bf16 and draw in
+    float32: the float32 edge band), at J below a lane's run (5), just past
+    one slot per lane (33), not a multiple of 32 (1000), the fleet's 1024
+    (the longest run in registers) and 4096 (the shared-memory slab)."""
+    shares, qcount, window, free, u = inputs(16, j, 4, seed=j, device=card)
+    shares = shares.to(getattr(torch, dtype))
+    before = tk_ops.LAUNCHES, ts_ops.LAUNCHES
+    got = tk_ops.token_select(shares, qcount, u)
+    torch.cuda.synchronize()
+    _, err = parity.compare_token_select(
+        got, token_select_ref(shares, qcount, u), shares.float(), qcount, u)
+    assert err == 0
+    for mode in ("themis", "fifo"):
+        got = ts_ops.tick_step(shares, qcount, window, free, u, mode=mode)
+        torch.cuda.synchronize()
+        want = tick_step_ref(shares, qcount, window, free, u, mode=mode)
+        _, err = parity.compare_tick_step(got, want, shares.float(), qcount,
+                                          u, mode)
+        assert err == 0
+    assert (tk_ops.LAUNCHES, ts_ops.LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_tick_equals_scan_at_fleet_shape(card, dtype):
+    """S=128, J=1024, W=4: one tick_step themis launch and four token_select
+    launches on the live counts pick bit-identically."""
+    shares, qcount, _, free, u = inputs(128, 1024, 4, seed=11, device=card)
+    before = tk_ops.LAUNCHES
+    smoke.fused_equals_scan(shares.to(getattr(torch, dtype)), qcount, free, u)
+    assert tk_ops.LAUNCHES == before + 4
+
+
+def test_scans_refuse_grad_on_the_card(card):
+    """The scan kernels have no backward: a CUDA input that requires grad
+    is refused, and the same call without grad runs the kernel."""
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.models import rwkv, ssm
+    x, a, b, c, _ = smoke.mamba2_inputs(smoke.MAMBA2_CASES[0], card, seed=0)
+    r, k, v, lw, u, _ = smoke.wkv6_inputs(smoke.WKV6_CASES[0], card, seed=0)
+    x.requires_grad_()
+    lw.requires_grad_()
+    with pytest.raises(NotImplementedError, match="ssd_chunked"):
+        ssm.ssd_chunked(x, a, b, c, chunk=32)
+    with pytest.raises(NotImplementedError, match="wkv6_chunked"):
+        rwkv.wkv6_chunked(r, k, v, lw, u, chunk=32)
+    before = ssd_ops.LAUNCHES, wkv_ops.LAUNCHES
+    with torch.no_grad():
+        ssm.ssd_chunked(x, a, b, c, chunk=32)
+        rwkv.wkv6_chunked(r, k, v, lw, u, chunk=32)
+    assert (ssd_ops.LAUNCHES, wkv_ops.LAUNCHES) == (before[0] + 1,
+                                                    before[1] + 1)
+
+
+@pytest.mark.parametrize("kernel,case,view", smoke.LAYOUT_CASES,
+                         ids=lambda c: str(c).replace(" ", ""))
+def test_scan_kernels_in_their_layout(card, kernel, case, view):
+    """Geometry the kernels take after the wrapper's ``kernel_layout``
+    (channels zero-padded, strided or misaligned inputs copied): the kernel
+    against the plain version on the original inputs, within
+    ``prefix_tol``; one call each."""
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    ops = wkv_ops if kernel == "wkv6" else ssd_ops
+    args, kw = smoke.layout_inputs(kernel, case, view, card, seed=3)
+    before = ops.LAUNCHES
+    smoke.scan_check(kernel, args, kw, f"{case} {view}", "layout")
+    assert ops.LAUNCHES == before + 1
+
+
 def test_engine_fused_and_scan_agree(card):
     from repro_torch.api import Experiment
     jobs = [dict(user=i % 3, size=1 + i % 2, procs=6 + i, req_mb=2 + i % 3,

@@ -95,13 +95,18 @@ def test_kernel_wrappers_refuse_bf16_and_bad_shapes():
     shares = torch.rand(2, 8)
     q = torch.ones(2, 8, dtype=torch.int32)
     u = torch.rand(2, 3)
-    with pytest.raises(TypeError, match="bf16"):
-        token_select(shares.to(torch.bfloat16), q, u)
+    # bf16 shares are taken (widened to float32); other dtypes are refused.
+    assert torch.equal(token_select(shares.to(torch.bfloat16), q, u),
+                       token_select(shares.to(torch.bfloat16).float(), q, u))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        token_select(shares.half(), q, u)
     with pytest.raises(ValueError):
         token_select(shares, q[:1], u)
     window = torch.rand(2, 8, 3)
     free = torch.ones(2, 3, dtype=torch.bool)
     with pytest.raises(ValueError, match="mode"):
         tick_step(shares, q, window, free, u, mode="lifo")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tick_step(shares.double(), q, window, free, u)
     with pytest.raises(ValueError):
         tick_step(shares, q, window[:, :, :2], free, u)

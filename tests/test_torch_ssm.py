@@ -212,6 +212,91 @@ def test_scan_wrappers_refuse_what_the_kernels_do_not_take():
     assert wkv_ops.smem_bytes(64, 64) <= wkv_ops.MAX_SMEM
 
 
+#: Geometry the kernels take only after ``kernel_layout``: (scan, a label,
+#: its make-inputs arguments).
+LAYOUT_CASES = [
+    ("wkv6", "K60-bf16", dict(kd=60, dtype=torch.bfloat16)),
+    ("wkv6", "K36-f32", dict(kd=36, dtype=torch.float32)),
+    ("wkv6", "K30-f32-s0", dict(kd=30, dtype=torch.float32, s0=True)),
+    ("wkv6", "K16-strided-v", dict(kd=16, dtype=torch.float32,
+                                   strided_v=True)),
+    ("mamba2", "P30-N18-h0", dict(p=30, n=18, h0=True)),
+    ("mamba2", "P8-N16-misaligned-x", dict(p=8, n=16, offset_x=True)),
+]
+
+
+def layout_inputs(scan, kd=8, dtype=torch.float32, s0=False,
+                  strided_v=False, p=8, n=16, h0=False, offset_x=False):
+    rng = np.random.default_rng(7)
+    if scan == "wkv6":
+        r, k, v, lw, u = (tt(t) for t in wkv_inputs(64, 2, kd, seed=kd))
+        r, k, v = (t.to(dtype) for t in (r, k, v))
+        if strided_v:
+            wide = torch.zeros(v.shape[:-1] + (kd + 3,), dtype=dtype)
+            wide[..., 1:kd + 1] = v
+            v = wide[..., 1:kd + 1]
+        st = (tt(rng.standard_normal((2, 2, kd, kd)).astype(np.float32))
+              if s0 else None)
+        return (r, k, v, lw, u, st), dict(chunk=32, s0=st)
+    x, a, bb, c = (tt(t) for t in ssd_inputs(64, 2, p, n, seed=p + n))
+    if offset_x:
+        wide = torch.zeros(x.shape[:-1] + (p + 1,))
+        wide[..., 1:] = x
+        x = wide[..., 1:]
+    hs = (tt(rng.standard_normal((2, 2, p, n)).astype(np.float32))
+          if h0 else None)
+    return (x, a, bb, c, hs), dict(chunk=32, h0=hs)
+
+
+@pytest.mark.parametrize("scan,label,kw", LAYOUT_CASES,
+                         ids=[c[1] for c in LAYOUT_CASES])
+def test_kernel_layout_is_exact(scan, label, kw):
+    """What the wrappers do on the card before launching, done here on CPU
+    tensors: the inputs in ``kernel_layout`` (channels zero-padded to the
+    kernel's quantum, strided or misaligned tensors copied) meet the
+    kernel's checks, and the plain version on them, cut back by
+    ``from_kernel_layout``, gives the unpadded plain version's y and final
+    state within ``prefix_tol``."""
+    args, call = layout_inputs(scan, **kw)
+    if scan == "wkv6":
+        ops, ref = wkv_ops, wkv_ops.wkv6_ref
+        want = ref(*args[:5], chunk=32, s0=args[5])
+        laid, real = ops.kernel_layout(*args)
+        assert laid[0].shape[-1] % (16 // laid[0].dtype.itemsize) == 0
+        ops._check_kernel(list(laid), laid[1].shape[-1], 32, laid[1].dtype)
+        got = ref(*laid[:5], chunk=32, s0=laid[5])
+        tol = prefix_tol(np.cumsum(args[3].numpy().reshape(2, 2, 32, 2, -1),
+                                   axis=2))
+    else:
+        ops, ref = ssd_ops, ssd_ops.mamba2_ssd_ref
+        want = ref(*args[:4], chunk=32, h0=args[4])
+        laid, real = ops.kernel_layout(*args)
+        assert laid[0].shape[-1] % 4 == 0 and laid[2].shape[-1] % 4 == 0
+        ops._check_kernel(*laid[:4], 32, laid[4])
+        got = ref(*laid[:4], chunk=32, h0=laid[4])
+        tol = prefix_tol(np.cumsum(np.log(args[1].numpy()).reshape(
+            2, 2, 32, 2), axis=2))
+    got = ops.from_kernel_layout(*got, real)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        close(g, w, **tol)
+
+
+def test_scans_differentiate_on_the_cpu():
+    """The plain versions keep their autograd graph (on the card the scans
+    refuse inputs that require grad until their backward is ported)."""
+    x, a, bb, c = (tt(t).requires_grad_() for t in ssd_inputs(64, 2, 8, 16,
+                                                               seed=1))
+    y, hf = TS.ssd_chunked(x, a, bb, c, chunk=32)
+    (y.sum() + hf.sum()).backward()
+    r, k, v, lw, u = (tt(t).requires_grad_() for t in wkv_inputs(64, 2, 8,
+                                                                 seed=1))
+    y, sf = TR.wkv6_chunked(r, k, v, lw, u, chunk=32)
+    (y.sum() + sf.sum()).backward()
+    for t in (x, a, bb, c, r, k, v, lw, u):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+
+
 # -- the blocks --------------------------------------------------------------------
 
 @pytest.fixture(scope="module")

@@ -1,12 +1,11 @@
 #!/usr/bin/env python3
-"""Time builds of the flash_attention, mamba2_ssd and wkv6 kernels side by
-side, on one card.
+"""Time builds of the port's kernels side by side, on one card.
 
-    python3 tools/probe_kernel_builds.py [--other DIR]
+    python3 tools/probe_kernel_builds.py [--other DIR] [KERNEL ...]
 
-Compiles, with the flags of ``kernels/_build.py``, these builds of
-``csrc/flash_attention.cu``, ``csrc/mamba2_ssd.cu`` and ``csrc/wkv6.cu``
-into a temporary directory, all started together:
+Compiles, with the flags of ``kernels/_build.py``, these builds of each
+``csrc/<kernel>.cu`` named (default: every kernel of ``EDITS``) into a
+temporary directory, all started together:
 
   checkout       the sources as they are;
   <edit name>    the sources with one design choice undone by a text edit
@@ -17,12 +16,15 @@ into a temporary directory, all started together:
 
 Each build's output is first held to the checkout's plain version (flash:
 ``chip_smoke.FLASH_TOL``; the scans: ``chip_smoke.prefix_tol``, output and
-final state), then timed at the serving shapes of ``chip_smoke.py`` (flash:
-danube's GQA and zamba2's MHA shape, bf16; mamba2_ssd: zamba2's layer,
-bf16 b/c; wkv6: rwkv6's layer, bf16 r/k/v), the builds in turns, forward
-then backward, each time the median of CUDA-event timings
-(``chip_smoke.time_ms``).  Prints one line per shape with every build's
-best time and the card's nvidia-smi name and power limit.  Exits 2
+final state; the draws: ``repro_torch.kernels.parity``, picks exact up to
+the float32 edge band), then timed at the shapes of ``chip_smoke.py``
+(flash: danube's GQA and zamba2's MHA shape, bf16; mamba2_ssd: zamba2's
+layer, bf16 b/c; wkv6: rwkv6's layer, bf16 r/k/v; token_select and
+tick_step: the fleet's S=128, J=1024, W=4, token_select at the scan path's
+W=1, float32 shares, then bf16 shares for the builds that take them), the
+builds in turns, forward then backward, each time the median of CUDA-event
+timings (``chip_smoke.time_ms``).  Prints one line per shape with every
+build's best time and the card's nvidia-smi name and power limit.  Exits 2
 without a card.
 """
 from __future__ import annotations
@@ -39,6 +41,18 @@ CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 
 #: kernel -> edit name -> [(text in the source, its replacement)].
 EDITS = {
+    # Two and four rows (warps) per block in place of one; every J in the
+    # shared-memory slab, as J > 1024 runs, in place of registers.
+    "token_select": {
+        "rows_2": [("constexpr int kRows = 1;", "constexpr int kRows = 2;")],
+        "rows_4": [("constexpr int kRows = 1;", "constexpr int kRows = 4;")],
+        "slab": [("const int c = (J + 31) / 32;", "const int c = 33;")],
+    },
+    "tick_step": {
+        "rows_2": [("constexpr int kRows = 1;", "constexpr int kRows = 2;")],
+        "rows_4": [("constexpr int kRows = 1;", "constexpr int kRows = 4;")],
+        "slab": [("const int c = (a.J + 31) / 32;", "const int c = 33;")],
+    },
     "flash_attention": {
         # 3 blocks per SM with Q's fragments in registers at D <= 80.
         "q_in_registers": [
@@ -145,11 +159,13 @@ def sources(kernel, other):
     return out
 
 
-def build_all(other, tmp: Path) -> dict:
-    """{(kernel, build name): ctypes library}; the builds run together."""
+def build_all(kernels, other, tmp: Path) -> dict:
+    """{(kernel, build name): ctypes library}; the builds run together.  A
+    draw kernel's library carries ``takes_share_dtype``: whether its
+    launcher takes the share dtype (builds before bf16 shares do not)."""
     from repro_torch.kernels import _build
     procs = {}
-    for kernel in EDITS:
+    for kernel in kernels:
         for name, text in sources(kernel, other).items():
             # Next to the checkout's headers (or the other checkout's).
             inc = (CSRC if name != "other" else
@@ -160,13 +176,14 @@ def build_all(other, tmp: Path) -> dict:
             procs[kernel, name] = (subprocess.Popen(
                 [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(inc), "-o",
                  str(so), str(src)], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True), so)
+                stderr=subprocess.STDOUT, text=True), so, text)
     libs = {}
-    for key, (proc, so) in procs.items():
+    for key, (proc, so, text) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {key}:\n{log}")
         libs[key] = ctypes.CDLL(str(so))
+        libs[key].takes_share_dtype = "int dtype" in text
     return libs
 
 
@@ -266,6 +283,78 @@ def wkv6_call(lib, r, k, v, lw, u, chunk):
     return y, sf
 
 
+def draw_call(lib, kernel, shares, qcount, window, free, u, mode):
+    """One launch of a token_select or tick_step build on these inputs; a
+    build whose launcher takes no share dtype (float32 shares only) is
+    called without one."""
+    import torch
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = getattr(lib, f"{kernel}_launch")
+    n_ptr, n_int = (4, 3) if kernel == "token_select" else (10, 4)
+    with_dtype = lib.takes_share_dtype
+    fn.argtypes = [P] * n_ptr + [I] * (n_int + with_dtype) + [P]
+    stream = torch.cuda.current_stream().cuda_stream
+    s, j = qcount.shape
+    w = u.shape[1]
+    extra = [int(shares.dtype == torch.bfloat16)] if with_dtype else []
+    if kernel == "token_select":
+        out = torch.empty((s, w), dtype=torch.int32, device=u.device)
+        rc = fn(shares.data_ptr(), qcount.data_ptr(), u.data_ptr(),
+                out.data_ptr(), s, j, w, *extra, stream)
+        outs = (out,)
+    else:
+        outs = (torch.empty((s, w), dtype=torch.int32, device=u.device),
+                torch.empty((s, w), dtype=torch.bool, device=u.device),
+                torch.empty((s, w), dtype=torch.bool, device=u.device),
+                torch.empty((s, j), dtype=torch.int32, device=u.device),
+                torch.empty((s, j), dtype=torch.int32, device=u.device))
+        rc = fn(shares.data_ptr(), qcount.data_ptr(), window.data_ptr(),
+                free.data_ptr(), u.data_ptr(), *(t.data_ptr() for t in outs),
+                s, j, w, ("themis", "fifo").index(mode), *extra, stream)
+    if rc:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+    return outs
+
+
+def probe_draws(libs, cs, kernel) -> None:
+    import torch
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.tick_step.ref import tick_step_ref
+    from repro_torch.kernels.token_select.ref import token_select_ref
+    shares, qcount, window, free, u = cs.kernel_inputs(128, 1024, 4, "cuda",
+                                                       seed=99)
+    if kernel == "token_select":
+        u = u[:, :1].contiguous()
+    builds = {name: lib for (k, name), lib in libs.items() if k == kernel}
+    for mode in (("themis",) if kernel == "token_select"
+                 else ("themis", "fifo")):
+        for dtype in (torch.float32, torch.bfloat16):
+            sh = shares.to(dtype)
+            calls = {}
+            for name, lib in builds.items():
+                if dtype != torch.float32 and not lib.takes_share_dtype:
+                    continue
+                got = draw_call(lib, kernel, sh, qcount, window, free, u,
+                                mode)
+                if kernel == "token_select":
+                    parity.compare_token_select(
+                        got[0], token_select_ref(sh, qcount, u), sh.float(),
+                        qcount, u)
+                else:
+                    parity.compare_tick_step(
+                        got, tick_step_ref(sh, qcount, window, free, u,
+                                           mode=mode),
+                        sh.float(), qcount, u, mode)
+                calls[name] = lambda lib=lib: draw_call(
+                    lib, kernel, sh, qcount, window, free, u, mode)
+            best = timed_in_turns(calls)
+            label = kernel if kernel == "token_select" else f"{kernel}[{mode}]"
+            print(f"{label} S=128 J=1024 W={u.shape[1]} shares "
+                  f"{str(dtype)[6:]}: " + ", ".join(
+                      f"{n} {t * 1e3:.2f} us" for n, t in best.items()),
+                  flush=True)
+
+
 def timed_in_turns(calls: dict) -> dict:
     """{name: best of two medians}, the builds timed forward then back."""
     import chip_smoke as cs
@@ -336,7 +425,10 @@ def probe_wkv6(libs, cs) -> None:
           + ", ".join(f"{n} {t:.3f} ms" for n, t in best.items()), flush=True)
 
 
-PROBES = {"flash_attention": probe_flash, "mamba2_ssd": probe_mamba2,
+PROBES = {"token_select": lambda libs, cs: probe_draws(libs, cs,
+                                                      "token_select"),
+          "tick_step": lambda libs, cs: probe_draws(libs, cs, "tick_step"),
+          "flash_attention": probe_flash, "mamba2_ssd": probe_mamba2,
           "wkv6": probe_wkv6}
 
 
@@ -345,6 +437,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, default=None,
                     help="root of another checkout whose kernels to time")
+    ap.add_argument("kernels", nargs="*", default=list(EDITS),
+                    choices=list(EDITS), help="kernels to probe (default: "
+                    "all)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("probe_kernel_builds: needs a CUDA card", file=sys.stderr)
@@ -352,8 +447,8 @@ def main(argv=None) -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke as cs
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_all(args.other, Path(tmp))
-        for kernel in EDITS:
+        libs = build_all(args.kernels, args.other, Path(tmp))
+        for kernel in args.kernels:
             PROBES[kernel](libs, cs)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
