@@ -26,6 +26,41 @@ each printing its lines before the last:
                 tick is printed), then per-job completions within 2 %
   anchor        paper Fig. 8a (size-fair, 224 vs 56 procs): shared-window
                 throughput ratio in [3.6, 4.4] (paper: 3.96)
+  schedulers    gift, tbf, adaptbf and plan (the schedulers with no kernel
+                mode in either package, so they run the per-worker scan) at
+                the engine's fleet geometry with a 125-tick μ: conservation,
+                plan never idle under demand, ms/tick; tick_step and
+                token_select counters read 0 for the four, and themis/fifo
+                fused launch tick_step once per tick
+  schedulers_card_vs_cpu  each of the four on the card against the CPU in
+                lockstep at the card_vs_cpu geometry for 500 ticks (μ = 50
+                ticks): counter-exact until a first flipped pick, which
+                must be an edge-band draw of the weighted pick
+  batch         run_batch at the fleet geometry over 8 seeds for themis
+                fused and fifo (8 x 128 = 1024 kernel rows per launch): each
+                lane against run() with that seed (integer state exact,
+                bytes_bin within the atomic adds' bound), ms per lane-tick
+                beside the single run's ms/tick, one tick_step launch per
+                batched tick; and tick_step / token_select timed at 1024
+                rows beside their bound
+  poisson       the fleet job list switched to Poisson arrivals through
+                Experiment.arrivals (one job at λ >= 10 per server, so both
+                of jax.random.poisson's branches run) on themis fused:
+                arrivals within 5 sigma of their expectation, no host sync;
+                the first 8 ticks' Poisson counts (131,072 lanes a tick)
+                drawn again on the CPU from the same keys and rates: every
+                count equal (the mismatch rate and each differing lane
+                printed)
+  figures       the paper's Fig. 8 a-c rows (themis) and Fig. 12 rows (all
+                six schedulers) through repro_torch.bench at 2 s and 8
+                seeds, each seed batch one run_batch; every mean held to
+                src/repro_torch/bench/fig_reference.json (the JAX
+                reference's rows at the same duration and seeds) within
+                max(3 sqrt(cov_card^2 + cov_ref^2) |mean| / sqrt(8), 2 %
+                of |mean|); the paper's values printed beside; the
+                counters are zeroed before and read after each batch:
+                one tick_step launch per tick for themis and fifo, none
+                for the other four, no token_select launch
   serve         h2o-danube-1.8b at full width and depth in bf16 (random
                 weights from a seed): batched prefill of 2 x 6000 tokens
                 (past block_q and the 4096 window) through
@@ -288,7 +323,8 @@ def phase_kernels(device, s=128, j=1024, w=4):
     for k, (name, cs, cj, cw, kw) in enumerate(cases):
         inputs = kernel_inputs(cs, cj, cw, device, seed=k, **kw)
         for dtype in (torch.float32, torch.bfloat16):
-            # bf16 shares: both sides widen them and draw in float32.
+            # bf16 shares: both sides draw in the reference's bf16
+            # arithmetic (its order of sums, bf16 roundings).
             shares, qcount, window, free, u = inputs
             shares = shares.to(dtype)
             wide = shares.float()
@@ -656,6 +692,468 @@ def phase_anchor(device, seconds=6.0):
     if not 3.6 <= ratio <= 4.4:
         raise AssertionError(f"fig8a ratio {ratio} outside [3.6, 4.4]")
     return ratio
+
+
+# -- the paper's scheduler comparison ---------------------------------------
+
+#: The schedulers with no kernel mode in either package: they run the
+#: per-worker scan, the only implementation either package has of them.
+SCAN_SCHEDULERS = ("gift", "tbf", "adaptbf", "plan")
+#: μ of the fleet runs: four boundaries in the 500 ticks of 0.1 s.
+FLEET_MU_TICKS = 125
+
+
+def scheduler_params(name, mu_ticks):
+    from repro_torch.core import params
+    cls = {"gift": params.GiftParams, "tbf": params.TbfParams,
+           "adaptbf": params.AdaptbfParams, "plan": params.PlanParams}[name]
+    return cls(mu_ticks=mu_ticks)
+
+
+def conserved(tag, res):
+    """issued - completed equals the queued backlog, on every lane."""
+    import numpy as np
+    backlog = res.state.qcount.sum(dim=(-2, -1)).cpu().numpy()
+    gap = res.issued.sum(axis=-1) - res.completed.sum(axis=-1)
+    if not np.array_equal(np.asarray(gap), backlog):
+        raise AssertionError(f"{tag}: issued - completed != queued backlog")
+
+
+def reset_launches():
+    from repro_torch.kernels.tick_step import ops as ts_ops
+    from repro_torch.kernels.token_select import ops as tk_ops
+    ts_ops.LAUNCHES = 0
+    tk_ops.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.tick_step import ops as ts_ops
+    from repro_torch.kernels.token_select import ops as tk_ops
+    return {"tick_step": ts_ops.LAUNCHES, "token_select": tk_ops.LAUNCHES}
+
+
+def expect_launches(tag, device, got, want) -> None:
+    """The kernel launch counts of a path (on the card; the CPU launches
+    none, it runs the plain versions)."""
+    if device != "cpu" and got != want:
+        raise AssertionError(f"{tag}: kernel launches {got}, expected {want}")
+
+
+def phase_schedulers(device, geometry=FLEET, seconds=FLEET_SECONDS):
+    """The four scan schedulers at fleet geometry; returns ms/tick."""
+    import torch
+    from repro_torch.api import Experiment
+    jobs = fleet_jobs(geometry["max_jobs"], geometry["n_servers"])
+
+    def exp(scheduler, **kw):
+        return Experiment(policy="user-fair", scheduler=scheduler,
+                          device=device, **geometry, **kw).add_jobs(jobs)
+
+    ms = {}
+    for name in SCAN_SCHEDULERS:
+        params = scheduler_params(name, FLEET_MU_TICKS)
+        check_no_host_sync(exp(name, params=params))
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = exp(name, params=params).run(seconds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        if any(got.values()):
+            raise AssertionError(f"{name}: kernel launches {got}; the scan "
+                                 "path of a scheduler without a kernel mode "
+                                 "launches neither draw kernel")
+        conserved(name, res)
+        if name == "plan" and res.idle_worker_ticks != 0:
+            raise AssertionError(f"plan idled {res.idle_worker_ticks} "
+                                 "worker-ticks while demand existed (it falls "
+                                 "back to FIFO)")
+        ms[name] = wall / res.ticks * 1e3
+        say("schedulers", f"{name}: {res.ticks} ticks, {ms[name]:.3f} ms/tick "
+            f"wall, completed {int(res.completed.sum())}, backlog "
+            f"{int(res.state.qcount.sum())}, dropped {res.dropped}, idle "
+            f"worker-ticks {res.idle_worker_ticks} (no tick_step or "
+            "token_select launch); no host sync over 10 ticks")
+    ticks = 50
+    for name in ("themis", "fifo"):
+        reset_launches()
+        res = exp(name).run(ticks * geometry["dt"])
+        expect_launches(f"{name} fused, {ticks} ticks (one tick_step per "
+                        "tick)", device, read_launches(),
+                        {"tick_step": ticks, "token_select": 0})
+        conserved(name, res)
+    say("schedulers", f"themis and fifo fused: one tick_step launch per tick "
+        f"over {ticks} ticks, no token_select launch")
+    return ms
+
+
+def recording_picks(log):
+    """``baselines._weighted_pick`` that appends ``(w, u, out)`` of every
+    call, on the CPU, to ``log``."""
+    from repro_torch.core import baselines
+    inner = baselines._weighted_pick
+
+    def wrapper(w, u):
+        out = inner(w, u)
+        log.append((w.cpu(), u.cpu(), out.cpu()))
+        return out
+    return inner, wrapper
+
+
+def explain_pick(card_calls, cpu_calls) -> str:
+    """The first weighted pick that differs between the card and the CPU
+    must have equal inputs and a draw ``u * total`` within ``J`` float32
+    roundoffs of a cumulative-weight boundary (computed in float64)."""
+    import torch
+    for k, ((w_d, u_d, o_d), (w_c, u_c, o_c)) in enumerate(
+            zip(card_calls, cpu_calls)):
+        if torch.equal(o_d, o_c):
+            continue
+        if not (torch.equal(w_d, w_c) and torch.equal(u_d, u_c)):
+            raise AssertionError("a weighted pick's inputs differ between the "
+                                 "card and the CPU before any pick did")
+        w = w_c.double()
+        total = w.sum(dim=-1)
+        x = u_c.double() * total
+        dist = (w.cumsum(dim=-1) - x[..., None]).abs().amin(dim=-1)
+        band = dist <= w.shape[-1] * 2.0 ** -24 * total
+        bad = (o_d != o_c) & ~band
+        if bad.any():
+            raise AssertionError(f"weighted pick {k}: a pick differs outside "
+                                 "the edge band")
+        rows = (o_d != o_c).nonzero().tolist()
+        return (f"weighted pick {k} of the tick: {len(rows)} row(s) "
+                f"{rows[:3]} differ, each draw within J * 2^-24 of a "
+                "cumulative-weight boundary (edge band)")
+    raise AssertionError("card and CPU states differ, but every weighted "
+                         "pick agreed")
+
+
+def phase_schedulers_card_vs_cpu(device, ticks=500, mu_ticks=50):
+    import torch
+    from repro_torch.api import Experiment
+    from repro_torch.core import baselines, engine
+
+    for name in SCAN_SCHEDULERS:
+        def build(dev):
+            cfg, wl, table = Experiment(
+                policy="user-fair", scheduler=name, device=dev,
+                params=scheduler_params(name, mu_ticks), **LOCKSTEP_GEOM
+            ).add_jobs(LOCKSTEP_JOBS).build()
+            n_bins = max(1, -(-ticks // cfg.bin_ticks))
+            return (engine.make_tick(cfg, wl, table, n_bins),
+                    engine.get_scheduler(name).params(cfg),
+                    engine.init_state(cfg, n_bins))
+
+        (tick_d, p_d, st_d), (tick_c, p_c, st_c) = build(device), build("cpu")
+        log: list = []
+        inner, baselines._weighted_pick = recording_picks(log)
+        flip = why = None
+        try:
+            for t in range(ticks):
+                log.clear()
+                st_d = tick_d(p_d, st_d)
+                calls_d = list(log)
+                log.clear()
+                st_c = tick_c(p_c, st_c)
+                if flip is None and int_leaves_equal(st_d, st_c) is not None:
+                    flip, why = t, explain_pick(calls_d, list(log))
+        finally:
+            baselines._weighted_pick = inner
+        if flip is None:
+            for f in FLOAT_LEAVES:
+                torch.testing.assert_close(
+                    getattr(st_d, f).cpu(), getattr(st_c, f), rtol=1e-6,
+                    atol=0.0, msg=f"{name}: {f} beyond rtol 1e-6")
+            say("schedulers_card_vs_cpu", f"{name}: {ticks} ticks "
+                f"counter-exact, float leaves within rtol 1e-6, completed "
+                f"{int(st_c.completed.sum())}")
+        else:
+            say("schedulers_card_vs_cpu", f"{name}: first flipped pick at "
+                f"tick {flip}: {why}")
+
+
+def lane_bytes_bound(cfg) -> int:
+    """Float adds into one throughput bin of one job on the card: at most
+    one per worker per tick of the bin.  Two orders of N float32 adds of
+    non-negative terms differ by at most N ulps of the total."""
+    return cfg.bin_ticks * cfg.n_servers * cfg.n_workers
+
+
+def phase_batch(device, geometry=FLEET, seconds=0.05, n_seeds=8):
+    """run_batch lanes against run(); returns (launches, ms, records)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Experiment
+    jobs = fleet_jobs(geometry["max_jobs"], geometry["n_servers"])
+    seeds = tuple(range(n_seeds))
+    out, launches = {}, {}
+    for name in ("themis", "fifo"):
+        def exp(seed):
+            return Experiment(policy="user-fair", scheduler=name, seed=seed,
+                              device=device, **geometry).add_jobs(jobs)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = exp(0).run_batch(seconds, seeds=seeds)
+        torch.cuda.synchronize()
+        wall_batch = time.perf_counter() - t0
+        got = read_launches()
+        expect_launches(f"{name} batch (one tick_step per batched tick)",
+                        device, got, {"tick_step": batch.ticks,
+                                      "token_select": 0})
+        launches[f"tick_step[{name}]"] = got["tick_step"]
+        conserved(f"{name} batch", batch)
+        cfg = exp(0).engine_config()
+        n_adds = lane_bytes_bound(cfg)
+        worst, walls = 0.0, []
+        for k, seed in enumerate(seeds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one = exp(seed).run(seconds)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            for f in INT_LEAVES:
+                a = getattr(batch.state, f)[k]
+                b = getattr(one.state, f)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} lane {k}: {f} differs from "
+                                         f"run(seed={seed})")
+            a = batch.state.bytes_bin[k].cpu().double()
+            b = one.state.bytes_bin.cpu().double()
+            ulp = np.spacing(b.abs().numpy().astype(np.float32)).astype(float)
+            gap = ((a - b).abs().numpy() / np.maximum(ulp, 1e-45)).max()
+            if gap > n_adds:
+                raise AssertionError(f"{name} lane {k}: bytes_bin {gap:.0f} "
+                                     f"ulps from run(), bound {n_adds}")
+            worst = max(worst, float(gap))
+        per_lane = wall_batch / (batch.ticks * n_seeds) * 1e3
+        single = float(np.median(walls)) / batch.ticks * 1e3
+        out[name] = dict(ms_per_lane_tick=per_lane, ms_per_batched_tick=
+                         wall_batch / batch.ticks * 1e3,
+                         single_ms_per_tick=single)
+        say("batch", f"{name}: {n_seeds} lanes x {batch.ticks} ticks, every "
+            f"lane's integer state equals run() with its seed, bytes_bin "
+            f"within {worst:.0f} ulps (bound {n_adds}: the adds per bin); "
+            f"{per_lane:.3f} ms per lane-tick ({wall_batch / batch.ticks * 1e3:.3f}"
+            f" ms per batched tick) against {single:.3f} ms/tick of one run; "
+            f"tick_step launches {got['tick_step']}")
+    return launches, out, kernel_rows_records(device, geometry, n_seeds)
+
+
+def kernel_rows_records(device, geometry, lanes):
+    """tick_step and token_select at the batched shape (lanes x S rows)."""
+    from repro_torch.kernels.tick_step import ops as ts_ops
+    from repro_torch.kernels.token_select import ops as tk_ops
+    s = lanes * geometry["n_servers"]
+    j, w = geometry["max_jobs"], geometry["n_workers"]
+    shares, qcount, window, free, u = kernel_inputs(s, j, w, device, seed=97)
+    u1 = u[:, :1].contiguous()
+    rec = {}
+    ms = time_ms(lambda: tk_ops.token_select(shares, qcount, u1))
+    nbytes = needed_bytes("token_select", qcount, u1)
+    b, by = bound_ms(nbytes, s * j * (8 + 1))
+    rec["token_select"] = dict(ms_rows=ms, bound_ms_rows=b, rows=s)
+    say("batch", f"token_select at {s} rows, J={j}: {ms * 1e3:.2f} us, bound "
+        f"{b * 1e3:.3f} us ({by}, {nbytes} bytes)")
+    for mode in ("themis", "fifo"):
+        ms = time_ms(lambda: ts_ops.tick_step(shares, qcount, window, free, u,
+                                              mode=mode))
+        pops = ts_ops.tick_step(shares, qcount, window, free, u, mode=mode)[4]
+        nbytes = needed_bytes("tick_step", qcount, u, mode=mode, pops=pops)
+        b, by = bound_ms(nbytes, s * w * j * (9 if mode == "themis" else 2))
+        rec[f"tick_step[{mode}]"] = dict(ms_rows=ms, bound_ms_rows=b, rows=s)
+        say("batch", f"tick_step[{mode}] at {s} rows, J={j}, W={w}: "
+            f"{ms * 1e3:.2f} us, bound {b * 1e3:.3f} us ({by}, {nbytes} bytes)")
+    return rec
+
+
+def expected_arrivals(wl, ticks) -> float:
+    """Σ over ticks of every live Poisson phase's rate × procs."""
+    import numpy as np
+    start, end = wl.phase_start.cpu().numpy(), wl.phase_end.cpu().numpy()
+    rate = wl.arrival_rate.cpu().numpy().astype(np.float64)
+    from repro_torch.scenario.lowering import ARRIVAL_POISSON
+    pois = (wl.arrival_mode.cpu().numpy() == ARRIVAL_POISSON) & (end > start)
+    procs = wl.procs.cpu().numpy().sum(axis=0).astype(np.float64)
+    t = np.arange(ticks)[:, None, None]
+    live = pois[None] & (start[None] <= t) & (end[None] > t)
+    return float((np.where(live, rate[None], 0.0).sum(axis=2) * procs).sum())
+
+
+def poisson_card_vs_cpu(exp, ticks):
+    """The engine's Poisson draws over ``ticks`` ticks of ``exp`` on its
+    device, drawn again by ``prng.poisson`` on the CPU from the same keys
+    and rates.  Returns (lanes drawn, every lane that differs as (tick,
+    index, λ, count on the device, count on the CPU))."""
+    from repro_torch.core import prng
+    calls, inner = [], prng.poisson
+
+    def wrapper(key, lam, **kw):
+        out = inner(key, lam, **kw)
+        calls.append((key, lam, kw, out[0]))
+        return out
+    prng.poisson = wrapper
+    try:
+        exp.run(ticks * exp.engine_config().dt)
+    finally:
+        prng.poisson = inner
+    n, differ = 0, []
+    for t, (key, lam, kw, got) in enumerate(calls):
+        lam, got = lam.cpu(), got.cpu()
+        want, _ = inner(key.cpu(), lam, **kw)
+        n += got.numel()
+        for idx in map(tuple, (got != want).nonzero().tolist()):
+            differ.append((t, idx, float(lam[idx]), int(got[idx]),
+                           int(want[idx])))
+    return n, differ
+
+
+def phase_poisson(device, geometry=FLEET, seconds=0.02, draw_ticks=8):
+    """Fleet jobs on Poisson arrivals (themis fused); returns launches."""
+    import math
+    import torch
+    from repro_torch.api import Experiment
+    n_jobs, n_srv = geometry["max_jobs"], geometry["n_servers"]
+    jobs = fleet_jobs(n_jobs, n_srv)
+
+    def exp():
+        e = Experiment(policy="user-fair", scheduler="themis",
+                       device=device, **geometry).add_jobs(jobs)
+        # ~0.1-0.7 arrivals per (server, job) per tick: Knuth's branch.
+        e.arrivals(arrival="poisson", rate_hz=500.0)
+        # One job per 8 at λ >= 10 per tick: the rejection branch.
+        for j in range(0, n_jobs, 8):
+            e.arrivals(job=j, rate_hz=1e5)
+        return e
+
+    check_no_host_sync(exp())
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = exp().run(seconds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    expect_launches("poisson (one tick_step per tick)", device, got,
+                    {"tick_step": res.ticks, "token_select": 0})
+    conserved("poisson", res)
+    cfg, wl, _ = exp().build()
+    lam = expected_arrivals(wl, res.ticks)
+    arrived = int(res.issued.sum()) + res.dropped
+    z = (arrived - lam) / math.sqrt(lam)
+    if abs(z) > 5:
+        raise AssertionError(f"poisson: {arrived} arrivals against an "
+                             f"expectation of {lam:.1f} ({z:+.1f} sigma)")
+    say("poisson", f"{res.ticks} ticks, {arrived} arrivals (issued "
+        f"{int(res.issued.sum())} + dropped {res.dropped}) against an "
+        f"expectation of {lam:.1f} ({z:+.2f} sigma), {wall / res.ticks * 1e3:.3f}"
+        f" ms/tick, tick_step launches {got['tick_step']}; no host sync over "
+        "10 ticks")
+    n, differ = poisson_card_vs_cpu(exp(), draw_ticks)
+    say("poisson", f"card against CPU: {len(differ)} of {n} Poisson draws "
+        f"differ over {draw_ticks} ticks (rate {len(differ) / n:.3g})")
+    for t, idx, rate, card, cpu in differ:
+        say("poisson", f"  tick {t} lane {idx}: λ {rate:.6g}, card {card}, "
+            f"CPU {cpu}")
+    if differ:
+        raise AssertionError(f"poisson: {len(differ)} draws differ between "
+                             "the card and the CPU")
+    return got["tick_step"], wall / res.ticks * 1e3
+
+
+#: The paper's values for the rows that state one (for information).
+PAPER = {"fig8a_size_fair_shared_ratio": "3.96",
+         "fig8b_job_fair_ratio": "~1.0",
+         "fig8c_user_fair_userA_vs_userB": "10.85/10.80 GB/s",
+         "fig12_themis_vs_gift_pct": "+13.5-13.7 %",
+         "fig12_themis_vs_tbf_pct": "+13.5-13.7 %",
+         "fig12_themis_vs_gift_variation_pct": "19.5-40.4 % lower",
+         "fig12_themis_vs_tbf_variation_pct": "19.5-40.4 % lower"}
+
+
+def figure_tol(mean, cov, ref_mean, ref_cov, n_seeds) -> float:
+    """3 standard errors of the difference of two seed means, at least 2 %
+    of the reference mean."""
+    import math
+    se = math.sqrt(cov ** 2 + ref_cov ** 2) * abs(ref_mean) / math.sqrt(n_seeds)
+    return max(3 * se, 0.02 * abs(ref_mean))
+
+
+def recording_batches(log):
+    """``Experiment.run_batch`` that zeroes the draw kernels' launch counts
+    just before each call and appends ``(scheduler, ticks, launches)`` just
+    after it."""
+    from repro_torch.api import Experiment
+    inner = Experiment.run_batch
+
+    def wrapper(self, *args, **kw):
+        reset_launches()
+        out = inner(self, *args, **kw)
+        log.append((self.scheduler, out.ticks, read_launches()))
+        return out
+    return inner, wrapper
+
+
+def phase_figures(device, seconds=2.0, n_seeds=8):
+    """Fig. 8 a-c and Fig. 12 on the card against the reference's rows;
+    returns the launches of each fused mode and the rows."""
+    from repro_torch.api import Experiment
+    from repro_torch.bench import common, comparison, policies
+    ref = common.load_reference()
+    if ref["seconds"] != seconds or len(ref["seeds"]) != n_seeds:
+        raise AssertionError(f"fig_reference.json holds {ref['seconds']} s x "
+                             f"{len(ref['seeds'])} seeds, not {seconds} x "
+                             f"{n_seeds}")
+    seeds = tuple(ref["seeds"])
+    log: list = []
+    inner, Experiment.run_batch = recording_batches(log)
+    try:
+        rows = policies.run_fig8(seconds, seeds, device=device, table=False)
+        n_fig8 = len(log)
+        rows += comparison.run_fig12(seconds, seeds, device=device)
+    finally:
+        Experiment.run_batch = inner
+    if [s for s, _, _ in log[:n_fig8]] != ["themis"] * 3:
+        raise AssertionError(f"Fig. 8 a-c ran {log[:n_fig8]}, not three "
+                             "themis batches")
+    # Each batch of a fused scheduler (themis, fifo) launches tick_step once
+    # per tick; the other four run the scan path without a draw kernel.
+    launches = {"tick_step[themis]": 0, "tick_step[fifo]": 0}
+    for k, (sched, ticks, got) in enumerate(log):
+        fig = "Fig. 8" if k < n_fig8 else "Fig. 12"
+        fused = sched in ("themis", "fifo")
+        expect_launches(f"{fig} {sched} batch", device, got,
+                        {"tick_step": ticks if fused else 0,
+                         "token_select": 0})
+        if fused:
+            launches[f"tick_step[{sched}]"] += got["tick_step"]
+        say("figures", f"{fig} {sched}: {ticks} batched ticks, kernel "
+            f"launches {got}")
+    failed = []
+    for r in rows:
+        want = ref["rows"][r.name]
+        paper = f", paper {PAPER[r.name]}" if r.name in PAPER else ""
+        if not r.covs:
+            say("figures", f"{r.name}: {r.means[0]:+.2f} (reference "
+                f"{want['means'][0]:+.2f}; a ratio of two gated rows, not "
+                f"gated{paper})")
+            continue
+        for i, (m, c) in enumerate(zip(r.means, r.covs)):
+            rm, rc = want["means"][i], want["covs"][i]
+            tol = figure_tol(m, c, rm, rc, n_seeds)
+            ok = abs(m - rm) <= tol + 1e-12
+            say("figures", f"{r.name}{'[%d]' % i if len(r.means) > 1 else ''}"
+                f": {m:.4f} cov {c * 100:.2f}% vs reference {rm:.4f} cov "
+                f"{rc * 100:.2f}%, |diff| {abs(m - rm):.4f} <= tol {tol:.4f}: "
+                f"{'ok' if ok else 'FAIL'} ({r.us_per_call} us per seed"
+                f"{paper})")
+            if not ok:
+                failed.append(r.name)
+    if failed:
+        raise AssertionError(f"figure rows outside tolerance: {failed}")
+    return launches, rows
 
 
 # -- the dense serving path (h2o-danube-1.8b) -----------------------------------
@@ -1706,6 +2204,16 @@ def main() -> int:
     timed("fused_vs_scan", phase_fused_vs_scan, device)
     timed("card_vs_cpu", phase_card_vs_cpu, device)
     timed("anchor", phase_anchor, device)
+    sched_ms = timed("schedulers", phase_schedulers, device)
+    say("schedulers", "ms/tick " + json.dumps(sched_ms))
+    timed("schedulers_card_vs_cpu", phase_schedulers_card_vs_cpu, device)
+    batch_launches, batch_ms, row_records = timed("batch", phase_batch, device)
+    say("batch", "ms " + json.dumps(batch_ms))
+    pois_launches, _ = timed("poisson", phase_poisson, device)
+    fig_launches, _ = timed("figures", phase_figures, device)
+    for name in ("tick_step[themis]", "tick_step[fifo]"):
+        launches[name] += batch_launches[name] + fig_launches[name]
+    launches["tick_step[themis]"] += pois_launches
     params, served, layer0, serve = timed("serve", phase_serve, device)
     launches["flash_attention"] = served["flash_attention"]
     say("serve", "metrics " + json.dumps(serve))
@@ -1763,7 +2271,8 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"),
-            **({"pass_ms": r["pass_ms"]} if "pass_ms" in r else {})))
+            **({"pass_ms": r["pass_ms"]} if "pass_ms" in r else {}),
+            **row_records.get(name, {})))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

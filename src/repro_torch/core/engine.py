@@ -5,24 +5,32 @@ The port of ``repro.core.engine`` for one device: ``S`` servers, each with
 populations held in fixed-shape tensors.  The reference's ``lax.scan`` over
 ticks is a Python loop here; ``t`` is a Python int in that loop, so the
 cadences that depend on it (the ring slot, the throughput bin, the λ-sync
-every ``sync_ticks``) are decided on the host, and nothing inside the loop
-reads a value back from the card.
+every ``sync_ticks``, an interval scheduler's μ boundary) are decided on
+the host, and nothing inside the loop reads a value back from the card.
 
-Each tick: (1) arrivals from the time wheel and phase starts go into the
-per-(server, job) rings, (2) the scheduler builds the ``[S, J]`` share
-table, (3) the W workers draw and pop — on the fused path
-(``tick_impl="fused"``, the default) in one ``tick_step`` kernel launch, on
-the scan path (``tick_impl="scan"``) one worker at a time, the themis draw
-through the ``token_select`` kernel — and (4) every ``sync_ticks`` the
-λ-sync rebalances the segments.  The PRNG stream is the reference's
-(:mod:`.prng`), so from the same state both engines draw the same numbers.
+Each tick: (1) arrivals from the time wheel, phase starts, interval bursts
+and Poisson draws go into the per-(server, job) rings, (2) the scheduler
+builds the ``[S, J]`` share table, (3) the W workers draw and pop — for
+themis and fifo (the schedulers with a kernel mode and no aux state) in
+one ``tick_step`` kernel launch (``tick_impl="fused"``, the default), for
+the others, or on request (``tick_impl="scan"``), one worker at a time,
+the themis draw through the ``token_select`` kernel — and (4) every
+``sync_ticks`` the λ-sync rebalances the segments.  The PRNG stream is the
+reference's (:mod:`.prng`), so from the same state both engines draw the
+same numbers.
+
+Every state tensor leads with a lane axis ``L``: :func:`run_batch`
+runs P parameter points × K seeds as ``L = P * K`` lanes, and one tick
+advances all of them with one set of launches (the kernels take the lanes
+as ``L * S`` server rows).  :func:`run` is one lane.  The numeric knobs of
+the scheduler's params are per-lane float32 tensors
+(:func:`~.params.lane_params`); structural ones (``mu_ticks``) are shared.
 
 The tick updates the state's time wheel and arrival rings in place (they
 are the two large tensors); every other leaf is replaced.
 
-Not ported yet, and refused with ``NotImplementedError``: the schedulers
-gift/tbf/adaptbf/plan, Poisson arrival phases, fleet sharding
-(``shard_servers``/``mesh_shape``) and ``run_batch``.
+Not ported yet, and refused with ``NotImplementedError``: fleet sharding
+(``shard_servers``/``mesh_shape``, ``ROADMAP.md`` section 1, item 7).
 """
 from __future__ import annotations
 
@@ -37,9 +45,10 @@ from . import prng
 from .baselines import AuxState
 from .global_sync import sync_segments
 from .job_table import JobTable, make_table
-from .params import SchedulerParams
+from .ordered import ordered_sum
+from .params import SchedulerParams, lane_params
 from .policy import Policy, PolicyChain
-from .scheduler import TickView, get_scheduler
+from .scheduler import Scheduler, TickView, get_scheduler
 from ..kernels.tick_step.ops import tick_step
 from ..scenario.lowering import (ARRIVAL_CLOSED, ARRIVAL_INTERVAL,
                                  ARRIVAL_POISSON, lower_for_config)
@@ -87,7 +96,7 @@ class EngineConfig:
         if self.shard_servers != 1 or self.mesh_shape is not None:
             raise NotImplementedError(
                 "fleet sharding (shard_servers / mesh_shape) is not ported to "
-                "repro_torch yet")
+                "repro_torch yet (ROADMAP.md section 1, item 7)")
         get_scheduler(self.scheduler)
 
     @property
@@ -95,6 +104,15 @@ class EngineConfig:
         """Per-worker bandwidth (bytes/s), derated by the fabric exponent."""
         eff = float(self.n_servers) ** (-self.fabric_exponent)
         return self.server_bw / self.n_workers * eff
+
+
+def resolve_tick_impl(cfg: EngineConfig, sched: Scheduler) -> str:
+    """The worker path of this (config, scheduler), by the reference's rule:
+    the fused kernel needs a scheduler with a kernel mode (``kernel_tick``)
+    whose ``charge`` is the base no-op (the kernel carries no aux state);
+    every other scheduler runs the per-worker scan."""
+    lowered = sched.kernel_tick and type(sched).charge is Scheduler.charge
+    return "fused" if cfg.tick_impl == "fused" and lowered else "scan"
 
 
 class Workload(NamedTuple):
@@ -116,6 +134,8 @@ class Workload(NamedTuple):
 
 
 class EngineState(NamedTuple):
+    """Engine state; every tensor leaf may lead with a lane axis ``[L]``."""
+
     t: int                       # tick (host-side)
     key: torch.Tensor            # int64[2]  threefry key words (uint32 values)
     qcount: torch.Tensor         # i32[S, J]
@@ -134,6 +154,15 @@ class EngineState(NamedTuple):
     dropped: torch.Tensor        # i32[] arrivals rejected by full rings
 
 
+def map_state(state: EngineState, fn) -> EngineState:
+    """Apply ``fn`` to every tensor leaf of ``state`` (aux included)."""
+    return EngineState(**{
+        f: (state.t if f == "t" else
+            AuxState(*map(fn, state.aux)) if f == "aux" else
+            fn(getattr(state, f)))
+        for f in EngineState._fields})
+
+
 def make_workload(cfg: EngineConfig, jobs: Sequence[dict]
                   ) -> tuple[Workload, JobTable]:
     """Lower job spec dicts (see ``scenario.lowering``) into a workload and
@@ -145,18 +174,25 @@ def make_workload(cfg: EngineConfig, jobs: Sequence[dict]
     return wl, make_table(low.jobs, max_jobs=cfg.max_jobs, device=device)
 
 
-def init_state(cfg: EngineConfig, n_bins: int, device=None) -> EngineState:
+def init_state(cfg: EngineConfig, n_bins: int, device=None,
+               seeds: Optional[Sequence[int]] = None) -> EngineState:
+    """The zero state of one lane per seed (by default the one seed
+    ``cfg.seed``); every leaf leads with ``[len(seeds)]``."""
     device = _device.resolve_device(cfg.device if device is None else device)
     s_, j_, w_ = cfg.n_servers, cfg.max_jobs, cfg.n_workers
-    z = lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=device)
+    seeds = (cfg.seed,) if seeds is None else seeds
+    lanes = (len(seeds),)
+    z = lambda shape, dtype: torch.zeros(lanes + shape, dtype=dtype,
+                                         device=device)
+    key = torch.stack([prng.PRNGKey(s, device) for s in seeds])
     return EngineState(
-        t=0, key=prng.PRNGKey(cfg.seed, device),
+        t=0, key=key,
         qcount=z((s_, j_), torch.int32), head=z((s_, j_), torch.int32),
         arr_time=z((s_, j_, cfg.ring_cap), torch.float32),
         wheel=z((s_, j_, cfg.wheel), torch.int32),
         free_at=z((s_, w_), torch.float32), known=z((s_, j_), torch.bool),
         seg=z((s_, j_), torch.float32), synced=z((j_,), torch.bool),
-        aux=get_scheduler(cfg.scheduler).init_aux(s_, j_, device),
+        aux=get_scheduler(cfg.scheduler).init_aux(s_, j_, device, lanes),
         bytes_bin=z((j_, n_bins), torch.float32),
         issued=z((j_,), torch.int32), completed=z((j_,), torch.int32),
         idle_worker_ticks=z((), torch.int32), dropped=z((), torch.int32))
@@ -164,8 +200,8 @@ def init_state(cfg: EngineConfig, n_bins: int, device=None) -> EngineState:
 
 def _push_arrivals(state: EngineState, arrivals: torch.Tensor,
                    t_sec: float) -> EngineState:
-    """Append ``arrivals[s, j]`` identically-stamped requests to each ring
-    (in place); arrivals beyond a ring's free space are rejected and
+    """Append ``arrivals[l, s, j]`` identically-stamped requests to each
+    ring (in place); arrivals beyond a ring's free space are rejected and
     counted in ``dropped``."""
     cap = state.arr_time.shape[-1]
     space = torch.clamp_min(cap - state.qcount, 0)
@@ -177,28 +213,35 @@ def _push_arrivals(state: EngineState, arrivals: torch.Tensor,
     return state._replace(
         qcount=state.qcount + accepted,
         known=state.known | (accepted > 0),
-        issued=state.issued + accepted.sum(dim=0).to(torch.int32),
-        dropped=state.dropped + (arrivals - accepted).sum().to(torch.int32))
+        issued=state.issued + accepted.sum(dim=-2).to(torch.int32),
+        dropped=state.dropped
+        + (arrivals - accepted).sum(dim=(-2, -1)).to(torch.int32))
 
 
 def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
-    """Build the per-tick transition ``tick(p, state) -> state``."""
+    """Build the per-tick transition ``tick(p, state) -> state``.
+
+    ``state`` leads every leaf with its lanes (:func:`init_state`); ``p`` is a params schema of the configured scheduler,
+    with Python numbers (every lane the same) or per-lane tensors
+    (:func:`~.params.lane_params`).  ``tick.poisson_unfinished`` holds, per
+    lane, whether a Poisson draw ran out of iterations (see
+    :func:`~.prng.poisson`); :func:`run` raises if it is set."""
     s_, j_, w_ = cfg.n_servers, cfg.max_jobs, cfg.n_workers
     cap, h_ = cfg.ring_cap, cfg.wheel
     device = wl.procs.device
     sched = get_scheduler(cfg.scheduler)
+    fused = resolve_tick_impl(cfg, sched) == "fused"
+    # fifo and plan draw nothing: their ticks skip the workers' uniforms.
+    draws = (sched.kernel_select_mode == "themis" if fused
+             else type(sched).draws is not Scheduler.draws)
     mode_np = wl.arrival_mode.cpu().numpy()
-    if (mode_np == ARRIVAL_POISSON).any():
-        raise NotImplementedError(
-            "Poisson arrival phases are not ported to repro_torch yet")
     has_interval = bool((mode_np == ARRIVAL_INTERVAL).any())
+    has_poisson = bool((mode_np == ARRIVAL_POISSON).any())
     chain = None
     if sched.uses_segments:
         if cfg.policy is None:
             raise ValueError(f"scheduler {cfg.scheduler!r} needs a policy")
         chain = PolicyChain.from_table(cfg.policy, table)
-    srv_idx = torch.arange(s_, device=device)
-    srv_sw = srv_idx[:, None].expand(s_, w_)
     worker_ids = torch.arange(w_, dtype=torch.int64, device=device)
     # True divisions by device scalars: dividing by a Python float on the
     # card multiplies by its reciprocal, which rounds differently.
@@ -211,17 +254,58 @@ def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
                              device=device)[None, :]
     real_np = phase_real.cpu().numpy()
     start_np = wl.phase_start.cpu().numpy()
+    end_np = wl.phase_end.cpu().numpy()
     contig = np.zeros_like(real_np)
     contig[:, 1:] = (real_np[:, 1:] & real_np[:, :-1]
-                     & (start_np[:, 1:] == wl.phase_end.cpu().numpy()[:, :-1])
+                     & (start_np[:, 1:] == end_np[:, :-1])
                      & (mode_np[:, 1:] == ARRIVAL_CLOSED)
                      & (mode_np[:, :-1] == ARRIVAL_CLOSED))
     fresh_start = torch.as_tensor(~contig, device=device)
     closed_start = phase_real & fresh_start & (wl.arrival_mode == ARRIVAL_CLOSED)
     every = torch.clamp_min(wl.arrival_every, 1)
+    poisson_mode = wl.arrival_mode == ARRIVAL_POISSON
+    rate_np = wl.arrival_rate.cpu().numpy()
+    procs_np = wl.procs.cpu().numpy().astype(np.float32)
+    poisson_plans: dict = {}
+
+    def poisson_plan(t: int, n_lanes: int) -> tuple[int, int]:
+        """Iterations of the two Poisson loops at tick ``t``, from the
+        host's copy of the rates (the workload is static).  A small margin
+        around λ = 10 runs a branch whose lanes the select then drops,
+        never skips one that is needed."""
+        live = (real_np & (start_np <= t) & (end_np > t)
+                & (mode_np == ARRIVAL_POISSON))
+        sig = (live.tobytes(), n_lanes)
+        if sig not in poisson_plans:
+            lam = (np.where(live, rate_np, 0.0).sum(axis=1)[None, :]
+                   * procs_np).astype(np.float64)
+            knuth = (lam > 0) & (lam < 10 * (1 + 1e-5))
+            ki = prng.poisson_iters(float(lam[knuth].max(initial=0.0)),
+                                    int(knuth.sum()) * n_lanes)
+            ri = (prng.rejection_iters(lam.size * n_lanes)
+                  if (lam >= 10 * (1 - 1e-5)).any() else 0)
+            poisson_plans[sig] = (ki, ri)
+        return poisson_plans[sig]
+
+    lane_cache: dict = {}
+
+    def lanes_of(p, n_lanes: int):
+        """``p`` with per-lane tensors (cached: no host-to-device copy on
+        later ticks)."""
+        names = p.numeric_fields()
+        if not names or torch.is_tensor(getattr(p, names[0])):
+            return p
+        if (p, n_lanes) not in lane_cache:
+            lane_cache[p, n_lanes] = lane_params([p], n_lanes, device)
+        return lane_cache[p, n_lanes]
+
+    lanes_of(sched.params(cfg), 1)
 
     def tick(p, state: EngineState) -> EngineState:
+        n_l = state.qcount.shape[0]
+        p = lanes_of(p, n_l)
         ctrl = sched.ctrl_overhead_s(p)
+        lane = torch.arange(n_l, device=device)
         t = state.t
         # The reference's compiled tick contracts ``t*dt + dt`` into one
         # fused multiply-add (one rounding).  It is exact in float64 (both
@@ -240,7 +324,7 @@ def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
         think_now = take_cur(wl.phase_think)
         recycle = live & (take_cur(wl.arrival_mode) == ARRIVAL_CLOSED)
 
-        # -- 1. arrivals: time-wheel slot + phase starts + interval bursts --
+        # -- 1. arrivals: time-wheel slot + phase starts + open-loop --------
         slot = t % h_
         inject = ((wl.phase_start == t) & closed_start).any(dim=1)
         if has_interval:
@@ -248,9 +332,23 @@ def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
             inject = inject | (phase_live & (gap == 0)
                                & (wl.arrival_mode == ARRIVAL_INTERVAL)
                                ).any(dim=1)
-        arrivals = state.wheel[:, :, slot] + torch.where(
+        arrivals = state.wheel[..., slot] + torch.where(
             inject[None, :], wl.procs, 0)
-        state.wheel[:, :, slot] = 0
+        key_carry = state.key
+        if has_poisson:
+            ks = prng.split(state.key)
+            key_carry, kp = ks[:, 0], ks[:, 1]
+            lam = ordered_sum(torch.where(phase_live & poisson_mode,
+                                          wl.arrival_rate, 0.0))
+            knuth_iters, rejection_iters = poisson_plan(t, n_l)
+            counts, unfinished = prng.poisson(
+                kp, (lam[None, :] * wl.procs).expand(n_l, s_, j_),
+                knuth_iters=knuth_iters, rejection_iters=rejection_iters)
+            arrivals = arrivals + counts
+            tick.poisson_unfinished = (unfinished
+                                       if tick.poisson_unfinished is None
+                                       else tick.poisson_unfinished | unfinished)
+        state.wheel[..., slot] = 0
         state = _push_arrivals(state, arrivals, t_sec)
 
         # -- 2. scheduler bookkeeping -----------------------------------------
@@ -260,12 +358,17 @@ def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
             synced=state.synced, live=live))
 
         # -- 3. workers -------------------------------------------------------
-        keys = prng.split(state.key)
-        key, sub = keys[0], keys[1]
+        keys = prng.split(key_carry)
+        key, sub = keys[:, 0], keys[:, 1]
+        # Worker w's key, fold_in(sub, w), for the schedulers that draw.
+        worker_keys = lambda: prng.fold_in(sub[None], worker_ids[:, None])
         wheel = state.wheel
-        bytes_job = torch.zeros((j_,), dtype=torch.float32, device=device)
+        # Flat offset of row (l, s) in [L, S, J] tensors.
+        row_base = (lane[:, None] * s_ + torch.arange(s_, device=device)) * j_
+        bytes_job = torch.zeros((n_l * j_,), dtype=torch.float32, device=device)
+        pops_job = torch.zeros((n_l * j_,), dtype=torch.int32, device=device)
 
-        def service_of(j_safe):
+        def service_of(j_safe, ctrl):
             rb = req_now[j_safe]
             return rb, rb / wbw_t + wl.overhead_s[j_safe] + ctrl
 
@@ -277,86 +380,122 @@ def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
                 + think_now[j_safe], 1, h_ - 1)
             return ((t + off) % h_).to(torch.int64)
 
-        if cfg.tick_impl == "fused":
-            free = state.free_at < t_next                           # [S, W]
-            u_all = prng.uniform(prng.fold_in(sub, worker_ids),
-                                 (s_,)).t().contiguous()            # [S, W]
+        def wheel_add(j_safe, slot, vals):
+            """``wheel[l, s, j_safe, slot] += vals`` (integer adds, any
+            order), one ``index_add_`` on the flat wheel."""
+            base = row_base.view(row_base.shape + (1,) * (j_safe.dim() - 2))
+            wheel.view(-1).index_add_(0, ((base + j_safe) * h_ + slot).reshape(-1),
+                                      vals.reshape(-1))
+
+        def job_slot(j_safe):
+            """Flat index of (lane, job) into the ``[L * J]`` tallies."""
+            return (lane.view((n_l,) + (1,) * (j_safe.dim() - 1)) * j_
+                    + j_safe).reshape(-1)
+
+        if fused:
+            free = state.free_at < t_next                          # [L, S, W]
+            u_all = (prng.uniform(worker_keys(), (s_,)).permute(1, 2, 0)
+                     if draws else free.new_zeros(free.shape, dtype=torch.float32))
             ring_idx = ((state.head[..., None] + worker_ids) % cap).to(torch.int64)
-            window = state.arr_time.gather(2, ring_idx).contiguous()
+            window = state.arr_time.gather(3, ring_idx)
+            rows = lambda x: x.reshape((n_l * s_,) + x.shape[2:]).contiguous()
             sel, valid, demand_any, qcount, pops_sj = tick_step(
-                shares.contiguous(), state.qcount, window, free, u_all,
-                mode=sched.kernel_select_mode)
+                rows(shares), rows(state.qcount), rows(window), rows(free),
+                rows(u_all), mode=sched.kernel_select_mode)
+            lanes_back = lambda x: x.reshape((n_l, s_) + x.shape[1:])
+            sel, valid, demand_any, qcount, pops_sj = map(
+                lanes_back, (sel, valid, demand_any, qcount, pops_sj))
             head = (state.head + pops_sj) % cap
-            j_safe = torch.clamp_min(sel, 0).to(torch.int64)        # [S, W]
-            rb, service = service_of(j_safe)
+            j_safe = torch.clamp_min(sel, 0).to(torch.int64)        # [L, S, W]
+            rb, service = service_of(j_safe, ctrl)
             start_t = torch.clamp_min(state.free_at, t_sec)
             free_at = torch.where(valid, start_t + service, state.free_at)
             slot2 = rearm_slot(free_at, j_safe)
-            wheel.index_put_((srv_sw, j_safe, slot2),
-                             (valid & recycle[j_safe]).to(torch.int32),
-                             accumulate=True)
+            wheel_add(j_safe, slot2, (valid & recycle[j_safe]).to(torch.int32))
             add_b = torch.where(valid, rb, 0.0)
             # Per-worker order, as the scan adds (float sums follow it on
             # the CPU; on the card index_add_ is atomic).
             for w in range(w_):
-                bytes_job.index_add_(0, j_safe[:, w], add_b[:, w])
-            pops_job = torch.zeros((j_,), dtype=torch.int32, device=device)
-            pops_job.index_add_(0, j_safe.reshape(-1),
+                bytes_job.index_add_(0, job_slot(j_safe[..., w]),
+                                     add_b[..., w].reshape(-1))
+            pops_job.index_add_(0, job_slot(j_safe),
                                 valid.reshape(-1).to(torch.int32))
-            idle = (free & ~valid & demand_any).sum()
+            idle = (free & ~valid & demand_any).sum(dim=(1, 2))
         else:
+            rand = sched.draws(worker_keys(), s_) if draws else None
+            ctrl_row = ctrl[..., 0] if torch.is_tensor(ctrl) else ctrl
             qcount, head = state.qcount, state.head
             free_at = state.free_at.clone()
-            pops_job = torch.zeros((j_,), dtype=torch.int32, device=device)
-            idle = torch.zeros((), dtype=torch.int64, device=device)
+            idle = torch.zeros((n_l,), dtype=torch.int64, device=device)
             for w in range(w_):
-                kw = prng.fold_in(sub, worker_ids[w])
-                free = free_at[:, w] < t_next
+                free = free_at[..., w] < t_next
                 demand = qcount > 0
                 head_time = torch.where(
                     demand,
                     state.arr_time.gather(
-                        2, (head % cap).to(torch.int64)[..., None])[..., 0],
+                        3, (head % cap).to(torch.int64)[..., None])[..., 0],
                     torch.inf)
                 j_sel = sched.select(cfg, p, shares, head_time, demand, aux,
-                                     req_now, kw)
+                                     req_now, None if rand is None else rand[w])
                 valid = free & (j_sel >= 0)
                 j_safe = torch.clamp_min(j_sel, 0).to(torch.int64)
                 step = valid.to(torch.int32)
-                qcount = qcount.index_put((srv_idx, j_safe), -step,
-                                          accumulate=True)
-                head = head.index_put((srv_idx, j_safe), step,
-                                      accumulate=True) % cap
-                rb, service = service_of(j_safe)
-                start_t = torch.clamp_min(free_at[:, w], t_sec)
-                new_free = torch.where(valid, start_t + service, free_at[:, w])
-                free_at[:, w] = new_free
-                slot2 = rearm_slot(new_free, j_safe)
-                wheel.index_put_((srv_idx, j_safe, slot2),
-                                 (valid & recycle[j_safe]).to(torch.int32),
-                                 accumulate=True)
+                # One pop per server row: a scatter along the job axis.
+                col = j_safe[..., None]
+                qcount = qcount.scatter_add(-1, col, -step[..., None])
+                head = head.scatter_add(-1, col, step[..., None]) % cap
+                rb, service = service_of(j_safe, ctrl_row)
+                start_t = torch.clamp_min(free_at[..., w], t_sec)
+                new_free = torch.where(valid, start_t + service, free_at[..., w])
+                free_at[..., w] = new_free
+                wheel_add(j_safe, rearm_slot(new_free, j_safe),
+                          (valid & recycle[j_safe]).to(torch.int32))
                 add_b = torch.where(valid, rb, 0.0)
-                bytes_job.index_add_(0, j_safe, add_b)
-                pops_job.index_add_(0, j_safe, step)
-                aux = sched.charge(cfg, p, aux, srv_idx, j_safe, add_b)
-                idle = idle + (free & ~valid & demand.any(dim=1)).sum()
+                bytes_job.index_add_(0, job_slot(j_safe), add_b.reshape(-1))
+                pops_job.index_add_(0, job_slot(j_safe), step.reshape(-1))
+                aux = sched.charge(cfg, p, aux, j_safe, add_b)
+                idle = idle + (free & ~valid & demand.any(dim=-1)).sum(dim=-1)
 
         # -- fold the phase into the state, then the λ-sync -----------------
         b = min(t // cfg.bin_ticks, n_bins - 1)
-        state.bytes_bin[:, b] += bytes_job
+        state.bytes_bin[..., b] += bytes_job.view(n_l, j_)
         state = state._replace(
             t=t + 1, key=key, qcount=qcount, head=head, wheel=wheel,
-            free_at=free_at, aux=aux, completed=state.completed + pops_job,
+            free_at=free_at, aux=aux,
+            completed=state.completed + pops_job.view(n_l, j_),
             idle_worker_ticks=state.idle_worker_ticks + idle.to(torch.int32))
         if sched.uses_segments and cfg.sync_ticks > 0 \
                 and state.t % cfg.sync_ticks == 0:
-            support = state.known & live[None, :]
+            support = state.known & live
             state = state._replace(
                 seg=sync_segments(chain, support, n_iters=cfg.sinkhorn_iters),
-                synced=support.any(dim=0))
+                synced=support.any(dim=-2))
         return state
 
+    tick.poisson_unfinished = None
     return tick
+
+
+def _check_poisson(tick) -> None:
+    if tick.poisson_unfinished is not None \
+            and bool(tick.poisson_unfinished.any()):
+        raise RuntimeError(
+            "a Poisson draw needed more iterations than the engine gave it "
+            "(prng.poisson_iters / prng.rejection_iters); its count differs "
+            "from jax.random.poisson")
+
+
+def _ticks_bins(cfg: EngineConfig, sim_seconds: float) -> tuple[int, int]:
+    ticks = int(round(sim_seconds / cfg.dt))
+    return ticks, max(1, (ticks + cfg.bin_ticks - 1) // cfg.bin_ticks)
+
+
+def _check_device(cfg: EngineConfig, wl: Workload, table: JobTable):
+    device = _device.resolve_device(cfg.device)
+    if wl.procs.device != device or table.active.device != device:
+        raise ValueError(f"workload/table live on {wl.procs.device}, the "
+                         f"config asks for {device}")
+    return device
 
 
 def run(cfg: EngineConfig, wl: Workload, table: JobTable, sim_seconds: float):
@@ -364,17 +503,15 @@ def run(cfg: EngineConfig, wl: Workload, table: JobTable, sim_seconds: float):
     ``state`` (final :class:`EngineState`), ``gbps[J, NB]``, ``bin_s``,
     ``issued``, ``completed``, ``dropped``, ``idle_worker_ticks``, ``ticks``.
     """
-    device = _device.resolve_device(cfg.device)
-    if wl.procs.device != device or table.active.device != device:
-        raise ValueError(f"workload/table live on {wl.procs.device}, the "
-                         f"config asks for {device}")
-    ticks = int(round(sim_seconds / cfg.dt))
-    n_bins = max(1, (ticks + cfg.bin_ticks - 1) // cfg.bin_ticks)
+    device = _check_device(cfg, wl, table)
+    ticks, n_bins = _ticks_bins(cfg, sim_seconds)
     tick = make_tick(cfg, wl, table, n_bins)
     state = init_state(cfg, n_bins, device)
     params = get_scheduler(cfg.scheduler).params(cfg)
     for _ in range(ticks):
         state = tick(params, state)
+    _check_poisson(tick)
+    state = map_state(state, lambda x: x[0])
     bin_s = cfg.bin_ticks * cfg.dt
     return {
         "state": state,
@@ -388,7 +525,54 @@ def run(cfg: EngineConfig, wl: Workload, table: JobTable, sim_seconds: float):
     }
 
 
-def run_batch(*args, **kwargs):
-    raise NotImplementedError(
-        "run_batch (seeds x params sweeps in one call) is not ported to "
-        "repro_torch yet; loop over run() with cfg.seed set")
+def run_batch(cfg: EngineConfig, wl: Workload, table: JobTable,
+              sim_seconds: float, *, seeds: Sequence[int],
+              params_points: Optional[Sequence[SchedulerParams]] = None):
+    """Run the simulation over PRNG ``seeds`` — and optionally a params grid
+    — as lanes of one tick loop.
+
+    Every seed (and grid point) shares the workload, table and geometry;
+    only the PRNG stream and the scheduler's numeric knobs differ.  Each
+    lane equals a sequential :func:`run` with ``cfg.seed = s`` (and
+    ``cfg.scheduler_params = p``): on the CPU bit for bit, on the card with
+    integer counters equal and the float throughput bins within the order
+    of ``index_add_``'s atomic adds.  Without ``params_points`` every array
+    leads with ``K = len(seeds)``; with them (concrete params of
+    ``cfg.scheduler``, one schema, one ``mu_ticks``) with ``[P, K]``.
+    """
+    device = _check_device(cfg, wl, table)
+    seeds = [prng.normalize_seed(s) for s in seeds]
+    if not seeds:
+        raise ValueError("run_batch needs at least one seed")
+    sched = get_scheduler(cfg.scheduler)
+    if params_points is None:
+        points, lead = [sched.params(cfg)], (len(seeds),)
+    else:
+        points = list(params_points)
+        for p in points:
+            if type(p) is not sched.params_cls:
+                raise TypeError(
+                    f"params_points entries must be {sched.params_cls.__name__} "
+                    f"for scheduler {cfg.scheduler!r}, got {type(p).__name__}")
+        lead = (len(points), len(seeds))
+    p_lanes = lane_params(points, len(seeds), device)
+    ticks, n_bins = _ticks_bins(cfg, sim_seconds)
+    tick = make_tick(cfg, wl, table, n_bins)
+    state = init_state(cfg, n_bins, device, seeds=seeds * len(points))
+    for _ in range(ticks):
+        state = tick(p_lanes, state)
+    _check_poisson(tick)
+    state = map_state(state, lambda x: x.reshape(lead + x.shape[1:]))
+    bin_s = cfg.bin_ticks * cfg.dt
+    host = lambda x: x.cpu().numpy()
+    return {
+        "state": state,
+        "seeds": np.asarray(seeds, dtype=np.uint32),
+        "gbps": host(state.bytes_bin) / bin_s / 1e9,         # [(P,) K, J, NB]
+        "bin_s": bin_s,
+        "issued": host(state.issued),                        # [(P,) K, J]
+        "completed": host(state.completed),                  # [(P,) K, J]
+        "dropped": host(state.dropped),                      # [(P,) K]
+        "idle_worker_ticks": host(state.idle_worker_ticks),  # [(P,) K]
+        "ticks": ticks,
+    }

@@ -25,7 +25,8 @@
 // (kRows rows per block), no block barrier.  Each lane keeps its run of
 // slots (registers for J <= 1024, else a per-warp shared-memory slab) and
 // its queue counts across the W draws; only the final counts go back to
-// device memory.  themis builds the segment table once per tick and again
+// device memory.  With bf16 shares the table is built in the reference's
+// bf16 arithmetic over a per-warp shared-memory scratch (draw.cuh).  themis builds the segment table once per tick and again
 // only when a pop empties a queue (the demand mask, so the table, is
 // otherwise unchanged: the rebuild would give the same bits).  fifo keeps
 // each slot's head stamp in its lane; after a pop only the owner of the
@@ -87,12 +88,23 @@ __device__ __forceinline__ int fifo_argmin(R& r, const rt::Span& sp) {
   return best_j;
 }
 
+template <class T>
+constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+
+// Floats of shared memory per warp: the slab (J > 1024) and, for bf16
+// shares in themis mode, the bf16 scratch.
+template <int C, int MODE, class T>
+__host__ __device__ constexpr size_t warp_floats(int J) {
+  return (C == 0 ? rt::slab_bytes(J, kSlabArrays) / 4 : 0) +
+         (MODE == kThemis && kBf16<T> ? rt::bf16_floats(J, C == 0) : 0);
+}
+
 template <int MODE, class R, class T>
 __device__ __forceinline__ void tick_row(
     R& r, const rt::Span& sp, const T* sh, const int* q_in, const float* win,
     const unsigned char* free_, const float* u, int* sel,
     unsigned char* valid, unsigned char* dany, int* q_out, int* pops_out,
-    int W) {
+    int W, const rt::Bf16Scratch& scratch) {
   rt::load_run<R>(sp, q_in, [&](int k, int l) -> int& { return r.Q(k, l); });
   const rt::PerDraw<unsigned char> is_free(free_, W, sp.lane);
   const rt::PerDraw<float> uw(u, W, sp.lane);
@@ -101,8 +113,8 @@ __device__ __forceinline__ void tick_row(
   int n_demanded = 0;
   if constexpr (MODE == kThemis) {
     rt::load_run<R>(sp, sh, [&](int k, int l) -> float& { return r.A(k, l); });
-    fast = rt::shares_in_range(r, sp);
-    t = rt::build_table(r, sp, fast);
+    fast = !kBf16<T> && rt::shares_in_range(r, sp);
+    t = rt::build_table_of<T>(r, sp, fast, scratch);
   } else {
     int part = 0;
     RT_EACH(R, sp, k) {
@@ -158,7 +170,7 @@ __device__ __forceinline__ void tick_row(
     // A later draw sees the new demand mask (the last one has none).
     if (__any_sync(rt::kFull, emptied) && w + 1 < W) {
       if constexpr (MODE == kThemis)
-        t = rt::build_table(r, sp, fast);
+        t = rt::build_table_of<T>(r, sp, fast, scratch);
       else
         n_demanded -= 1;
     }
@@ -191,22 +203,24 @@ tick_step_kernel(const T* __restrict__ shares, const int* __restrict__ qcount,
   if (row >= (size_t)S) return;
   const rt::Span sp(J);
   const size_t rj = row * J, rw = row * W;
+  extern __shared__ float4 smem_raw[];
+  float* base = reinterpret_cast<float*>(smem_raw) +
+                warp * warp_floats<C, MODE, T>(J);
   if constexpr (C > 0) {
     rt::Regs<C> r;
+    const rt::Bf16Scratch scratch{base, base + 32 * sp.c};
     tick_row<MODE>(r, sp, shares + rj, qcount + rj, window + rj * W,
                    free_ + rw, u + rw, sel + rw, valid + rw, demand_any + rw,
-                   qcount_out + rj, pops_out + rj, W);
+                   qcount_out + rj, pops_out + rj, W, scratch);
   } else {
-    extern __shared__ float4 slab_raw[];
-    const size_t per = rt::slab_bytes(J, kSlabArrays) / 4;
-    float* base = reinterpret_cast<float*>(slab_raw) + warp * per;
-    const size_t len = per / kSlabArrays;
+    const size_t len = rt::slab_bytes(J, kSlabArrays) / 4 / kSlabArrays;
     // themis uses the segments, fifo the pops: one array serves both.
     rt::Slab r{base, base + len, reinterpret_cast<int*>(base + 2 * len),
                reinterpret_cast<int*>(base + len), sp.lane};
+    const rt::Bf16Scratch scratch{nullptr, base + kSlabArrays * len};
     tick_row<MODE>(r, sp, shares + rj, qcount + rj, window + rj * W,
                    free_ + rw, u + rw, sel + rw, valid + rw, demand_any + rw,
-                   qcount_out + rj, pops_out + rj, W);
+                   qcount_out + rj, pops_out + rj, W, scratch);
   }
 }
 
@@ -228,8 +242,8 @@ template <int C, int MODE, class T>
 int launch(const Args& a, cudaStream_t stream) {
   int rows = kRows;
   size_t smem = 0;
-  if (C == 0) {
-    const size_t per = rt::slab_bytes(a.J, kSlabArrays);
+  const size_t per = warp_floats<C, MODE, T>(a.J) * 4;
+  if (per > 0) {
     const size_t fit = (size_t)232448 / per;
     rows = fit < (size_t)kRows ? (int)fit : kRows;
     if (rows < 1) return (int)cudaErrorInvalidValue;

@@ -9,7 +9,9 @@
 // Per row: mask shares by qcount > 0, renormalise, fall back to uniform over
 // demanded slots when massless, inclusive prefix sum, then for each of the W
 // draws count the segment ends <= u, clip to J, -1 when the row has no mass,
-// and snap an undemanded pick to the first demanded slot (draw.cuh).
+// and snap an undemanded pick to the first demanded slot (draw.cuh; bf16
+// shares in the reference's bf16 arithmetic, with a per-warp shared-memory
+// scratch of draw.cuh bf16_floats).
 //
 // Bound on the H100 at S=128, J=1024, W=1: it reads qcount, the shares of
 // the demanded slots and u, and writes the picks, ~0.7 MB, 0.216 us at
@@ -29,14 +31,27 @@ namespace {
 constexpr int kRows = 1;
 constexpr int kSlabArrays = 2;
 
+template <class T>
+constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+
+// Floats of shared memory per warp: the slab (J > 1024) and the bf16
+// scratch.
+template <int C, class T>
+__host__ __device__ constexpr size_t warp_floats(int J) {
+  return (C == 0 ? rt::slab_bytes(J, kSlabArrays) / 4 : 0) +
+         (kBf16<T> ? rt::bf16_floats(J, C == 0) : 0);
+}
+
 template <class R, class T>
 __device__ __forceinline__ void select_row(R& r, const rt::Span& sp,
                                            const T* sh, const int* q,
-                                           const float* u, int* out, int W) {
+                                           const float* u, int* out, int W,
+                                           const rt::Bf16Scratch& scratch) {
   rt::load_run<R>(sp, q, [&](int k, int l) -> int& { return r.Q(k, l); });
   rt::load_run<R>(sp, sh, [&](int k, int l) -> float& { return r.A(k, l); });
   const rt::PerDraw<float> uw(u, W, sp.lane);
-  const rt::Table t = rt::build_table(r, sp, rt::shares_in_range(r, sp));
+  const bool fast = !kBf16<T> && rt::shares_in_range(r, sp);
+  const rt::Table t = rt::build_table_of<T>(r, sp, fast, scratch);
   for (int w = 0; w < W; ++w) {
     const int idx = rt::draw(r, sp, t, uw(w));
     if (sp.lane == 0) out[w] = idx;
@@ -55,18 +70,20 @@ token_select_kernel(const T* __restrict__ shares,
   const rt::Span sp(J);
   const T* sh = shares + row * J;
   const int* q = qcount + row * J;
+  extern __shared__ float4 smem_raw[];
+  float* base =
+      reinterpret_cast<float*>(smem_raw) + warp * warp_floats<C, T>(J);
   if constexpr (C > 0) {
     rt::Regs<C> r;
-    select_row(r, sp, sh, q, u + row * W, out + row * W, W);
+    const rt::Bf16Scratch scratch{base, base + 32 * sp.c};
+    select_row(r, sp, sh, q, u + row * W, out + row * W, W, scratch);
   } else {
-    extern __shared__ float4 slab_raw[];
-    const size_t per = rt::slab_bytes(J, kSlabArrays) / 4;
-    float* base = reinterpret_cast<float*>(slab_raw) + warp * per;
-    const size_t len = per / kSlabArrays;
+    const size_t len = rt::slab_bytes(J, kSlabArrays) / 4 / kSlabArrays;
     // The segments overwrite the shares slot by slot (read, then written).
     rt::Slab r{base, base, reinterpret_cast<int*>(base + len), nullptr,
                sp.lane};
-    select_row(r, sp, sh, q, u + row * W, out + row * W, W);
+    const rt::Bf16Scratch scratch{nullptr, base + kSlabArrays * len};
+    select_row(r, sp, sh, q, u + row * W, out + row * W, W, scratch);
   }
 }
 
@@ -75,8 +92,8 @@ int launch(const T* shares, const int* qcount, const float* u, int* out,
            int S, int J, int W, cudaStream_t stream) {
   int rows = kRows;
   size_t smem = 0;
-  if (C == 0) {
-    const size_t per = rt::slab_bytes(J, kSlabArrays);
+  const size_t per = warp_floats<C, T>(J) * 4;
+  if (per > 0) {
     const size_t fit = (size_t)232448 / per;
     rows = fit < (size_t)kRows ? (int)fit : kRows;
     if (rows < 1) return (int)cudaErrorInvalidValue;

@@ -8,12 +8,13 @@ neighbouring job.  Such a draw is excused; any other mismatch is a fault.
 The band is ``J`` times the unit roundoff of the dtype the draws sum in
 (``sum_dtype``) around every segment end computed in float64 from the same
 shares and queue counts: ``J * 2**-24`` where both sides sum in float32 (the
-port's kernels and plain versions, bf16 shares widened), ``J * 2**-8``
-where one side sums in bf16 (the reference with bf16 shares renormalises
-and prefix-sums in bf16, so a J-term prefix of values in [0, 1] may be off
-by up to about J bf16 roundings).  Where the two sides computed their share
-tables apart (the engine on the card against the engine on the CPU), the
-band also covers each draw that lies between the two tables' ends.
+port's kernels and plain versions on float32 shares), ``J * 2**-8``
+where the draws sum in bf16 (bf16 shares: a J-term prefix of values in
+[0, 1] may be off by up to about J bf16 roundings; the port's bf16 draw
+takes the reference's order of sums and has needed none of the band).
+Where the two sides computed their share tables apart (the engine on the
+card against the engine on the CPU), the band also covers each draw that
+lies between the two tables' ends.
 """
 from __future__ import annotations
 

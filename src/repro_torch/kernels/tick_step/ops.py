@@ -11,16 +11,15 @@ import functools
 import torch
 
 from .. import _build
-from ..token_select.ops import SHARE_DTYPES
+from ..token_select.ops import SHARE_DTYPES, max_j
 from .ref import MODES, tick_step_ref
 
 #: Kernel launches made by :func:`tick_step` in this process.
 LAUNCHES = 0
 
-#: Largest J the kernel takes: beyond 1024 a row's slots live in a per-warp
-#: shared-memory slab of 3 arrays of 32 * ceil(J / 32) 4-byte values, and
-#: one warp's slab must fit the H100's 232,448 bytes of a block.
-MAX_J = 32 * (232448 // (3 * 4 * 32))
+#: Largest J the kernel takes, per share dtype (3 slab arrays; fifo reads
+#: no shares and takes the float32 bound).
+MAX_J = {dt: max_j(3, dt) for dt in SHARE_DTYPES}
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,9 +73,10 @@ def tick_step(shares, qcount, window, free, u, *, mode: str = "themis"):
         raise ValueError("tick_step kernel takes contiguous tensors")
     s, j = qcount.shape
     w = u.shape[1]
-    if j > MAX_J:
+    limit = MAX_J[shares.dtype if mode == "themis" else torch.float32]
+    if j > limit:
         raise ValueError(f"J={j} exceeds the kernel's shared memory (J <= "
-                         f"{MAX_J})")
+                         f"{limit})")
     dev = shares.device
     sel = torch.empty((s, w), dtype=torch.int32, device=dev)
     valid = torch.empty((s, w), dtype=torch.bool, device=dev)

@@ -19,10 +19,22 @@ LAUNCHES = 0
 #: Share dtypes the kernel takes, by the code its launcher reads.
 SHARE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Largest J the kernel takes: beyond 1024 a row's slots live in a per-warp
-#: shared-memory slab of 2 arrays of 32 * ceil(J / 32) 4-byte values, and
-#: one warp's slab must fit the H100's 232,448 bytes of a block.
-MAX_J = 32 * (232448 // (2 * 4 * 32))
+def max_j(arrays: int, dtype: torch.dtype) -> int:
+    """Largest J a draw kernel takes: beyond 1024 a row's slots live in a
+    per-warp shared-memory slab of ``arrays`` arrays of 32 * ceil(J / 32)
+    4-byte values, plus for bf16 shares a scratch of 3 * ceil(J / 32) + 32
+    floats rounded up to 16 bytes (``draw.cuh`` ``slab_bytes``,
+    ``bf16_floats``); one warp's share must fit the H100's 232,448 bytes of
+    a block."""
+    c = 232448 // (arrays * 128)
+    extra = lambda c: 4 * ((3 * c + 35) & ~3) if dtype == torch.bfloat16 else 0
+    while arrays * 128 * c + extra(c) > 232448:
+        c -= 1
+    return 32 * c
+
+
+#: Largest J the kernel takes, per share dtype.
+MAX_J = {dt: max_j(2, dt) for dt in SHARE_DTYPES}
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,9 +80,9 @@ def token_select(shares: torch.Tensor, qcount: torch.Tensor,
         raise ValueError("token_select kernel takes contiguous tensors")
     s, j = shares.shape
     w = u.shape[1]
-    if j > MAX_J:
+    if j > MAX_J[shares.dtype]:
         raise ValueError(f"J={j} exceeds the kernel's shared memory (J <= "
-                         f"{MAX_J})")
+                         f"{MAX_J[shares.dtype]} for {shares.dtype} shares)")
     dev = shares.device
     out = torch.empty((s, w), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

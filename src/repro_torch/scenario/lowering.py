@@ -177,7 +177,7 @@ def resolve_jobs(source, where: str = "job") -> list[dict]:
     raise NotImplementedError(
         f"{where}: scenario sources other than a list of job spec dicts "
         f"(combinator trees, Scenario objects; got {type(source).__name__}) "
-        f"are not ported to repro_torch yet")
+        f"are not ported to repro_torch yet (ROADMAP.md section 1, item 6)")
 
 
 def lower(source, *, dt: float = 1e-3, n_servers: int = 1,

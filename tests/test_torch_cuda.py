@@ -9,7 +9,9 @@ Kernels are held to their plain versions with the tolerance of
 bf16; the scans and each pass of ``mamba2_ssd`` and ``wkv6``:
 ``chip_smoke.prefix_tol``); the engine's fused and scan
 paths must agree bit for bit in integer state, the engine on the card must
-agree with the engine on the CPU (``chip_smoke.phase_card_vs_cpu``), and so
+agree with the engine on the CPU (``chip_smoke.phase_card_vs_cpu``, for the
+interval schedulers ``phase_schedulers_card_vs_cpu``), every lane of a
+batched run must equal its single run, and so
 must the dense and the recurrent models
 (``chip_smoke.phase_serve_card_vs_cpu``, ``phase_ssm_card_vs_cpu``)."""
 import importlib.util
@@ -172,6 +174,94 @@ def test_engine_on_card_matches_cpu(card):
     """fifo counter-exact on every tick on both worker paths; themis
     counter-exact until a flipped edge-band pick, then within 2 %."""
     smoke.phase_card_vs_cpu("cuda", ticks=300)
+
+
+@pytest.mark.parametrize("scheduler", ("themis", "fifo", "gift", "plan"))
+def test_run_batch_lanes_equal_runs_on_card(card, scheduler):
+    """Each lane of a 3-seed batch equals run() with its seed: integer state
+    exact, bytes_bin within the atomic adds' bound (one add per worker per
+    tick of a bin); themis and fifo launch tick_step once per batched
+    tick, the scan schedulers never."""
+    from repro_torch.api import Experiment
+    from repro_torch.core import engine
+    jobs = [dict(user=i % 3, size=1 + i % 2, procs=6 + i, req_mb=2 + i % 3,
+                 servers=[i % 4, (i + 1) % 4]) for i in range(10)]
+    point = (smoke.scheduler_params(scheduler, 40)
+             if scheduler in smoke.SCAN_SCHEDULERS else None)
+
+    def exp(seed):
+        return Experiment(policy="user-fair", scheduler=scheduler, seed=seed,
+                          params=point, n_servers=4, n_workers=4,
+                          max_jobs=16, bin_ticks=50).add_jobs(jobs)
+
+    tk_ops.LAUNCHES = ts_ops.LAUNCHES = 0
+    batch = exp(0).run_batch(0.2, seeds=(0, 3, 8))
+    fused = scheduler in ("themis", "fifo")
+    assert ts_ops.LAUNCHES == (200 if fused else 0)
+    assert tk_ops.LAUNCHES == 0
+    bound = smoke.lane_bytes_bound(exp(0).engine_config())
+    for k, seed in enumerate((0, 3, 8)):
+        one = exp(seed).run(0.2)
+        lane = engine.map_state(batch.state, lambda x: x[k])
+        for f in smoke.INT_LEAVES:
+            assert torch.equal(getattr(lane, f), getattr(one.state, f)), f
+        a, b = lane.bytes_bin.cpu(), one.state.bytes_bin.cpu()
+        ulp = torch.from_numpy(np.spacing(b.abs().numpy()))
+        assert ((a - b).abs() <= bound * ulp).all()
+
+
+@pytest.mark.parametrize("scheduler", ("themis", "fifo", "gift", "tbf",
+                                       "adaptbf", "plan"))
+def test_sweep_and_solo_on_card(card, scheduler):
+    """A 2-point x 2-seed sweep and a solo run of every scheduler on the
+    card: each sweep lane's integer counters equal its single run's."""
+    from repro_torch.api import Experiment
+    from repro_torch.core.scheduler import get_scheduler
+    cls = get_scheduler(scheduler).params_cls
+    kw = {"mu_ticks": 40} if "mu_ticks" in cls.__dataclass_fields__ else {}
+    points = [cls(**kw), cls(**kw)]
+    jobs = [dict(user=i % 3, size=1, procs=6 + i, req_mb=2 + i % 3,
+                 servers=[i % 2]) for i in range(6)]
+
+    def exp(seed=0):
+        return Experiment(policy="user-fair", scheduler=scheduler, seed=seed,
+                          params=points[0], n_servers=2, n_workers=4,
+                          max_jobs=8).add_jobs(jobs)
+
+    sw = exp().sweep(points, 0.1, seeds=(0, 5))
+    one = exp(5).run(0.1)
+    np.testing.assert_array_equal(sw.completed[1, 1], one.completed)
+    np.testing.assert_array_equal(sw.issued[0, 1], one.issued)
+    solo = exp().solo(2, 0.1)
+    assert solo.n_jobs == 1 and solo.issued[0] > 0
+
+
+def test_interval_schedulers_on_card(card):
+    """gift, tbf, adaptbf and plan at a small geometry: conserved, and each
+    in lockstep with the CPU (counter-exact until an edge-band pick)."""
+    geom = dict(n_servers=8, max_jobs=64, n_workers=4, dt=2e-4, wheel=128,
+                ring_cap=16, bin_ticks=500)
+    smoke.phase_schedulers("cuda", geom, 0.02)
+    smoke.phase_schedulers_card_vs_cpu("cuda", ticks=200)
+
+
+def test_poisson_on_card_matches_cpu(card):
+    """Poisson arrivals (both branches) on the card equal the CPU's draws."""
+    from repro_torch.api import Experiment
+    jobs = [dict(user=i % 3, size=1, procs=3 + i, req_mb=2) for i in range(6)]
+
+    def run(device):
+        e = Experiment(scheduler="fifo", device=device, n_servers=2,
+                       n_workers=4, max_jobs=8, ring_cap=64).add_jobs(jobs)
+        e.arrivals(arrival="poisson", rate_hz=300.0)
+        e.arrivals(job=0, rate_hz=8000.0)
+        return e.run_batch(0.05, seeds=(0, 1))
+
+    card_res, cpu_res = run("cuda"), run("cpu")
+    assert cpu_res.issued[:, 0].sum() > 0
+    np.testing.assert_array_equal(card_res.issued, cpu_res.issued)
+    np.testing.assert_array_equal(card_res.dropped, cpu_res.dropped)
+    np.testing.assert_array_equal(card_res.completed, cpu_res.completed)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -102,10 +102,11 @@ def test_one_tick_parity_from_reference_state(scheduler, impl, n_ticks):
     want = ref_state_after(scheduler, n_ticks + 1)
     cfg, wl, table = port_inputs(scheduler, impl)
     tick = engine.make_tick(cfg, wl, table, N_BINS)
-    state = convert.state_from_numpy(start)
+    state = engine.map_state(convert.state_from_numpy(start),
+                             lambda x: x[None])
     assert int(state.qcount.sum()) > 0
     p = engine.get_scheduler(scheduler).params(cfg)
-    got = tick(p, state)
+    got = engine.map_state(tick(p, state), lambda x: x[0])
     assert_states_match(want, got, GEOM["max_jobs"],
                         f"{scheduler}/{impl}@{n_ticks}")
 
@@ -156,12 +157,14 @@ def test_themis_run_within_two_percent():
         rs = step(rs)
         ts = tick(p, ts)
         if flip is None and not (
-                np.array_equal(np.asarray(rs.completed), ts.completed.numpy())
-                and np.array_equal(np.asarray(rs.qcount), ts.qcount.numpy())):
+                np.array_equal(np.asarray(rs.completed),
+                               ts.completed[0].numpy())
+                and np.array_equal(np.asarray(rs.qcount),
+                                   ts.qcount[0].numpy())):
             flip = t
     print(f"themis lockstep: first flipped pick at tick {flip} of {ticks}")
     want = np.asarray(rs.completed).astype(np.float64)
-    got = ts.completed.numpy().astype(np.float64)
+    got = ts.completed[0].numpy().astype(np.float64)
     assert want.sum() > 1000
     live = want > 0
     np.testing.assert_allclose(got[live], want[live], rtol=0.02)

@@ -6,11 +6,12 @@ run the plain PyTorch versions) and through the reference's
 interpret mode) and ``impl="ref"``.  fifo and every integer output must be
 exact; a themis pick may differ only where ``u`` lies within ``J * 2**-24``
 of a float64 segment end (``repro_torch.kernels.parity``), and such draws are
-counted.  With bf16 shares the reference renormalises and prefix-sums in
-bf16 while the port widens the shares and draws in float32, so a pick may
-differ within ``J * 2**-8`` of a segment end (``parity.UNIT_ROUNDOFF``), and
-those draws are counted too.  The card's kernels are held to the same plain
-versions by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``."""
+counted.  With bf16 shares both sides renormalise and prefix-sum in bf16,
+the port in the reference's order (``repro_torch.core.ordered``), so the
+bf16 draws are held to the same band with ``J * 2**-8``
+(``parity.UNIT_ROUNDOFF``) and must need none of it.  The card's kernels
+are held to the same plain versions by ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -138,15 +139,13 @@ def test_token_select_matches_jax(reference, j, case):
 @pytest.mark.parametrize("case", EDGE)
 @pytest.mark.parametrize("j", JS)
 def test_token_select_bf16_shares_match_jax(reference, j, case):
-    """bf16 shares: the plain version widens them and draws in float32 (as
-    the kernel does); a pick may differ from the reference's bf16 draw only
-    within ``J * 2**-8`` of a segment end."""
-    got, (ts, tq, tu), _ = token_select_vs_jax(reference, j, case,
-                                               "bfloat16")
+    """bf16 shares: the plain version draws in bf16 as the reference does,
+    pick for pick (no draw excused)."""
+    got, (ts, tq, tu), excused = token_select_vs_jax(reference, j, case,
+                                                     "bfloat16")
     assert ts.dtype == torch.bfloat16
     check_picks(got, tq, case)
-    # The port's draw on bf16 shares is its float32 draw on their values.
-    assert torch.equal(got, tk_ops.token_select(ts.float(), tq, tu))
+    assert excused == [0, 0]
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -160,9 +159,8 @@ def test_tick_step_matches_jax(reference, j, case, mode):
 @pytest.mark.parametrize("case", EDGE)
 @pytest.mark.parametrize("j", JS)
 def test_tick_step_bf16_shares_match_jax(reference, j, case, mode):
-    """bf16 shares through the fused tick: fifo exact (it reads no
-    shares), themis through the bf16 edge band."""
-    tick_step_vs_jax(reference, j, case, mode, "bfloat16")
+    """bf16 shares through the fused tick: fifo and themis exact."""
+    assert tick_step_vs_jax(reference, j, case, mode, "bfloat16") == [0, 0]
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -259,15 +257,12 @@ def test_excused_edge_band_draws_are_rare(reference):
 
 
 def test_excused_bf16_edge_band_draws_are_counted(reference):
-    """bf16 shares: the reference's bf16 renormalisation and prefix sums
-    round away from the float32 draw by a few bf16 roundings per slot, so a
-    draw differs where ``u`` lies between the two segment ends.  Counted per
-    J and kernel here (every one inside the ``J * 2**-8`` band): none at
-    J = 16 nor in fifo (no shares); at J = 127-129 a few percent of the
-    token_select draws; at J = 1024, where a segment is ~1e-3 wide and the
-    reference's drift ~1e-2, about half the draws of the random and
-    zero-share cases.  Over every case: at most 1 in 8 token_select draws
-    and 1 in 4 themis rows."""
+    """bf16 shares: the plain versions renormalise and prefix-sum in bf16 in
+    the reference's order (windows of 32 for the totals, blocks of 16 for
+    the prefix sums, each partial sum rounded where XLA rounds it), so no
+    draw needs the edge band, at any J (a float32 draw of the same shares
+    differed from the reference in 48 of 640 token_select draws and 20 of
+    120 themis rows here)."""
     per_j = {}
     draws = rows = 0
     for j in JS:
@@ -283,10 +278,8 @@ def test_excused_bf16_edge_band_draws_are_counted(reference):
         rows += len(IMPLS) * len(EDGE) * 3
     print("bf16 excused (token_select draws, themis rows, fifo rows) per J:",
           per_j)
-    assert per_j[16] == [0, 0, 0]
-    assert all(n[2] == 0 for n in per_j.values())
-    assert sum(n[0] for n in per_j.values()) <= draws // 8
-    assert sum(n[1] for n in per_j.values()) <= rows // 4
+    assert draws and rows
+    assert all(n == [0, 0, 0] for n in per_j.values())
 
 
 def test_build_paths_stay_in_the_checkout(monkeypatch, tmp_path):

@@ -4,8 +4,10 @@
     python3 tools/profile_torch_engine.py
 
 Runs the fleet geometry of ``chip_smoke.py`` (benchmarks/bench_fleet.py:
-S=128, J=1024, W=4, user-fair) for themis and fifo on the fused path and
-themis on the scan path.  After 20 warm-up ticks it profiles 100 steady
+S=128, J=1024, W=4, user-fair) for themis and fifo on the fused path,
+themis on the scan path, gift, tbf, adaptbf and plan (the scan path, with
+the schedulers phase's 125-tick μ), and themis fused over 8 seed lanes of
+one batched run.  After 20 warm-up ticks it profiles 100 steady
 ticks with ``torch.profiler`` and prints, per tick: the host's wall time,
 the device's busy time (the sum of kernel durations on the one stream),
 the device's idle share, the number of kernel launches, and the kernels
@@ -22,18 +24,25 @@ ROOT = Path(__file__).resolve().parent.parent
 WARMUP, TICKS = 20, 100
 
 
-def profile(scheduler: str, impl: str) -> None:
+def profile(scheduler: str, impl: str, lanes: int = 1) -> None:
     import torch
-    from chip_smoke import FLEET, fleet_jobs
+    from chip_smoke import (FLEET, FLEET_MU_TICKS, SCAN_SCHEDULERS,
+                            fleet_jobs, scheduler_params)
     from repro_torch.api import Experiment
     from repro_torch.core import engine
+    from repro_torch.core.params import lane_params
 
+    point = (scheduler_params(scheduler, FLEET_MU_TICKS)
+             if scheduler in SCAN_SCHEDULERS else None)
     cfg, wl, table = Experiment(
-        policy="user-fair", scheduler=scheduler, tick_impl=impl, **FLEET
+        policy="user-fair", scheduler=scheduler, tick_impl=impl,
+        params=point, **FLEET
     ).add_jobs(fleet_jobs(FLEET["max_jobs"], FLEET["n_servers"])).build()
     tick = engine.make_tick(cfg, wl, table, n_bins=1)
     params = engine.get_scheduler(cfg.scheduler).params(cfg)
-    state = engine.init_state(cfg, 1)
+    state = engine.init_state(cfg, 1, seeds=range(lanes))
+    if lanes > 1:
+        params = lane_params([params], lanes, state.key.device)
     for _ in range(WARMUP):
         state = tick(params, state)
     torch.cuda.synchronize()
@@ -46,8 +55,8 @@ def profile(scheduler: str, impl: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    print(f"{scheduler}/{impl}: {TICKS} profiled ticks, host wall "
-          f"{wall / TICKS * 1e3:.3f} ms/tick (profiler on)")
+    print(f"{scheduler}/{impl} x{lanes} lanes: {TICKS} profiled ticks, "
+          f"host wall {wall / TICKS * 1e3:.3f} ms/tick (profiler on)")
     summarize(prof, wall, TICKS, "tick")
 
 
@@ -83,8 +92,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     print(f"device: {torch.cuda.get_device_name(0)}")
     for scheduler, impl in (("themis", "fused"), ("fifo", "fused"),
-                            ("themis", "scan")):
+                            ("themis", "scan"), ("gift", "scan"),
+                            ("tbf", "scan"), ("adaptbf", "scan"),
+                            ("plan", "scan")):
         profile(scheduler, impl)
+    profile("themis", "fused", lanes=8)
     return 0
 
 
