@@ -61,6 +61,32 @@ each printing its lines before the last:
                 counters are zeroed before and read after each batch:
                 one tick_step launch per tick for themis and fifo, none
                 for the other four, no token_select launch
+  scenarios     the scenario rows of repro_torch.bench.scenarios (the
+                reference's benchmarks/bench_scenarios.py: opportunity
+                fairness and checkpoint interference, themis against fifo,
+                and one aggregate row per preset) at BENCH_SECONDS = 1.6
+                (1 server, W = 8, dt 1 ms, one seed per run; cut from the
+                reference's 2.4 to keep this phase and the next near
+                120 s, above the 1.5 s at which a checkpoint window
+                falls under a 0.1 s throughput bin): every row
+                within 0.01 of src/repro_torch/bench/scen_reference.json
+                (the reference's printed rows); the counters zeroed before
+                and read after each run: one tick_step launch per tick, no
+                token_select; ms/tick per run
+  service       the burst-buffer service (repro_torch.bb) through
+                Experiment.serve: the cross-plane ON/OFF case (the engine's
+                and the replay's shares within the reference test's
+                bounds), then each preset replayed through
+                ``Experiment.from_scenario(preset(name)).serve().replay``
+                (24 s, 0.25 s rounds, 4 requests per job per round, cut
+                from 16 to keep this phase and the last near 120 s) on
+                the card and on the CPU for themis and fifo, and for gift,
+                tbf, adaptbf and plan on bursty-interferer: counts and
+                completion order equal (a themis pick may differ only in
+                the edge band, counted), token_select launches = themis
+                pops (counted around each replay), pops per second on
+                both; token_select at the service's [1, J] shape against
+                its plain version on recorded draws, timed beside its bound
   serve         h2o-danube-1.8b at full width and depth in bf16 (random
                 weights from a seed): batched prefill of 2 x 6000 tokens
                 (past block_q and the 4096 window) through
@@ -603,20 +629,23 @@ def explain_divergence(card_calls, cpu_calls) -> str:
                          "agreed")
 
 
-def lockstep(scheduler, impl, device, ticks):
+def lockstep(scheduler, impl, device, ticks, make=None):
     """Step the engine on ``device`` and on the CPU together from the same
-    Experiment.  Returns (first tick whose integer state differs or None,
-    the excused pick that caused it, final state on ``device``, final CPU
-    state).  fifo must never differ."""
+    Experiment: ``make(device)``, or by default ``LOCKSTEP_JOBS`` at
+    ``LOCKSTEP_GEOM`` under user-fair with ``tick_impl=impl``.  Returns
+    (first tick whose integer state differs or None, the excused pick that
+    caused it, final state on ``device``, final CPU state).  fifo must
+    never differ."""
     from repro_torch.api import Experiment
     from repro_torch.core import engine, tokens
     from repro_torch.kernels.tick_step import ops as ts_ops
     from repro_torch.kernels.token_select import ops as tk_ops
 
     def build(dev):
-        cfg, wl, table = Experiment(
+        exp = make(dev) if make is not None else Experiment(
             policy="user-fair", scheduler=scheduler, device=dev,
-            tick_impl=impl, **LOCKSTEP_GEOM).add_jobs(LOCKSTEP_JOBS).build()
+            tick_impl=impl, **LOCKSTEP_GEOM).add_jobs(LOCKSTEP_JOBS)
+        cfg, wl, table = exp.build()
         n_bins = max(1, -(-ticks // cfg.bin_ticks))
         return (engine.make_tick(cfg, wl, table, n_bins),
                 engine.get_scheduler(scheduler).params(cfg),
@@ -1154,6 +1183,261 @@ def phase_figures(device, seconds=2.0, n_seeds=8):
     if failed:
         raise AssertionError(f"figure rows outside tolerance: {failed}")
     return launches, rows
+
+
+# -- scenario trees and the burst-buffer service --------------------------------
+
+#: A scenario row is one seed, so the card, the CPU and the reference agree
+#: to the two digits the reference prints unless a pick flips; a row may
+#: differ from the recorded text by one unit of its last digit (a value on
+#: a rounding boundary).
+SCEN_TOL = 0.01
+
+
+def phase_scenarios(device, seconds=None):
+    """The scenario rows of repro_torch.bench.scenarios on the card against
+    the reference's (scen_reference.json); returns the launches of each
+    fused mode and the ms/tick of each run."""
+    import torch
+    from repro_torch.bench import scenarios
+    ref = json.loads((SRC / "repro_torch" / "bench" /
+                      "scen_reference.json").read_text())
+    seconds = ref["seconds"] if seconds is None else seconds
+    if ref["seconds"] != seconds:
+        raise AssertionError(f"scen_reference.json holds {ref['seconds']} s, "
+                             f"not {seconds}")
+    launches = {"tick_step[themis]": 0, "tick_step[fifo]": 0}
+    ms = {}
+
+    def counted(label, run):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        # Both scenario schedulers run the fused tick: one tick_step launch
+        # per tick, no token_select.
+        expect_launches(f"scenarios {label}", device, got,
+                        {"tick_step": res.ticks, "token_select": 0})
+        sched = "fifo" if label.endswith("fifo") else "themis"
+        launches[f"tick_step[{sched}]"] += got["tick_step"]
+        ms[label] = round(wall * 1e3 / res.ticks, 3)
+        say("scenarios", f"{label} ({sched}): {res.ticks} ticks, "
+            f"{ms[label]} ms/tick, kernel launches {got}")
+        return res
+
+    rows = scenarios.run_scen(seconds, device=device, wrap=counted)
+    failed = []
+    for r in rows:
+        want = ref["rows"][r.name]
+        diff = abs(r.means[0] - want["value"])
+        ok = diff <= SCEN_TOL + 1e-9
+        say("scenarios", f"{r.name}: {r.derived!r} vs reference "
+            f"{want['derived']!r}, |diff| {diff:.4f} <= {SCEN_TOL}: "
+            f"{'ok' if ok else 'FAIL'}"
+            f"{'' if r.derived == want['derived'] else ' (text differs)'}")
+        if not ok:
+            failed.append(r.name)
+    if failed:
+        raise AssertionError(f"scenario rows outside tolerance: {failed}")
+    return launches, ms
+
+
+def recording_selects(log):
+    """The themis scheduler's ``select_job`` that appends ``(shares,
+    demand, u, pick)`` of every call (the tensors themselves, on their
+    device) to ``log``."""
+    from repro_torch.core import scheduler
+    inner = scheduler.select_job
+
+    def wrapper(shares, demand, u):
+        out = inner(shares, demand, u)
+        log.append((shares, demand, u, out))
+        return out
+    return inner, wrapper
+
+
+def first_flip(card_calls, cpu_calls):
+    """The first themis pop whose pick differs between the card and the
+    CPU, or None; raises unless it is an edge-band draw."""
+    import torch
+    from repro_torch.kernels import parity
+    for k, ((sh_d, dm_d, u_d, o_d), (sh_c, dm_c, u_c, o_c)) in enumerate(
+            zip(card_calls, cpu_calls)):
+        if int(o_d) == int(o_c):
+            continue
+        if not (dm_d.cpu().equal(dm_c) and u_d.cpu().equal(u_c)):
+            raise AssertionError(f"pop {k}: the draw's demand or uniform "
+                                 "differs between the card and the CPU")
+        band = parity.edge_band(sh_c.float(), dm_c.to(torch.int32),
+                                u_c.reshape(1, 1),
+                                other_shares=sh_d.cpu().float())
+        if not bool(band.all()):
+            raise AssertionError(f"pop {k}: card and CPU picks differ outside "
+                                 "the edge band")
+        return k
+    if len(card_calls) != len(cpu_calls):
+        raise AssertionError("card and CPU made different numbers of themis "
+                             "pops, but every pick agreed")
+    return None
+
+
+def replay(name, scheduler, device, seconds, round_s, reqs_per_round):
+    """``Experiment.from_scenario(preset(name)).serve().replay(...)`` ->
+    (ReplayResult, pops, wall seconds, themis select calls)."""
+    import torch
+    from repro_torch.api import Experiment
+    from repro_torch.core import scheduler as sched_mod
+    from repro_torch.scenario import preset
+    svc = Experiment.from_scenario(preset(name), policy="job-fair",
+                                   scheduler=scheduler,
+                                   device=device).serve(autodrain=False)
+    log: list = []
+    inner, sched_mod.select_job = recording_selects(log)
+    try:
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = svc.replay(seconds, round_s=round_s,
+                         reqs_per_round=reqs_per_round)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sched_mod.select_job = inner
+    pops = sum(len(srv.processed) for srv in svc.cluster.servers)
+    return res, pops, wall, log
+
+
+#: The presets every scheduler of ``SERVICE_ALL`` replays, and the one the
+#: four interval schedulers replay too.
+SERVICE_ALL = ("themis", "fifo")
+SERVICE_INTERFERER = ("gift", "tbf", "adaptbf", "plan")
+
+
+def phase_service(device, *, seconds=None, round_s=0.25, reqs_per_round=4,
+                  reps=50):
+    """The burst-buffer service on the card: the cross-plane ON/OFF shares,
+    the presets replayed on the card and the CPU (counts and completion
+    order equal; a themis pick may differ only in the edge band), one
+    token_select launch per themis pop, pops per second on both, and
+    token_select at the service's [1, J] shape against its plain version.
+    Returns (token_select launches, the [1, J] record, pops/s)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Experiment
+    from repro_torch.kernels import parity
+    from repro_torch.kernels.token_select import ops as tk_ops
+    from repro_torch.kernels.token_select.ref import token_select_ref
+    from repro_torch.scenario import PRESET_SECONDS, presets
+    seconds = PRESET_SECONDS if seconds is None else seconds
+
+    # (a) tests/test_scenario.py::TestCrossPlaneOnOff on the card.
+    def onoff():
+        return (Experiment(policy="job-fair", scheduler="themis", n_workers=4,
+                           device=device)
+                .add_job(user=0, procs=8, req_mb=10, end_s=2.0)
+                .add_job(user=1, procs=8, req_mb=10)
+                .phase(start_s=0.0, end_s=1.0))
+    res = onoff().run(2.0)
+    g0, g1 = res.mean_gbps(0, 0.2, 0.9), res.mean_gbps(1, 0.2, 0.9)
+    eng_busy = g0 / (g0 + g1)
+    off0 = res.mean_gbps(0, 1.3, 1.9)
+    eng_idle = off0 / max(off0 + res.mean_gbps(1, 1.3, 1.9), 1e-9)
+    rr = onoff().serve(autodrain=False).replay(2.0, round_s=0.125,
+                                               reqs_per_round=24)
+    bb_busy, bb_idle = rr.window_share(0, 0.125, 1.0), rr.window_share(
+        0, 1.25, 2.0)
+    ok = (abs(eng_busy - 0.5) <= 0.1 and abs(bb_busy - eng_busy) <= 0.15
+          and abs(eng_idle - 1.0) <= 0.05 and abs(bb_idle - eng_idle) <= 0.05)
+    say("service", f"ON/OFF: engine busy share {eng_busy:.4f} (0.5 +- 0.1), "
+        f"replay {bb_busy:.4f} (engine +- 0.15); idle {eng_idle:.4f} "
+        f"(1 +- 0.05), replay {bb_idle:.4f} (engine +- 0.05): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ON/OFF shares outside the reference's bounds")
+
+    # (b)-(d) the presets on the card and on the CPU.
+    launched, excused, themis_pops = 0, 0, 0
+    rates = {"card": [0, 0.0], "cpu": [0, 0.0]}
+    sample = None
+    for name in presets():
+        scheds = SERVICE_ALL + (SERVICE_INTERFERER
+                                if name == "bursty-interferer" else ())
+        for sched in scheds:
+            reset_launches()
+            got, pops, wall, calls = replay(name, sched, device, seconds,
+                                            round_s, reqs_per_round)
+            n = read_launches()
+            want, pops_c, wall_c, calls_c = replay(name, sched, "cpu",
+                                                   seconds, round_s,
+                                                   reqs_per_round)
+            # (c) one token_select launch per themis pop, none otherwise.
+            expect_launches(f"service {name} {sched}", device, n,
+                            {"tick_step": 0,
+                             "token_select": pops if sched == "themis" else 0})
+            launched += n["token_select"]
+            flip = None
+            if sched == "themis":
+                themis_pops += pops
+                flip = first_flip(calls, calls_c)
+                if sample is None:
+                    sample = calls[:256]
+            same = (np.array_equal(got.counts, want.counts)
+                    and got.order == want.order)
+            if flip is not None:
+                excused += 1
+                say("service", f"{name} {sched}: edge-band draw excused at "
+                    f"themis pop {flip}; the orders after it are not held")
+            elif not same:
+                raise AssertionError(f"service {name} {sched}: counts or "
+                                     "order differ between card and CPU")
+            rates["card"][0] += pops
+            rates["card"][1] += wall
+            rates["cpu"][0] += pops_c
+            rates["cpu"][1] += wall_c
+            say("service", f"{name} {sched}: {pops} pops, "
+                f"{int(got.counts.sum())} writes in {got.n_rounds} rounds, "
+                f"counts and order equal to the CPU's: "
+                f"{'yes' if same else 'until the excused draw'}; "
+                f"{pops / wall:.0f} pops/s on the card, "
+                f"{pops_c / wall_c:.0f} on the CPU; token_select launches "
+                f"{n['token_select']}")
+    pops_s = {k: round(p / w, 1) for k, (p, w) in rates.items()}
+    say("service", f"themis pops {themis_pops}, token_select launches "
+        f"{launched}; edge-band draws excused: {excused}; pops/s "
+        f"{json.dumps(pops_s)}")
+
+    # token_select at the service's shape: one [1, J] row, one draw.
+    errs = 0
+    for sh, dm, u, _ in sample:
+        q = dm.to(torch.int32)
+        u1 = u.reshape(1, 1).contiguous()
+        got = tk_ops.token_select(sh.contiguous(), q, u1)
+        torch.cuda.synchronize()
+        lines, _ = parity.compare_token_select(
+            got, token_select_ref(sh, q, u1), sh, q, u1)
+        errs += len(lines)
+    if errs:
+        raise AssertionError(f"token_select [1, J]: {errs} draws apart from "
+                             "the plain version")
+    sh, dm, u, _ = sample[-1]
+    sh, q, u1 = sh.contiguous(), dm.to(torch.int32), u.reshape(1, 1)
+    j = sh.shape[-1]
+    ms = time_ms(lambda: tk_ops.token_select(sh, q, u1), reps)
+    plain = time_ms(lambda: token_select_ref(sh, q, u1), reps)
+    nbytes = needed_bytes("token_select", q, u1)
+    b, by = bound_ms(nbytes, j * (8 + 1))
+    say("service", f"token_select [1, {j}] (the service's shape): "
+        f"{len(sample)} recorded draws equal the plain version's; "
+        f"{ms * 1e3:.2f} us, plain {plain * 1e3:.1f} us, bound "
+        f"{b * 1e3:.5f} us ({by}, {nbytes} bytes)")
+    record = dict(service_shape=[1, j], service_ms=ms, service_plain_ms=plain,
+                  service_bound_ms=b, service_bound_by=by,
+                  service_launches=launched)
+    return launched, record, pops_s
 
 
 # -- the dense serving path (h2o-danube-1.8b) -----------------------------------
@@ -2211,8 +2495,14 @@ def main() -> int:
     say("batch", "ms " + json.dumps(batch_ms))
     pois_launches, _ = timed("poisson", phase_poisson, device)
     fig_launches, _ = timed("figures", phase_figures, device)
+    scen_launches, scen_ms = timed("scenarios", phase_scenarios, device)
+    say("scenarios", "ms/tick " + json.dumps(scen_ms))
     for name in ("tick_step[themis]", "tick_step[fifo]"):
-        launches[name] += batch_launches[name] + fig_launches[name]
+        launches[name] += (batch_launches[name] + fig_launches[name]
+                           + scen_launches[name])
+    service_draws, service_record, _ = timed("service", phase_service, device)
+    launches["token_select"] += service_draws
+    records["token_select"].update(service_record)
     launches["tick_step[themis]"] += pois_launches
     params, served, layer0, serve = timed("serve", phase_serve, device)
     launches["flash_attention"] = served["flash_attention"]
@@ -2272,6 +2562,7 @@ def main() -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"),
             **({"pass_ms": r["pass_ms"]} if "pass_ms" in r else {}),
+            **{k: v for k, v in r.items() if k.startswith("service_")},
             **row_records.get(name, {})))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,11 +12,14 @@
 ``device`` defaults to ``"cuda"``; ``device="cpu"`` runs the plain
 versions of the kernels.  ``run_batch`` and ``sweep`` run their seeds and
 grid points as lanes of one tick loop (:func:`repro_torch.core.engine.run_batch`)
-and return :class:`BatchRunResult` / :class:`SweepResult`.  The public
-members of the reference's ``Experiment`` that are not ported yet raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them: the
-scenario builders (item 6), the functional and batch planes and the
-workspace (item 8).
+and return :class:`BatchRunResult` / :class:`SweepResult`.  Jobs are
+phased scenarios (``phase``/``bursts``/``ramp``, :mod:`repro_torch.scenario`)
+that round-trip as JSON (``scenario``/``to_json``/``from_scenario``), and
+``serve()`` stands up the burst-buffer service (:mod:`repro_torch.bb`) on
+the same spec, with :meth:`ExperimentService.replay` driving the scenario
+through it.  The public members of the reference's ``Experiment`` that are
+not ported yet raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
+that ports them: the batch plane and the workspace (item 8).
 """
 from __future__ import annotations
 
@@ -27,12 +30,15 @@ from typing import Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 
+from .bb.service import BBClient, BBCluster, JobMeta, phase_at
 from .core import metrics
 from .core.engine import EngineConfig, make_workload, run, run_batch
 from .core.params import SchedulerParams
 from .core.policy import Policy
 from .core.scheduler import get_scheduler
-from .scenario.lowering import normalize_phases
+from .scenario import ir as scn_ir
+from .scenario.base import Scenario
+from .scenario.lowering import lower_for_config, normalize_phases
 
 
 def _not_ported(name: str, item: int):
@@ -283,6 +289,111 @@ class SweepResult:
         return int(np.argmax(means) if mode == "max" else np.argmin(means))
 
 
+@dataclasses.dataclass
+class ExperimentService:
+    """The functional-plane side of an :class:`Experiment`: a live
+    :class:`BBCluster` plus one metadata-stamped :class:`BBClient` per
+    declared job (same user/group/size/priority the engine's job table
+    carries), holding the declared job specs so :meth:`replay` can drive
+    the same scenario the engine compiles."""
+
+    cluster: BBCluster
+    clients: list[BBClient]
+    jobs: list = dataclasses.field(default_factory=list)
+
+    def client(self, job: int) -> BBClient:
+        return self.clients[job]
+
+    def drain(self):
+        return self.cluster.drain()
+
+    def replay(self, seconds: float, *, round_s: float = 0.25,
+               reqs_per_round: int = 4,
+               byte_scale: float = 1e-4) -> "ReplayResult":
+        """Drive the declared scenario through the functional plane.
+
+        Walks scenario time in ``round_s`` rounds; every job with a phase
+        covering the round start submits ``reqs_per_round`` writes sized
+        by that phase's ``req_mb`` (scaled by ``byte_scale`` so replays
+        stay cheap — share proportions, the cross-plane observable, don't
+        depend on the absolute byte count), then the round drains through
+        the shared scheduler core.  Within a round, the *completion order*
+        across jobs with queued demand is the same scheduler decision the
+        engine's tick makes — what the cross-plane scenario tests pin."""
+        n_rounds = max(1, int(round(seconds / round_s)))
+        counts = np.zeros((len(self.jobs), n_rounds), np.int32)
+        order: list[list[int]] = []
+        # both planes walk the SAME canonical lowering: these resolved
+        # phases are the ones the engine's [J, P] arrays were built from
+        low = lower_for_config(self.jobs, self.cluster.cfg)
+        slot_of = {c.job.job_id: j for j, c in enumerate(self.clients)}
+        for j, c in enumerate(self.clients):
+            c.open(f"/replay_{j}", "w")
+        self.cluster.drain()
+        for r in range(n_rounds):
+            t0 = r * round_s
+            for j, c in enumerate(self.clients):
+                ph = phase_at(low.phases[j], t0)
+                if ph is None:
+                    continue
+                nbytes = max(1, int(ph["req_mb"] * 1e6 * byte_scale))
+                c.write_burst(f"/replay_{j}", reqs_per_round, nbytes)
+            round_order = []
+            for req in self.cluster.drain():
+                if req.op == "write" and req.job.job_id in slot_of:
+                    j = slot_of[req.job.job_id]
+                    counts[j, r] += 1
+                    round_order.append(j)
+            order.append(round_order)
+        return ReplayResult(counts=counts, order=order, round_s=round_s)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplayResult:
+    """Outcome of :meth:`ExperimentService.replay`: per-round completion
+    counts and, per round, the job index of every completed write in
+    completion order (the drain serves everything queued, so shares live
+    in the *order*, not the counts)."""
+
+    counts: np.ndarray        # i32[n_jobs, n_rounds]
+    order: list               # per round: [job, job, ...] in completion order
+    round_s: float
+
+    @property
+    def n_rounds(self) -> int:
+        return self.counts.shape[1]
+
+    def rounds_between(self, t0: float, t1: float) -> range:
+        return range(int(round(t0 / self.round_s)),
+                     min(int(round(t1 / self.round_s)), self.n_rounds))
+
+    def window_share(self, job: int, t0: float, t1: float,
+                     k: Optional[int] = None) -> float:
+        """Job's mean share of the first ``k`` completions per round over
+        scenario-time window ``[t0, t1)`` (default ``k``: half the round's
+        completions — the span where every submitting job still has queued
+        demand, the engine-comparable regime).  Rounds with no completions
+        are skipped; NaN if the window has none."""
+        shares = []
+        for r in self.rounds_between(t0, t1):
+            seq = self.order[r]
+            if not seq:
+                continue
+            kk = k if k is not None else max(1, len(seq) // 2)
+            head = seq[:kk]
+            shares.append(sum(1 for j in head if j == job) / len(head))
+        return float(np.mean(shares)) if shares else float("nan")
+
+
+def _phase_windows(tree) -> list[float]:
+    """Start times of a single-job combinator tree's phases, in order —
+    how the ``.bursts``/``.ramp`` sugar turns its tree into ``.phase``
+    declarations (the windows come from the same expansion ``lower()``
+    would run, so sugar and hand-built trees can't drift apart)."""
+    return [ph["start_s"] for spec in scn_ir.to_jobs(tree)
+            for ph in spec["phases"]]
+
+
 class Experiment:
     """A policy × scheduler × workload spec run on the port's engine.
     ``add_job``/``add_jobs`` return ``self`` for chaining."""
@@ -346,15 +457,6 @@ class Experiment:
             self.jobs.append(copy.deepcopy(dict(spec)))
         return self
 
-    def phase(self, job=None, **kw):
-        _not_ported("Experiment.phase", 6)
-
-    def bursts(self, job=None, **kw):
-        _not_ported("Experiment.bursts", 6)
-
-    def ramp(self, job=None, **kw):
-        _not_ported("Experiment.ramp", 6)
-
     def _job_index(self, job: Optional[int], method: str) -> int:
         """The job index ``method`` targets: ``job=i`` (range-checked at
         call time) or the most recently declared job."""
@@ -367,6 +469,130 @@ class Experiment:
                 f"{method}(job={job}): experiment declares "
                 f"{len(self.jobs)} job(s) (valid: 0..{len(self.jobs) - 1})")
         return job
+
+    def _add_phase(self, spec: dict, where: str, *, start_s: float,
+                   end_s: Optional[float], duration_s: Optional[float],
+                   **fields) -> None:
+        ph: dict = dict(start_s=start_s)
+        if duration_s is not None:
+            ph["duration_s"] = duration_s
+        if end_s is not None:
+            ph["end_s"] = end_s
+        ph.update({k: v for k, v in fields.items() if v is not None})
+        spec.setdefault("phases", []).append(ph)
+        try:
+            normalize_phases(spec, where)   # windows sorted, modes coherent
+        except Exception:
+            spec["phases"].pop()
+            if not spec["phases"]:
+                del spec["phases"]
+            raise
+
+    def phase(self, job: Optional[int] = None, *, start_s: float,
+              duration_s: Optional[float] = None,
+              end_s: Optional[float] = None,
+              req_mb: Optional[float] = None,
+              think_s: Optional[float] = None,
+              arrival: Optional[str] = None,
+              interval_s: Optional[float] = None,
+              rate_hz: Optional[float] = None) -> "Experiment":
+        """Append one phase to a job (default: the last declared one).
+
+        The first :meth:`phase` call replaces the job's flat
+        ``start_s..end_s`` window with the explicit phase list; omitted
+        fields inherit the job-level ``req_mb``/``think_s``/arrival
+        defaults.  Phases must be declared in start order and must not
+        overlap."""
+        j = self._job_index(job, "phase")
+        self._add_phase(self.jobs[j], f"job {j}",
+                        start_s=start_s, end_s=end_s, duration_s=duration_s,
+                        req_mb=req_mb, think_s=think_s, arrival=arrival,
+                        interval_s=interval_s, rate_hz=rate_hz)
+        return self
+
+    def bursts(self, job: Optional[int] = None, *, period_s: float,
+               duty: float, start_s: float = 0.0, n: Optional[int] = None,
+               end_s: Optional[float] = None,
+               req_mb: Optional[float] = None,
+               think_s: Optional[float] = None,
+               arrival: Optional[str] = None,
+               interval_s: Optional[float] = None,
+               rate_hz: Optional[float] = None) -> "Experiment":
+        """ON/OFF sugar (checkpoint/restart loops): every ``period_s``, an
+        ON window of ``duty * period_s`` seconds, repeated ``n`` times (or
+        until ``end_s``).  Each ON window is one :meth:`phase`; the gaps
+        are idle — the shape behind the paper's opportunity-fairness and
+        §5.5 bursty-application claims."""
+        if not 0.0 < duty <= 1.0:
+            raise ValueError(f"bursts(): duty must be in (0, 1], got {duty}")
+        if (n is None) == (end_s is None):
+            raise ValueError("bursts(): give exactly one of n= or end_s=")
+        if n is None:
+            # every burst whose ON window fits before end_s, including one
+            # that ends exactly there (floor((end-start)/period) would drop
+            # it and could even yield zero phases — leaving the job a flat
+            # full-run loop, the opposite of what was asked)
+            span = end_s - start_s - duty * period_s
+            n = int(span / period_s + 1e-9) + 1 if span >= -1e-9 else 0
+        if n < 1:
+            raise ValueError(
+                f"bursts(): window [{start_s}, {end_s}) is shorter than one "
+                f"{duty * period_s:g} s burst — no phases would be added")
+        j = self._job_index(job, "bursts")
+        # the ON/OFF loop IS shift(repeat(one-burst, n, period)): expand
+        # that combinator tree and declare each resulting window
+        on = scn_ir.leaf(dict(phases=[dict(start_s=0.0,
+                                           duration_s=duty * period_s)]))
+        tree = scn_ir.shift(scn_ir.repeat(on, n, period_s=period_s), start_s)
+        for w in _phase_windows(tree):
+            self._add_phase(self.jobs[j], f"job {j}",
+                            start_s=w, end_s=None,
+                            duration_s=duty * period_s, req_mb=req_mb,
+                            think_s=think_s, arrival=arrival,
+                            interval_s=interval_s, rate_hz=rate_hz)
+        return self
+
+    def ramp(self, job: Optional[int] = None, *, start_s: float,
+             duration_s: float, steps: int = 4,
+             req_mb: Optional[Sequence[float]] = None,
+             think_s: Optional[Sequence[float]] = None,
+             arrival: Optional[str] = None,
+             interval_s: Optional[float] = None,
+             rate_hz: Optional[float] = None) -> "Experiment":
+        """Staircase sugar: ``steps`` back-to-back phases over
+        ``start_s..start_s+duration_s`` with ``req_mb`` and/or ``think_s``
+        interpolated linearly between ``(from, to)`` pairs — a load ramp
+        without hand-writing each step."""
+        if steps < 1:
+            raise ValueError(f"ramp(): steps must be >= 1, got {steps}")
+        if req_mb is None and think_s is None:
+            raise ValueError("ramp(): give req_mb=(from, to) and/or "
+                             "think_s=(from, to)")
+
+        def lerp(pair, i):
+            if pair is None:
+                return None
+            lo, hi = pair
+            frac = i / max(steps - 1, 1)
+            return float(lo) + (float(hi) - float(lo)) * frac
+
+        j = self._job_index(job, "ramp")
+        step_s = duration_s / steps
+        # the staircase IS shift(overlay(shift(step, i*step_s)...), start):
+        # same-identity steps merge into one phased job; the lerped
+        # req/think fields ride on each declared window
+        step = scn_ir.leaf(dict(phases=[dict(start_s=0.0,
+                                             duration_s=step_s)]))
+        tree = scn_ir.shift(
+            scn_ir.overlay(*[scn_ir.shift(step, i * step_s)
+                             for i in range(steps)]), start_s)
+        for i, w in enumerate(_phase_windows(tree)):
+            self._add_phase(self.jobs[j], f"job {j}",
+                            start_s=w, end_s=None,
+                            duration_s=step_s, req_mb=lerp(req_mb, i),
+                            think_s=lerp(think_s, i), arrival=arrival,
+                            interval_s=interval_s, rate_hz=rate_hz)
+        return self
 
     def arrivals(self, *, job: Optional[int] = None,
                  start_s: Optional[float] = None,
@@ -410,15 +636,23 @@ class Experiment:
             raise
         return self
 
-    def scenario(self, name: str = ""):
-        _not_ported("Experiment.scenario", 6)
+    def scenario(self, name: str = "") -> Scenario:
+        """Snapshot the declared jobs as a :class:`repro_torch.scenario.Scenario`
+        (deep copy — later builder calls don't mutate it)."""
+        return Scenario(jobs=copy.deepcopy(self.jobs), name=name)
 
-    def to_json(self, name: str = ""):
-        _not_ported("Experiment.to_json", 6)
+    def to_json(self, name: str = "") -> str:
+        """The declared workload as a scenario JSON trace."""
+        return self.scenario(name).to_json()
 
     @classmethod
-    def from_scenario(cls, scenario, **kw):
-        _not_ported("Experiment.from_scenario", 6)
+    def from_scenario(cls, scenario: Scenario | str, **kw) -> "Experiment":
+        """Build an Experiment running ``scenario`` (a :class:`Scenario` or
+        its JSON text); ``kw`` are the usual constructor arguments
+        (policy, scheduler, params, geometry)."""
+        if isinstance(scenario, str):
+            scenario = Scenario.from_json(scenario)
+        return cls(**kw).add_jobs(copy.deepcopy(scenario.jobs))
 
     @staticmethod
     def batch(queue="bb-heavy", **kw):
@@ -544,5 +778,43 @@ class Experiment:
         clone.jobs = [copy.deepcopy(self.jobs[job])]
         return clone.run(seconds)
 
-    def serve(self, **kw):
-        _not_ported("Experiment.serve (the functional plane)", 8)
+    def serve(self, *, autodrain: bool = True,
+              lam_s: Optional[float] = None,
+              stripes: int = 1) -> ExperimentService:
+        """Stand up the functional plane for this spec: a :class:`BBCluster`
+        driven by the same scheduler object and params, plus one client per
+        declared job (job ids are 1-based to match the service's examples).
+
+        ``lam_s`` (the service's λ-sync cadence) defaults to the engine
+        config's ``sync_ticks × dt``, so both planes sync segments at the
+        same virtual-time cadence unless explicitly overridden."""
+        cfg = self.engine_config()
+        if lam_s is None:
+            lam_s = cfg.sync_ticks * cfg.dt if cfg.sync_ticks > 0 else 0.5
+        cluster = BBCluster(
+            n_servers=self.n_servers,
+            policy=self.policy if self.policy is not None else "job-fair",
+            scheduler=self.scheduler, scheduler_params=self.params,
+            n_workers=self.n_workers, bandwidth=self.server_bw,
+            max_jobs=self._slots(), lam_s=lam_s, seed=self.seed,
+            stripes=stripes, device=self.device)
+        # Same spec, both planes: hand the service the exact engine config
+        # (incl. dt / engine_kw overrides the BBCluster ctor doesn't take),
+        # so e.g. μ boundaries fall at identical virtual times.
+        cluster.cfg = dataclasses.replace(cfg, policy=cluster.cfg.policy)
+        clients = [
+            BBClient(cluster,
+                     JobMeta(job_id=j + 1, user=spec.get("user", 0),
+                             group=spec.get("group", 0),
+                             size=spec.get("size", 1),
+                             priority=spec.get("priority", 1.0)),
+                     autodrain=autodrain)
+            for j, spec in enumerate(self.jobs)]
+        return ExperimentService(cluster=cluster, clients=clients,
+                                 jobs=copy.deepcopy(self.jobs))
+
+
+__all__ = [
+    "Experiment", "ExperimentService", "RunResult", "BatchRunResult",
+    "SweepResult", "ReplayResult",
+]

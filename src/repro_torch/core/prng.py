@@ -126,18 +126,17 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
 # :func:`rejection_iters` from PTRS's rejection share, 30 for 131,072
 # lanes).  A lane still running after the last iteration is reported, not
 # guessed: :func:`poisson` returns an ``unfinished`` flag per key and the
-# engine raises if it is ever set.  ``log`` and ``log1p`` are taken in float64
-# and rounded once (the same bits on the CPU and the card); XLA's float32
-# versions differ from correctly rounded values in the last bit for some
-# inputs.  XLA also contracts two of PTRS's products into fused
-# multiply-adds (``k * log(λ) - λ`` and lgamma's last product), which the
-# port rounds once as well.  A lane whose acceptance test lies within an ulp
-# of its threshold may still be decided otherwise, where ``t`` cancels
-# large terms: over the 4 keys x 2000 lanes per rate of
-# ``tests/test_torch_prng.py``, none below λ = 2e4, 10 lanes at 2e4 and 26
-# at 1e5 (the Knuth lanes' stand-in), counted and named there.  PTRS's
-# result also depends on the iteration at which every lane has accepted,
-# so such a lane can move the others of its shape.
+# engine raises if it is ever set.  ``log`` and ``log1p`` are the float32
+# expansions XLA's CPU backend emits (:func:`log_f32`, :func:`log1p_f32`).
+# XLA also rewrites PTRS's arithmetic before it emits it (read off the
+# optimized HLO of ``jax.random.poisson``): it contracts products into fused
+# multiply-adds (``b``, ``a``, ``k``'s argument, ``k * log(λ) - λ`` and
+# lgamma's last product), folds constants into ``b - 3.4`` and ``b - 2``,
+# and multiplies by ``1 / 7.5`` where lgamma divides; the port takes the
+# same steps.  With these every lane of ``tests/test_torch_prng.py`` (4 keys x
+# 2000 lanes per rate, λ up to 1e5) equals ``jax.random.poisson``.  PTRS's
+# result depends on the iteration at which every lane has accepted, so one
+# lane decided otherwise could move the others of its shape.
 
 _LANCZOS = (676.520368121885098567009190444019,
             -1259.13921672240287047156078755283,
@@ -163,8 +162,104 @@ def _const(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full_like(like, _f32(v))
 
 
-def _log(x: torch.Tensor) -> torch.Tensor:
-    return torch.log(x.to(torch.float64)).to(torch.float32)
+# XLA's CPU backend expands float32 ``log`` itself (read off the LLVM IR of
+# ``jax.jit(jnp.log)``, ``XLA_FLAGS=--xla_dump_to``): Cephes's polynomial on
+# the mantissa in [sqrt(1/2), sqrt(2)) with ``ln 2`` split in two, its
+# multiply-adds contracted into fused ones.  Two contractions the IR leaves
+# open (``x - 0.5 * x2`` and the last ``C1 * e``) cannot change a bit: both
+# products are exact.  Subnormal inputs are read as zero (the CPU runs with
+# denormals-are-zero).
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_C1, _LOG_C2 = 0.693359375, -2.12194440e-4
+_SQRT_HALF = 0.70710678
+_MIN_NORMAL = 2.0 ** -126
+# ``log1p`` for |x| < sqrt(2) - 1: x - x^2 / 2 + x^3 * N(x) / D(x), both
+# polynomials by Horner's rule from the highest coefficient.
+_LOG1P_BELOW = 0.41421357
+_LOG1P_D = (1.0, 15.062909, 83.04757, 221.7624, 309.09872, 216.42789,
+            60.11866)
+_LOG1P_N = (4.527e-05, 0.49854103, 6.5787325, 29.911919, 60.94967,
+            57.112965, 20.039553)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 ``sqrt`` (IEEE's, and XLA's for normal
+    inputs), whatever computes the first guess: torch's CPU ``sqrt`` is an
+    ulp off for some inputs and, on a large tensor, has given one thread's
+    chunk other roundings than the rest.  The guess is moved to the float32
+    nearest the root by comparing ``x`` with the squares of the midpoints
+    beside it, exact in float64 (twice: a guess within two ulps)."""
+    r = torch.sqrt(x)
+    xd = x.to(torch.float64)
+    ok = (x > 0) & (x < float("inf"))
+    inf = torch.full_like(x, float("inf"))
+    for _ in range(2):
+        up = torch.nextafter(r, inf)
+        down = torch.nextafter(r, -inf)
+        rd = r.to(torch.float64)
+        m_up = (rd + up.to(torch.float64)) * 0.5
+        m_down = (rd + down.to(torch.float64)) * 0.5
+        r = torch.where(ok & (xd >= m_up * m_up), up,
+                        torch.where(ok & (xd < m_down * m_down), down, r))
+    return r
+
+
+def _daz(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x.abs() < _MIN_NORMAL, x * 0.0, x)
+
+
+def _log_finite(x: torch.Tensor) -> torch.Tensor:
+    """The expansion for a positive normal float32 ``x`` (anything below
+    the smallest normal, NaN too, is read as the smallest normal)."""
+    x = torch.where(x > _MIN_NORMAL, x, torch.full_like(x, _MIN_NORMAL))
+    bits = x.view(torch.int32)
+    m = ((bits & -0x7F800001) | 0x3F000000).view(torch.float32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    low = m < _f32(_SQRT_HALF)
+    f = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    e = e - low.to(torch.float32)
+    f2 = f * f
+    f3 = f2 * f
+    p = _LOG_P
+    y0, y1, y2 = fma(f, p[0], p[1]), fma(f, p[3], p[4]), fma(f, p[6], p[7])
+    y0, y1, y2 = fma(y0, f, p[2]), fma(y1, f, p[5]), fma(y2, f, p[8])
+    y0 = fma(fma(y0, f3, y1), f3, y2)
+    t = fma(y0, f3, e * _f32(_LOG_C2))
+    return fma(e, _LOG_C1, (f - f2 * 0.5) + t)
+
+
+def _log_special(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    r = torch.where(x == float("inf"), x, r)
+    r = torch.where(x == 0, torch.full_like(x, -float("inf")), r)
+    return torch.where((x < 0) | torch.isnan(x), torch.full_like(x, float("nan")), r)
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` of float32 ``x`` as the reference's compiled code
+    computes it, bit for bit."""
+    x = _daz(x)
+    return _log_special(x, _log_finite(x))
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log1p`` of float32 ``x`` as the reference's compiled code
+    computes it, bit for bit: the rational form near 0, else ``log(1 + x)``
+    by :func:`log_f32`'s expansion."""
+    x = _daz(x)
+    y = x + 1.0
+    big = _log_special(y, _log_finite(y))
+    zero = x * 0.0
+    d = zero + 1.0
+    for c in _LOG1P_D[1:]:
+        d = fma(d, x, c)
+    n = zero + _f32(_LOG1P_N[0])
+    for c in _LOG1P_N[1:]:
+        n = fma(n, x, c)
+    x2 = x * x
+    small = x + fma(x2, -0.5, (x * x2) * (n / d))
+    return torch.where(x.abs() < _f32(_LOG1P_BELOW), small, big)
 
 
 def lgamma(x: torch.Tensor) -> torch.Tensor:
@@ -175,10 +270,10 @@ def lgamma(x: torch.Tensor) -> torch.Tensor:
     for i, c in enumerate(_LANCZOS):
         a = a + _const(c, x) / (z + float(i + 1))
     t = _f32(7.5) + z
-    log_t = _f32(np.log(7.5)) + torch.log1p(
-        (z / _const(7.5, x)).to(torch.float64)).to(torch.float32)
+    # XLA folds the division by 7.5 into a product with its reciprocal.
+    log_t = _f32(np.log(7.5)) + log1p_f32(z * _f32(1 / 7.5))
     half_log_2pi = torch.full_like(x, _f32((np.log(2.0) + np.log(np.pi)) / 2))
-    return fma((z + 0.5) - t / log_t, log_t, half_log_2pi) + _log(a)
+    return fma((z + 0.5) - t / log_t, log_t, half_log_2pi) + log_f32(a)
 
 
 def _key_chain(key: torch.Tensor, n_iters: int, n_sub: int):
@@ -199,7 +294,7 @@ def _flat(x: torch.Tensor, lead: int) -> torch.Tensor:
 def _poisson_knuth(key, lam, n_iters: int):
     lead = key.dim() - 1
     u = uniform(_key_chain(key, n_iters, 1)[:, 0], lam.shape[lead:])
-    log_u = _log(u)
+    log_u = log_f32(u)
     k = torch.zeros(lam.shape, dtype=torch.int32, device=lam.device)
     log_prod = torch.zeros_like(lam)
     for i in range(n_iters):
@@ -215,27 +310,34 @@ def _poisson_rejection(key, lam, n_iters: int):
     keys = _key_chain(key, n_iters, 2)
     us = uniform(keys[:, 0], shape) - 0.5
     vs = uniform(keys[:, 1], shape)
-    log_lam = _log(lam)
-    b = 0.931 + 2.53 * torch.sqrt(lam)
-    a = -0.059 + 0.02483 * b
-    inv_alpha = 1.1239 + _const(1.1328, b) / (b - 3.4)
-    v_r = 0.9277 - _const(3.6224, b) / (b - 2)
+    log_lam = log_f32(lam)
+    # XLA contracts b's product and a's into fused multiply-adds, and folds
+    # the constants of ``b - 3.4`` and ``b - 2`` into b's.
+    sqrt_lam = sqrt_f32(lam)
+    b = fma(sqrt_lam, 2.53, 0.931)
+    a = fma(b, 0.02483, -0.059)
+    inv_alpha = 1.1239 + _const(1.1328, b) / fma(
+        sqrt_lam, 2.53, _f32(_f32(0.931) - _f32(3.4)))
+    v_r = 0.9277 - _const(3.6224, b) / fma(
+        sqrt_lam, 2.53, _f32(_f32(0.931) - 2.0))
+    # No iteration's candidate depends on an earlier one's, so every
+    # iteration's k, s and t are taken at once over ``[n_iters, ...]``; only
+    # the acceptance walks the iterations.
+    u_shifted = 0.5 - us.abs()
+    k = torch.floor(fma(2 * a / u_shifted + b, us, lam) + 0.43)
+    s = log_f32(vs * inv_alpha / (a / (u_shifted * u_shifted) + b))
+    t = fma(k, log_lam, -lam) - lgamma(k + 1)
+    accept1 = (u_shifted >= 0.07) & (vs <= v_r)
+    reject = (k < 0) | ((u_shifted < 0.013) & (vs > u_shifted))
+    accepts = accept1 | (~reject & (s <= t))
     k_out = torch.full_like(lam, -1.0)
     accepted = torch.zeros(lam.shape, dtype=torch.bool, device=lam.device)
     for i in range(n_iters):
-        u, v = us[i], vs[i]
-        u_shifted = 0.5 - u.abs()
-        k = torch.floor((2 * a / u_shifted + b) * u + lam + 0.43)
-        s = _log(v * inv_alpha / (a / (u_shifted * u_shifted) + b))
-        t = fma(k, log_lam, -lam) - lgamma(k + 1)
-        accept1 = (u_shifted >= 0.07) & (v <= v_r)
-        reject = (k < 0) | ((u_shifted < 0.013) & (v > u_shifted))
-        accept = accept1 | (~reject & (s <= t))
         # The reference's loop has stopped for this key once every lane
         # accepted: later iterations change nothing.
         running = ~_flat(accepted, lead).all(dim=-1)
-        accept = accept & running.reshape(running.shape + (1,) * len(shape))
-        k_out = torch.where(accept, k, k_out)
+        accept = accepts[i] & running.reshape(running.shape + (1,) * len(shape))
+        k_out = torch.where(accept, k[i], k_out)
         accepted = accepted | accept
     return k_out.to(torch.int32), ~_flat(accepted, lead).all(dim=-1)
 

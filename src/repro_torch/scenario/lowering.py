@@ -1,11 +1,20 @@
-"""Lowering of job spec dicts to the validated ``[J, P]`` phase arrays.
+"""The port's lowering pipeline: job specs / combinator trees -> validated
+``[J, P]`` phase arrays.
 
-The port's own copy of the reference's ``repro.scenario.lowering`` for lists
-of job spec dicts (``JOB_SPEC_KEYS`` vocabulary): the same validation, the
-same seconds-domain phase resolution and the same arrays, bit for bit, so
-both engines run from identical workloads.  Combinator trees and
-``Scenario`` objects are not ported yet and raise ``NotImplementedError``.
-Numpy only.
+The port's own copy of the reference's ``scenario/lowering.py``: the same
+vocabulary, validation, seconds-domain phase resolution and arrays, bit for
+bit, so both engines run from identical workloads.  Every construction path
+-- flat spec dicts, the Experiment builder's ``.phase/.bursts/.ramp`` sugar,
+:class:`~repro_torch.scenario.Scenario` JSON, the preset library, the trace
+importer and combinator trees (:mod:`repro_torch.scenario.ir`) -- funnels
+through :func:`lower`:
+
+    source -> job spec dicts -> normalize_phases() -> [J, P] arrays
+
+The engine (``repro_torch.core.engine.make_workload``) and the burst-buffer
+service's scenario replay consume it.  Two sources that lower to identical
+arrays (plus identical job-table attributes, :meth:`LoweredScenario.canonical`)
+are the same scenario.  Numpy only.
 """
 from __future__ import annotations
 
@@ -22,8 +31,8 @@ ARRIVAL_CLOSED, ARRIVAL_INTERVAL, ARRIVAL_POISSON = 0, 1, 2
 ARRIVAL_MODES = {"closed": ARRIVAL_CLOSED, "interval": ARRIVAL_INTERVAL,
                  "poisson": ARRIVAL_POISSON}
 
-#: The job-spec vocabulary :func:`lower` (and the Experiment builder)
-#: accept.  Anything else is a typo and raises ``TypeError``.
+#: The job-spec vocabulary :func:`lower` (and the Experiment builder /
+#: Scenario JSON) accept.  Anything else is a typo and raises ``TypeError``.
 JOB_SPEC_KEYS = frozenset({
     "user", "group", "size", "priority", "procs", "req_mb", "start_s",
     "end_s", "think_s", "servers", "overhead_us", "phases", "arrival",
@@ -35,6 +44,8 @@ PHASE_SPEC_KEYS = frozenset({
     "interval_s", "rate_hz"})
 
 #: A flat spec with no ``end_s`` runs "forever": this sentinel (seconds).
+#: Combinators that need a bounded span (``repeat``/``concat``) reject
+#: fragments whose phases end at/after it.
 OPEN_END_S = 1e9
 
 
@@ -140,10 +151,17 @@ def ticks_i32(seconds: float, dt: float) -> int:
     return int(min(round(seconds / dt), I32_TICK_HORIZON))
 
 
+#: The canonical array fields, in hashing order.
+ARRAY_FIELDS = ("phase_start", "phase_end", "phase_req", "phase_think",
+                "arrival_mode", "arrival_every", "arrival_rate",
+                "procs", "overhead_s")
+
+
 class LoweredScenario(NamedTuple):
-    """Job specs lowered to the validated ``[J, P]`` arrays (numpy — the
-    engine moves them onto its device as a ``Workload``) plus the per-job
-    table attributes and the resolved seconds-domain phase lists."""
+    """A scenario lowered to its canonical form: the validated ``[J, P]``
+    arrays (numpy — the engine moves them onto its device as a ``Workload``)
+    plus the per-job table attributes and the resolved seconds-domain
+    phase lists (what the service plane's replay walks)."""
 
     jobs: list                 # the source job spec dicts
     phases: tuple              # per job: tuple of resolved phase dicts
@@ -162,28 +180,42 @@ class LoweredScenario(NamedTuple):
     def n_jobs(self) -> int:
         return len(self.jobs)
 
+    def canonical(self) -> dict:
+        """The content a scenario *is*, independent of how it was spelled:
+        the lowered arrays plus the job-table attributes.  Two sources
+        (flat dicts, sugar, a combinator tree) with equal canonical forms
+        run bit-identically — feed this through the workspace's
+        bit-identical ndarray codec (``encode_payload``) to key caches."""
+        return {
+            "arrays": {f: getattr(self, f) for f in ARRAY_FIELDS},
+            "attrs": [[int(u), int(g), int(s), float(p)]
+                      for u, g, s, p in self.attrs],
+        }
+
 
 def resolve_jobs(source, where: str = "job") -> list[dict]:
-    """The job spec dict list of ``source``: a sequence of dicts.  A single
-    dict is a ``TypeError``; combinator trees and ``Scenario`` objects are
-    not ported yet."""
+    """Normalize any scenario source to its job spec dict list.
+
+    Accepts a combinator tree (:class:`~repro_torch.scenario.ir.ScenarioNode`),
+    a :class:`~repro_torch.scenario.Scenario` (anything with a ``jobs`` list),
+    or a plain sequence of job spec dicts.
+    """
+    from .ir import ScenarioNode, to_jobs
+    if isinstance(source, ScenarioNode):
+        return to_jobs(source)
+    if hasattr(source, "jobs") and not isinstance(source, Mapping):
+        return list(source.jobs)
     if isinstance(source, Mapping):
         raise TypeError(
-            f"{where}: expected a sequence of job spec dicts — got a single "
-            f"dict (wrap it in a list)")
-    if isinstance(source, (list, tuple)) and all(
-            isinstance(s, Mapping) for s in source):
-        return list(source)
-    raise NotImplementedError(
-        f"{where}: scenario sources other than a list of job spec dicts "
-        f"(combinator trees, Scenario objects; got {type(source).__name__}) "
-        f"are not ported to repro_torch yet (ROADMAP.md section 1, item 6)")
+            f"{where}: expected a ScenarioNode, a Scenario, or a sequence "
+            f"of job spec dicts — got a single dict (wrap it in a list)")
+    return list(source)
 
 
 def lower(source, *, dt: float = 1e-3, n_servers: int = 1,
           max_jobs: Optional[int] = None, ring_cap: int = 512,
           ) -> LoweredScenario:
-    """Job spec dicts -> the validated ``[J, P]`` arrays.
+    """THE lowering entry point: any scenario source -> canonical arrays.
 
     ``dt``/``n_servers``/``max_jobs``/``ring_cap`` are the geometry the
     arrays are shaped for (the matching ``EngineConfig`` fields); every

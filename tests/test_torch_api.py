@@ -1,9 +1,11 @@
-"""The port's facade refuses what it has not ported yet.
+"""The port's facade against the reference's, and what it still refuses.
 
 Every public member of the reference's ``RunResult``, ``BatchRunResult``,
 ``SweepResult`` and ``Experiment`` exists on the port's classes; those not
 ported raise ``NotImplementedError`` naming themselves and the
 ``ROADMAP.md`` item that ports them, never ``AttributeError``."""
+import json
+
 import numpy as np
 import pytest
 
@@ -11,12 +13,33 @@ import repro.api as ref_api
 from repro_torch import api
 
 #: (class, member, arguments) of each member the port refuses.
-REFUSED = [
-    ("Experiment", "phase", ()), ("Experiment", "bursts", ()),
-    ("Experiment", "ramp", ()),
-    ("Experiment", "scenario", ()), ("Experiment", "to_json", ()),
-    ("Experiment", "from_scenario", ("{}",)), ("Experiment", "batch", ()),
-    ("Experiment", "serve", ()),
+REFUSED = [("Experiment", "batch", ())]
+
+
+def _spec(mod, **kw):
+    return (mod.Experiment(policy="job-fair", scheduler="fifo", n_workers=2,
+                           **kw)
+            .add_job(user=0, procs=4, req_mb=5, end_s=0.6)
+            .add_job(user=1, procs=4, req_mb=2))
+
+
+#: (class, member, call) of each member this slice ported: ``call(spec)``
+#: on an Experiment of the reference and of the port gives the same result.
+PORTED = [
+    ("Experiment", "phase", lambda e: e.phase(start_s=0.0, end_s=0.2)
+     .phase(start_s=0.3, duration_s=0.1, req_mb=1.0).jobs),
+    ("Experiment", "bursts",
+     lambda e: e.bursts(period_s=0.2, duty=0.25, n=3).jobs),
+    ("Experiment", "ramp", lambda e: e.ramp(
+        start_s=0.1, duration_s=0.4, steps=3, req_mb=(1.0, 4.0)).jobs),
+    ("Experiment", "scenario",
+     lambda e: e.bursts(period_s=0.3, duty=0.5, n=2).scenario("s").to_json()),
+    ("Experiment", "to_json", lambda e: e.to_json("t")),
+    ("Experiment", "from_scenario", lambda e: type(e).from_scenario(
+        e.to_json("f"), policy="job-fair").jobs),
+    ("Experiment", "serve", lambda e: [
+        (c.job.job_id, c.job.user, e.serve(lam_s=0.1).cluster.lam_s)
+        for c in e.serve().clients]),
 ]
 
 
@@ -43,6 +66,14 @@ def test_unported_members_refuse(cls, member, args):
            .add_job(user=0))
     with pytest.raises(NotImplementedError, match=member):
         getattr(obj, member)(*args)
+
+
+@pytest.mark.parametrize("cls,member,call", PORTED,
+                         ids=[f"{c}.{m}" for c, m, _ in PORTED])
+def test_ported_members_match_reference(cls, member, call):
+    want = call(_spec(ref_api))
+    got = call(_spec(api, device="cpu"))
+    assert json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True)
 
 
 def test_workspace_runs_refuse():

@@ -394,3 +394,76 @@ def test_recurrent_models_on_card_match_cpu(card):
     kernels and flash) and 3 decode steps, logits within 1e-3 of the
     CPU's."""
     smoke.phase_ssm_card_vs_cpu("cuda", seq=700, steps=3)
+
+
+@pytest.mark.parametrize("j", [2, 8, 33])
+def test_token_select_one_row_one_draw(card, j):
+    """The service's shape: one ``[1, J]`` row and one draw per launch."""
+    for seed in range(16):
+        shares, qcount, _, _, u = inputs(1, j, 1, seed, card)
+        got = tk_ops.token_select(shares, qcount, u)
+        lines, _ = parity.compare_token_select(
+            got, token_select_ref(shares, qcount, u), shares, qcount, u)
+        assert not lines, lines
+
+
+def test_service_on_card_matches_cpu(card):
+    """The presets replayed through the service on the card and on the CPU:
+    counts and completion order equal (a themis pick apart only in the edge
+    band), one token_select launch per themis pop, and the cross-plane
+    ON/OFF shares within the reference's bounds."""
+    launched, record, _ = smoke.phase_service("cuda", seconds=3.0,
+                                              reqs_per_round=4, reps=5)
+    assert launched > 0 and record["service_shape"] == [1, 8]
+
+
+@pytest.mark.parametrize("scheduler", ("themis", "fifo"))
+def test_scenario_run_on_card_matches_cpu(card, scheduler):
+    """A phased preset (the burster idle in the middle third), compressed
+    to 0.6 s and stepped on the card and on the CPU in lockstep: every
+    integer counter equal at every tick, or equal up to a first flipped
+    themis pick that ``parity.edge_band`` excuses (its draws counted);
+    fifo never differs."""
+    from repro_torch.api import Experiment
+    from repro_torch.scenario import PRESET_SECONDS, Scenario, preset, scale
+    tree = scale(preset("bursty-interferer").tree, time=0.6 / PRESET_SECONDS)
+
+    def make(dev):
+        return Experiment.from_scenario(
+            Scenario(tree=tree), policy="job-fair", scheduler=scheduler,
+            n_workers=2, device=dev)
+
+    flip, why, got, want = smoke.lockstep(scheduler, "fused", card, 600,
+                                          make=make)
+    assert want.t == 600 and int(want.completed[:, 1].sum()) > 0
+    excused = 0 if why is None else why.count(", draw ")
+    print(f"{scheduler}: first flipped tick {flip}, edge-band draws "
+          f"excused {excused}: {why}")
+    if flip is None:
+        assert smoke.int_leaves_equal(got, want) is None
+    else:
+        assert scheduler == "themis" and excused >= 1
+
+
+def test_poisson_and_log_on_card_equal_cpu(card):
+    """XLA's float32 log/log1p expansions and the Poisson sampler at the
+    rates of tests/test_torch_prng.py (2e4 and 1e5 included) give the same
+    bits on the card as on the CPU, which equal jax's there."""
+    from repro_torch.core import prng
+    x = np.arange(0, 2 ** 32, 4093, dtype=np.uint64).astype(np.uint32).view(
+        np.float32)
+    xt = torch.from_numpy(x.copy())
+    for fn in (prng.log_f32, prng.log1p_f32):
+        a, b = fn(xt.to(card)).cpu().numpy(), fn(xt).numpy()
+        same = (a.view(np.uint32) == b.view(np.uint32)) | (
+            np.isnan(a) & np.isnan(b))
+        assert same.all(), x[~same][:10]
+    rates = (0.0, 0.05, 0.7, 3.0, 9.9, 10.0, 10.5, 37.0, 400.0, 2e4, 1e5)
+    lam = torch.tensor(rates, dtype=torch.float32)[:, None].repeat(1, 2000)
+    for seed in (0, 7):
+        kw = dict(knuth_iters=prng.poisson_iters(9.9, 5 * 2000),
+                  rejection_iters=prng.rejection_iters(lam.numel()))
+        got, unf = prng.poisson(prng.PRNGKey(seed, card), lam.to(card), **kw)
+        want, _ = prng.poisson(prng.PRNGKey(seed), lam, **kw)
+        assert not bool(unf)
+        assert int((got.cpu() != want).sum()) == 0

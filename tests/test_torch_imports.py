@@ -64,11 +64,13 @@ def test_cuda_without_a_card_raises(no_card):
 
 
 def test_unported_features_refuse():
-    """Fleet sharding and scenario trees are refused; the six schedulers,
-    Poisson phases and run_batch run."""
+    """Fleet sharding and the batch plane are refused; the six schedulers,
+    Poisson phases, run_batch, scenario trees and the service run."""
     from repro_torch.api import Experiment
+    from repro_torch.bb.service import BBCluster
     from repro_torch.core import engine
     from repro_torch.core.policy import Policy
+    from repro_torch.scenario import Scenario, leaf, repeat
     from repro_torch.scenario.lowering import lower
     for name in ("themis", "fifo", "gift", "tbf", "adaptbf", "plan"):
         engine.EngineConfig(scheduler=name, device="cpu")
@@ -76,8 +78,17 @@ def test_unported_features_refuse():
         engine.EngineConfig(scheduler="fiffo", device="cpu")
     with pytest.raises(NotImplementedError, match="sharding"):
         engine.EngineConfig(scheduler="fifo", shard_servers=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="combinator"):
+    with pytest.raises(NotImplementedError, match="sharding"):
+        BBCluster(mesh_shape=(2, 1), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Experiment.batch()
+    with pytest.raises(TypeError):
         lower(object())
+    tree = repeat(leaf(dict(procs=4, phases=[dict(start_s=0.0,
+                                                  duration_s=0.01)])), 2,
+                  period_s=0.02)
+    assert lower(tree).phase_start.shape == (1, 2)
+    assert lower(Scenario(tree=tree)).phases == lower(tree).phases
     cfg = engine.EngineConfig(scheduler="themis", policy=Policy.parse("job-fair"),
                               device="cpu", n_servers=1, max_jobs=4)
     wl, table = engine.make_workload(cfg, [dict(procs=4, arrival="poisson",
@@ -86,6 +97,39 @@ def test_unported_features_refuse():
     res = Experiment(scheduler="fifo", device="cpu").add_job(
         procs=4).run_batch(0.01, seeds=(0, 1))
     assert res.completed.shape[0] == 2
+
+
+def test_service_modules_and_pins_load_without_jax():
+    """The scenario package, the trace importer, the file system and the
+    service import with ``jax`` blocked, and the port reads the lowering
+    pins of ``tests/data`` (numpy only) to the reference's arrays."""
+    code = r"""
+import base64, json, sys
+sys.modules["jax"] = None
+import numpy as np
+from repro_torch import bb, fs, scenario
+from repro_torch.api import Experiment
+from repro_torch.scenario import trace
+assert trace.TRACE_FIELDS == scenario.TRACE_FIELDS
+pins = json.load(open("tests/data/lowering_pins.json"))
+case = pins["preset-bursty-interferer"]
+exp = Experiment.from_scenario(scenario.preset("bursty-interferer"),
+                               policy="job-fair", n_workers=2, device="cpu")
+wl = exp.build()[1]
+for name, arr in case["arrays"].items():
+    nd = arr["__ndarray__"]
+    want = np.frombuffer(base64.b64decode(nd["data"]), nd["dtype"])
+    assert (getattr(wl, name).numpy() == want.reshape(nd["shape"])).all()
+c = bb.BBCluster(n_servers=2, device="cpu")
+assert c.fs.ring.server_of("/x") in (0, 1)
+print(sorted(m for m in sys.modules if m.startswith(("repro.", "jax"))
+             and sys.modules[m] is not None))
+"""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_kernel_wrappers_refuse_bf16_and_bad_shapes():

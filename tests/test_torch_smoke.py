@@ -29,6 +29,23 @@ def test_lockstep_cpu_against_cpu_never_differs(scheduler, impl):
     assert (engine.tick_step, tokens.token_select) == saved   # unpatched
 
 
+def test_lockstep_takes_a_phased_preset():
+    """``make=`` steps any Experiment: a phased preset, CPU against CPU."""
+    from repro_torch.api import Experiment
+    from repro_torch.scenario import PRESET_SECONDS, Scenario, preset, scale
+    tree = scale(preset("bursty-interferer").tree, time=0.1 / PRESET_SECONDS)
+
+    def make(dev):
+        return Experiment.from_scenario(
+            Scenario(tree=tree), policy="job-fair", scheduler="themis",
+            n_workers=2, device=dev)
+
+    flip, why, a, b = smoke.lockstep("themis", "fused", "cpu", 100, make=make)
+    assert (flip, why) == (None, None) and a.t == b.t == 100
+    assert int(b.completed[:, 1].sum()) > 0
+    assert smoke.int_leaves_equal(a, b) is None
+
+
 def draw_call(shares, qcount, u, picks):
     return ("token_select", [shares, qcount, u],
             [torch.tensor(picks, dtype=torch.int32)], "themis")

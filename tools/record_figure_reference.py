@@ -1,5 +1,5 @@
-"""Record the JAX reference's Fig. 8 and Fig. 12 rows for the port to be
-held to.
+"""Record the JAX reference's Fig. 8 and Fig. 12 rows (and, with
+``--scen``, its scenario rows) for the port to be held to.
 
 Runs the reference's own row functions (``benchmarks/bench_policies.py``
 ``run_fig8`` with its 8d table, ``benchmarks/bench_comparison.py``
@@ -13,6 +13,14 @@ this tool.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/record_figure_reference.py \\
         --seconds 2 --seeds 8
+
+``--scen`` runs the reference's ``benchmarks/bench_scenarios.py``
+``run_scen`` instead (one seed per run, ``--seconds`` as its
+``BENCH_SECONDS``) and writes ``src/repro_torch/bench/scen_reference.json``:
+per row its ``derived`` text and the number it leads with.
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tools/record_figure_reference.py \\
+        --scen --seconds 1.6
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 OUT = REPO / "src" / "repro_torch" / "bench" / "fig_reference.json"
+SCEN_OUT = OUT.with_name("scen_reference.json")
 
 
 def stats_per_row(name: str) -> int:
@@ -77,15 +86,43 @@ def assign(rows, log) -> dict:
     return out
 
 
+def record_scen(seconds: float, out: Path) -> int:
+    import jax
+    from benchmarks import bench_scenarios
+
+    t0 = time.time()
+    rows = bench_scenarios.run_scen()
+    doc = {
+        "seconds": seconds,
+        "jax": jax.__version__,
+        "backend": jax.default_backend(),
+        "command": ("JAX_PLATFORMS=cpu PYTHONPATH=src python "
+                    f"tools/record_figure_reference.py --scen --seconds "
+                    f"{seconds:g}"),
+        "wall_s": round(time.time() - t0, 1),
+        "rows": {name: {"derived": derived,
+                        "value": float(derived.split()[0].rstrip("x"))}
+                 for name, _, derived in rows},
+    }
+    out.write_text(json.dumps(doc, indent=1) + "\n")
+    print(f"wrote {len(doc['rows'])} rows to {out} in {doc['wall_s']} s")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seconds", type=float, default=2.0)
     ap.add_argument("--seeds", type=int, default=8)
-    ap.add_argument("--out", type=Path, default=OUT)
+    ap.add_argument("--scen", action="store_true",
+                    help="record the scenario rows instead")
+    ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     os.environ["BENCH_SECONDS"] = str(args.seconds)
     os.environ["BENCH_SEEDS"] = str(args.seeds)
     sys.path.insert(0, str(REPO))
+    if args.scen:
+        return record_scen(args.seconds, args.out or SCEN_OUT)
+    args.out = args.out or OUT
     import jax
     from benchmarks import bench_comparison, bench_policies
 
