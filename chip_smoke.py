@@ -16,14 +16,15 @@ each printing its lines before the last:
                 ``repro_torch.api.Experiment``: themis and fifo on the fused
                 path, themis on the per-worker scan path; every kernel launch
                 counter is zeroed before and read after
-  fused_vs_scan themis at S=8, J=64, W=4 for 2000 ticks on both worker
+  fused_vs_scan themis at S=8, J=64, W=4 for 1000 ticks on both worker
                 paths: integer state bit-identical
   card_vs_cpu   the engine on the card against the engine on the CPU (held
                 to the JAX reference by tests/test_torch_engine.py), stepped
-                in lockstep at a small geometry on both worker paths: fifo
-                counter-exact on every tick; themis counter-exact until its
-                first flipped pick, which must be an edge-band draw (its
-                tick is printed), then per-job completions within 2 %
+                in lockstep at a small geometry on both worker paths for
+                500 ticks: fifo counter-exact on every tick; themis
+                counter-exact until its first flipped pick, which must be an
+                edge-band draw (its tick is printed), then per-job
+                completions within 2 %
   anchor        paper Fig. 8a (size-fair, 224 vs 56 procs): shared-window
                 throughput ratio in [3.6, 4.4] (paper: 3.96)
   schedulers    gift, tbf, adaptbf and plan (the schedulers with no kernel
@@ -33,7 +34,7 @@ each printing its lines before the last:
                 token_select counters read 0 for the four, and themis/fifo
                 fused launch tick_step once per tick
   schedulers_card_vs_cpu  each of the four on the card against the CPU in
-                lockstep at the card_vs_cpu geometry for 500 ticks (μ = 50
+                lockstep at the card_vs_cpu geometry for 250 ticks (μ = 50
                 ticks): counter-exact until a first flipped pick, which
                 must be an edge-band draw of the weighted pick
   batch         run_batch at the fleet geometry over 8 seeds for themis
@@ -52,7 +53,7 @@ each printing its lines before the last:
                 count equal (the mismatch rate and each differing lane
                 printed)
   figures       the paper's Fig. 8 a-c rows (themis) and Fig. 12 rows (all
-                six schedulers) through repro_torch.bench at 2 s and 8
+                six schedulers) through repro_torch.bench at 1 s and 8
                 seeds, each seed batch one run_batch; every mean held to
                 src/repro_torch/bench/fig_reference.json (the JAX
                 reference's rows at the same duration and seeds) within
@@ -87,6 +88,27 @@ each printing its lines before the last:
                 pops (counted around each replay), pops per second on
                 both; token_select at the service's [1, J] shape against
                 its plain version on recorded draws, timed beside its bound
+  batch_plane   the batch plane's rows of repro_torch.bench.batch (the
+                reference's benchmarks/bench_batch.py at its own width: the
+                bb-heavy, longtail and mixed queues of 24 jobs, seeds 0-3,
+                fcfs, easy and the plan annealer at 300 steps x 2
+                restarts): every start vector valid, every fcfs, easy and
+                plan start and plan order equal to the CPU's bit for bit
+                (else the first differing annealing step is printed), every
+                row's text equal to src/repro_torch/bench/batch_reference.json;
+                the bridge row runs the bb-heavy plan timeline on the engine
+                (themis, 2 servers) for 2 s (cut from the timeline's 8 s),
+                one tick_step launch per tick; ms per anneal, per
+                schedule_order evaluation, launches per anneal, bridge
+                ms/tick
+  workspace     docs/workspace.md's example at EXAMPLE_SECONDS = 1 (adaptbf,
+                a 2 x 2 grid, seeds 0 and 1) into a temporary workspace: a
+                plain sweep, then max_chunks=1 stops after 2 points, the
+                resume computes the other 2, a third run reuses all 4, and
+                both merged sweeps equal the plain one bit for bit; a themis
+                solo at the figures' geometry cached in the workspace: the
+                first call launches tick_step once per tick, the second
+                none, with the same result
   serve         h2o-danube-1.8b at full width and depth in bf16 (random
                 weights from a seed): batched prefill of 2 x 6000 tokens
                 (past block_q and the 4096 window) through
@@ -540,7 +562,7 @@ def phase_engine(device, geometry=FLEET, seconds=FLEET_SECONDS):
                           scan_ms_per_tick=wall_scan / ticks * 1e3)
 
 
-def phase_fused_vs_scan(device, s=8, j=64, w=4, ticks=2000):
+def phase_fused_vs_scan(device, s=8, j=64, w=4, ticks=1000):
     import torch
     from repro_torch.api import Experiment
     from repro_torch.kernels.token_select import ops as tk_ops
@@ -675,7 +697,7 @@ def lockstep(scheduler, impl, device, ticks, make=None):
     return flip, why, st_d, st_c
 
 
-def phase_card_vs_cpu(device, ticks=1000):
+def phase_card_vs_cpu(device, ticks=500):
     import torch
     for scheduler in ("fifo", "themis"):
         for impl in ("fused", "scan"):
@@ -859,7 +881,7 @@ def explain_pick(card_calls, cpu_calls) -> str:
                          "pick agreed")
 
 
-def phase_schedulers_card_vs_cpu(device, ticks=500, mu_ticks=50):
+def phase_schedulers_card_vs_cpu(device, ticks=250, mu_ticks=50):
     import torch
     from repro_torch.api import Experiment
     from repro_torch.core import baselines, engine
@@ -1125,7 +1147,7 @@ def recording_batches(log):
     return inner, wrapper
 
 
-def phase_figures(device, seconds=2.0, n_seeds=8):
+def phase_figures(device, seconds=1.0, n_seeds=8):
     """Fig. 8 a-c and Fig. 12 on the card against the reference's rows;
     returns the launches of each fused mode and the rows."""
     from repro_torch.api import Experiment
@@ -1438,6 +1460,262 @@ def phase_service(device, *, seconds=None, round_s=0.25, reqs_per_round=4,
                   service_bound_ms=b, service_bound_by=by,
                   service_launches=launched)
     return launched, record, pops_s
+
+
+# -- the batch plane and the workspace ------------------------------------------
+
+def count_ops(fn):
+    """``(fn(), ops launched, ops captured)``: the torch ops that produced
+    CUDA tensors while ``fn`` ran (views and bare allocations not
+    counted), about one kernel each, split into those run at once and
+    those recorded into a CUDA graph, which launch only when it replays."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    no_launch = {torch.ops.aten.empty.memory_format,
+                 torch.ops.aten.empty_strided.default}
+
+    class Counter(TorchDispatchMode):
+        n = [0, 0]
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            if (not func.is_view and func not in no_launch
+                    and any(torch.is_tensor(o) and o.is_cuda for o in outs)):
+                Counter.n[torch.cuda.is_current_stream_capturing()] += 1
+            return out
+
+    with Counter():
+        out = fn()
+    return out, Counter.n[0], Counter.n[1]
+
+
+def explain_plan(device, preset, seed, n_jobs, params) -> str:
+    """The first annealing step whose values differ between ``device`` and
+    the CPU, with its c_prop, cost, temp, uniform and exp on both (on the
+    card recorded by the same CUDA graph the timed anneal replays)."""
+    import torch
+    from repro_torch.batch import queue_preset
+    from repro_torch.batch.plan import RECORD_FIELDS, anneal, plan_window
+    from repro_torch.batch.sim import arrival_order, queue_columns
+    q = queue_preset(preset, n_jobs=n_jobs, seed=seed)
+    recs = {}
+    for dev in (device, "cpu"):
+        order0 = torch.from_numpy(arrival_order(q)).to(dev)
+        *_, recs[dev] = anneal(order0, queue_columns(q, dev),
+                               q.cluster.n_nodes, q.cluster.bb_total, params,
+                               seed, plan_window(q, params), record=True)
+    for step in range(params.sa_steps):
+        for f in RECORD_FIELDS:
+            if not torch.equal(recs[device][f][step].cpu(),
+                               recs["cpu"][f][step]):
+                vals = {dev: {g: recs[dev][g][step].tolist()
+                              for g in RECORD_FIELDS} for dev in recs}
+                return f"first differing step {step} ({f}): {vals}"
+    return "every recorded step equal (the difference is after the anneal)"
+
+
+def phase_batch_plane(device, seconds=None, seeds=None, n_jobs=None,
+                      sa_steps=None, reps=20):
+    """bench/batch.py's rows on the card: every start vector valid, every
+    fcfs / easy / plan start and plan order equal to the CPU's bit for bit,
+    every row's text equal to batch_reference.json, one tick_step launch
+    per tick of the bridge run; ms per anneal, per schedule_order
+    evaluation, the launches per anneal and the bridge's ms/tick.  Returns
+    (the bridge run's tick_step launches, those metrics)."""
+    import numpy as np
+    import torch
+    from repro_torch.batch import BatchExperiment, PlanOptParams
+    from repro_torch.batch.bridge import to_experiment as bridge_experiment
+    from repro_torch.batch.plan import anneal, plan_window
+    from repro_torch.batch.sim import (arrival_order, queue_columns,
+                                       schedule_order, validate_schedule)
+    from repro_torch.bench import batch as bench
+    ref = bench.load_reference()
+    seconds = bench.BENCH_SECONDS if seconds is None else seconds
+    seeds = bench.BENCH_SEEDS if seeds is None else tuple(seeds)
+    n_jobs = bench.BENCH_JOBS if n_jobs is None else n_jobs
+    sa_steps = bench.BENCH_STEPS if sa_steps is None else sa_steps
+    full = (seconds, list(seeds), n_jobs, sa_steps) == (
+        ref["seconds"], ref["seeds"], ref["n_jobs"], ref["sa_steps"])
+
+    card: dict = {}
+    synced(device)
+    reset_launches()
+    rows = bench.run_batch(seconds, seeds, n_jobs=n_jobs, sa_steps=sa_steps,
+                           device=device, results=card)
+    launches = read_launches()
+    # The bridge run is the path's one kernel: one fused themis tick_step
+    # launch per tick (fcfs, easy and plan launch no kernel of the port).
+    plan0 = card[("bb-heavy", seeds[0], "plan")][0]
+    exp, horizon = bridge_experiment(plan0.queue, plan0.start, device=device)
+    ticks = int(round(min(horizon, seconds) / exp.engine_config().dt))
+    expect_launches("batch_plane bridge", device, launches,
+                    {"tick_step": ticks, "token_select": 0})
+    params = PlanOptParams(sa_steps=sa_steps)
+    failed = []
+    for (preset, seed, pol), (res, _) in card.items():
+        validate_schedule(res.queue, res.start)
+    for preset in bench.PRESETS:
+        for seed in seeds:
+            cpu = BatchExperiment(preset, n_jobs=n_jobs, seed=seed,
+                                  params=params, device="cpu")
+            for pol in bench.POLICIES:
+                want, got = cpu.run(pol, seed=seed), card[(preset, seed,
+                                                           pol)][0]
+                same = (got.start.tobytes() == want.start.tobytes() and (
+                    pol != "plan" or got.order.tolist() == want.order.tolist()))
+                if not same:
+                    why = (explain_plan(device, preset, seed, n_jobs, params)
+                           if pol == "plan" else "list schedule")
+                    say("batch_plane", f"{preset} seed {seed} {pol}: card "
+                        f"differs from the CPU: {why}")
+                    failed.append((preset, seed, pol))
+    say("batch_plane", f"{len(card)} start vectors valid; fcfs, easy and plan "
+        f"starts and plan orders equal to the CPU's bit for bit: "
+        f"{'yes' if not failed else failed}")
+    if failed:
+        raise AssertionError(f"batch plans differ between card and CPU: "
+                             f"{failed}")
+    bad = []
+    for r in rows:
+        want = ref["rows"][r.name]["derived"] if full else None
+        ok = want is None or r.derived == want
+        say("batch_plane", f"{r.name}: {r.derived!r}"
+            + ("" if want is None else f" vs reference {want!r}: "
+               f"{'ok' if ok else 'FAIL'}"))
+        if not ok:
+            bad.append(r.name)
+    if bad:
+        raise AssertionError(f"batch rows differ from batch_reference.json: "
+                             f"{bad}")
+
+    # Times on the card: the anneals of the rows, one schedule_order
+    # evaluation at the annealer's [R, N], and the ops of one anneal.
+    plans = [w for (_, _, pol), (_, w) in card.items() if pol == "plan"]
+    anneal_ms = float(np.median(plans)) * 1e3
+    q = card[(bench.PRESETS[0], seeds[0], "plan")][0].queue
+    cols = queue_columns(q, device)
+    order0 = torch.from_numpy(arrival_order(q)).to(device)
+    orders = order0.expand(params.sa_restarts, -1).contiguous()
+    eval_ms = time_ms(lambda: schedule_order(orders, cols, q.cluster.n_nodes,
+                                             q.cluster.bb_total), reps)
+    # Host launches of an anneal: the ops it runs at once (set-up and the
+    # step's warm-up) plus one graph replay a step; the kernels of a step:
+    # the ops captured into the graph.
+    _, eager, step_kernels = count_ops(lambda: anneal(
+        order0, cols, q.cluster.n_nodes, q.cluster.bb_total, params,
+        seeds[0], plan_window(q, params)))
+    ops = eager + sa_steps
+    synced(device)
+    (bridge_row,) = [r for r in rows if r.name == "batch_bridge_themis_gbps"]
+    tick_ms = float(bridge_row.us_per_call) * 1e-3 / ticks
+    metrics = dict(anneal_ms=round(anneal_ms, 1),
+                   schedule_order_ms=round(eval_ms, 3),
+                   launches_per_anneal=ops, kernels_per_step=step_kernels,
+                   bridge_ms_per_tick=round(tick_ms, 3),
+                   bridge_ticks=ticks)
+    say("batch_plane", f"{n_jobs} jobs, {sa_steps} steps x "
+        f"{params.sa_restarts} restarts: {anneal_ms:.1f} ms per anneal "
+        f"(median of {len(plans)}, host clock to the plan on the host), "
+        f"{eval_ms:.3f} ms per schedule_order evaluation at [R, N] = "
+        f"[{params.sa_restarts}, {n_jobs}] (eager), {ops} host launches "
+        f"per anneal ({eager} torch ops run on the card outside the graph, "
+        f"views and allocations not counted, and one graph replay a step), "
+        f"{step_kernels} kernels a step (ops captured in the graph); bridge "
+        f"{ticks} ticks at {tick_ms:.3f} ms/tick, kernel launches {launches}")
+    say("batch_plane", "metrics " + json.dumps(metrics))
+    return {"tick_step[themis]": launches["tick_step"]}, metrics
+
+
+#: docs/workspace.md's example knob, and its grid and seeds.
+WORKSPACE_SECONDS = 1.0
+WORKSPACE_GRID = {"burst_s": [0.5, 1.0], "repay": [0.5, 1.0]}
+
+
+def phase_workspace(device, seconds=WORKSPACE_SECONDS, solo_seconds=2.0):
+    """docs/workspace.md's resumable sweep on the card (interrupted by
+    max_chunks, resumed, reused; merged = plain bit for bit), then a themis
+    solo cached in the workspace (first call one tick_step launch per
+    tick, second call none and the same result).  Returns the solo's
+    tick_step launches."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.api import Experiment
+    from repro_torch.workspace import (CampaignInterrupted, WorkspaceStore,
+                                       run_sweep)
+
+    def make():
+        return (Experiment(scheduler="adaptbf", policy="job-fair",
+                           device=device)
+                .add_job(user=0, procs=56, req_mb=10, end_s=seconds)
+                .add_job(user=1, procs=112, req_mb=10, end_s=seconds))
+
+    fields = ("gbps", "issued", "completed", "dropped", "idle_worker_ticks")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ws-") as root:
+        reset_launches()
+        t0 = time.perf_counter()
+        plain = make().sweep(WORKSPACE_GRID, seconds, seeds=(0, 1))
+        t_plain = time.perf_counter() - t0
+        store = WorkspaceStore(root)
+        try:
+            run_sweep(make(), WORKSPACE_GRID, seconds, seeds=(0, 1),
+                      store=store, campaign="doc-sweep", chunk=2,
+                      max_chunks=1)
+            raise AssertionError("max_chunks=1 did not interrupt the sweep")
+        except CampaignInterrupted as stop:
+            first = stop.report
+        resumed, second = run_sweep(
+            make(), WORKSPACE_GRID, seconds, seeds=(0, 1),
+            store=WorkspaceStore(root), campaign="doc-sweep", chunk=2)
+        t0 = time.perf_counter()
+        reused, third = run_sweep(
+            make(), WORKSPACE_GRID, seconds, seeds=(0, 1),
+            store=WorkspaceStore(root), campaign="doc-sweep")
+        t_reuse = time.perf_counter() - t0
+        counts = [(r["computed"], r["reused"]) for r in (first, second, third)]
+        if counts != [(2, 0), (2, 2), (0, 4)]:
+            raise AssertionError(f"workspace (computed, reused) per run "
+                                 f"{counts}, expected [(2, 0), (2, 2), (0, 4)]")
+        for tag, res in (("resumed", resumed), ("reused", reused)):
+            for f in fields:
+                if not np.array_equal(getattr(res, f), getattr(plain, f)):
+                    raise AssertionError(f"workspace {tag} sweep: {f} "
+                                         f"differs from the plain sweep")
+        expect_launches("workspace adaptbf sweeps", device, read_launches(),
+                        {"tick_step": 0, "token_select": 0})
+        say("workspace", f"adaptbf {len(plain.points)} points x 2 seeds x "
+            f"{plain.ticks} ticks: (computed, reused) {counts}; resumed and "
+            f"reused sweeps equal the plain sweep bit for bit ({', '.join(fields)}); "
+            f"plain sweep {t_plain:.2f} s, full reuse {t_reuse * 1e3:.1f} ms")
+
+        # The figures' geometry: 1 server, W = 8, dt 1 ms.
+        exp = (Experiment(policy="job-fair", scheduler="themis",
+                          device=device)
+               .add_job(user=0, size=1, procs=56, req_mb=10)
+               .add_job(user=1, size=1, procs=224, req_mb=10))
+        runs = []
+        for call in ("first", "second"):
+            synced(device)
+            reset_launches()
+            t0 = time.perf_counter()
+            res = exp.solo(0, solo_seconds, workspace=root, name="solo")
+            synced(device)
+            runs.append((res, read_launches(), time.perf_counter() - t0))
+        (a, n_a, w_a), (b, n_b, w_b) = runs
+        expect_launches("workspace solo (computed)", device, n_a,
+                        {"tick_step": a.ticks, "token_select": 0})
+        expect_launches("workspace solo (cached)", device, n_b,
+                        {"tick_step": 0, "token_select": 0})
+        for f in ("gbps", "issued", "completed", "dropped",
+                  "idle_worker_ticks", "ticks"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"workspace solo: cached {f} differs")
+        say("workspace", f"themis solo {a.ticks} ticks: first call "
+            f"{w_a:.2f} s, kernel launches {n_a}; cached call "
+            f"{w_b * 1e3:.1f} ms, kernel launches {n_b}, same result")
+    return {"tick_step[themis]": n_a["tick_step"]}
 
 
 # -- the dense serving path (h2o-danube-1.8b) -----------------------------------
@@ -2504,6 +2782,10 @@ def main() -> int:
     launches["token_select"] += service_draws
     records["token_select"].update(service_record)
     launches["tick_step[themis]"] += pois_launches
+    plane_launches, _ = timed("batch_plane", phase_batch_plane, device)
+    ws_launches = timed("workspace", phase_workspace, device)
+    launches["tick_step[themis]"] += (plane_launches["tick_step[themis]"]
+                                      + ws_launches["tick_step[themis]"])
     params, served, layer0, serve = timed("serve", phase_serve, device)
     launches["flash_attention"] = served["flash_attention"]
     say("serve", "metrics " + json.dumps(serve))

@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import importlib
 
-_SUBPACKAGES = ("api", "bb", "bench", "core", "fs", "kernels", "scenario")
+_SUBPACKAGES = ("api", "batch", "bb", "bench", "core", "fs", "kernels",
+                "scenario", "workspace")
 __all__ = [*_SUBPACKAGES, "resolve_device"]
 
 

@@ -17,9 +17,10 @@ phased scenarios (``phase``/``bursts``/``ramp``, :mod:`repro_torch.scenario`)
 that round-trip as JSON (``scenario``/``to_json``/``from_scenario``), and
 ``serve()`` stands up the burst-buffer service (:mod:`repro_torch.bb`) on
 the same spec, with :meth:`ExperimentService.replay` driving the scenario
-through it.  The public members of the reference's ``Experiment`` that are
-not ported yet raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that ports them: the batch plane and the workspace (item 8).
+through it.  ``sweep(workspace=...)`` and ``solo(workspace=...)`` resume
+and cache runs in a :mod:`repro_torch.workspace` store, and
+:meth:`Experiment.batch` opens the batch plane
+(:class:`~repro_torch.batch.api.BatchExperiment`).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Iterable, Mapping, Optional, Sequence
 
 import numpy as np
 
+from .batch.api import BatchExperiment, BatchResult
 from .bb.service import BBClient, BBCluster, JobMeta, phase_at
 from .core import metrics
 from .core.engine import EngineConfig, make_workload, run, run_batch
@@ -39,11 +41,7 @@ from .core.scheduler import get_scheduler
 from .scenario import ir as scn_ir
 from .scenario.base import Scenario
 from .scenario.lowering import lower_for_config, normalize_phases
-
-
-def _not_ported(name: str, item: int):
-    raise NotImplementedError(f"{name} is not ported to repro_torch yet "
-                              f"(ROADMAP.md section 1, item {item})")
+from .workspace import WorkspaceStore, run_cached, run_sweep
 
 
 _LEGACY_KEYS = ("gbps", "bin_s", "issued", "completed", "dropped",
@@ -655,8 +653,19 @@ class Experiment:
         return cls(**kw).add_jobs(copy.deepcopy(scenario.jobs))
 
     @staticmethod
-    def batch(queue="bb-heavy", **kw):
-        _not_ported("Experiment.batch", 8)
+    def batch(queue="bb-heavy", **kw) -> BatchExperiment:
+        """The batch plane's facade (:class:`repro_torch.batch.api.
+        BatchExperiment`): a queue of jobs with node + burst-buffer
+        reservations scheduled by FCFS / EASY backfilling / plan-based
+        annealing, whose admitted timeline bridges back into an
+        :class:`Experiment` via ``to_experiment``; ``kw`` includes
+        ``device`` (default ``"cuda"``)::
+
+            bx = Experiment.batch("bb-heavy", n_jobs=24)
+            res = bx.run("plan")
+            exp, horizon = bx.to_experiment(res, scheduler="themis")
+        """
+        return BatchExperiment(queue, **kw)
 
     def _slots(self) -> int:
         return self.max_jobs if self.max_jobs else max(8, len(self.jobs))
@@ -746,9 +755,18 @@ class Experiment:
         sequence of params instances or a ``{field: values}`` mapping;
         structural fields (``mu_ticks``) must be the same across the grid.
         Each ``(point, seed)`` lane equals ``Experiment(params=point).run``
-        with that seed.  ``workspace`` (resumable sweeps) is not ported."""
+        with that seed.
+
+        ``workspace`` (a :class:`repro_torch.workspace.WorkspaceStore` or a
+        directory path) makes the sweep resumable: points already recorded
+        under ``campaign`` are reused bit for bit and only the missing ones
+        are computed, ``chunk`` points per run
+        (:func:`repro_torch.workspace.campaign.run_sweep`)."""
         if workspace is not None:
-            _not_ported("Experiment.sweep(workspace=...)", 8)
+            result, _ = run_sweep(self, grid, seconds, seeds=seeds,
+                                  store=_store(workspace), campaign=campaign,
+                                  chunk=chunk)
+            return result
         if not self.jobs:
             raise ValueError("sweep() needs at least one add_job()")
         points = self._expand_grid(grid)
@@ -766,16 +784,19 @@ class Experiment:
     def solo(self, job: int, seconds: float, *,
              workspace=None, name: str = "solo") -> RunResult:
         """Run one declared job alone (same engine config) — the baseline
-        :meth:`RunResult.slowdown` compares against.  ``workspace``
-        (cached solo runs) is not ported."""
-        if workspace is not None:
-            _not_ported("Experiment.solo(workspace=...)", 8)
+        :meth:`RunResult.slowdown` compares against.  With ``workspace``
+        the run is cached by its full spec hash under ``name``: computed
+        once per configuration, reused bit for bit after
+        (:func:`repro_torch.workspace.campaign.run_cached`)."""
         clone = Experiment(
             policy=self.policy, scheduler=self.scheduler, params=self.params,
             n_servers=self.n_servers, n_workers=self.n_workers,
             server_bw=self.server_bw, max_jobs=self._slots(),
             seed=self.seed, device=self.device, **self.engine_kw)
         clone.jobs = [copy.deepcopy(self.jobs[job])]
+        if workspace is not None:
+            return run_cached(clone, seconds, store=_store(workspace),
+                              name=name)
         return clone.run(seconds)
 
     def serve(self, *, autodrain: bool = True,
@@ -814,7 +835,14 @@ class Experiment:
                                  jobs=copy.deepcopy(self.jobs))
 
 
+def _store(workspace) -> WorkspaceStore:
+    """A :class:`~repro_torch.workspace.WorkspaceStore`, or one opened at a
+    directory path."""
+    return (workspace if isinstance(workspace, WorkspaceStore)
+            else WorkspaceStore(workspace))
+
+
 __all__ = [
-    "Experiment", "ExperimentService", "RunResult", "BatchRunResult",
-    "SweepResult", "ReplayResult",
+    "Experiment", "BatchExperiment", "BatchResult", "ExperimentService",
+    "RunResult", "BatchRunResult", "SweepResult", "ReplayResult",
 ]

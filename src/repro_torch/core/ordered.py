@@ -42,9 +42,10 @@ def _round(x: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
 
 
 def _seq_sum(x: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
-    total = x[..., 0]
-    for i in range(1, x.shape[-1]):
-        total = _round(total + x[..., i], acc)
+    first, *rest = x.unbind(-1)
+    total = first
+    for col in rest:
+        total = _round(total + col, acc)
     return total
 
 

@@ -225,3 +225,32 @@ class PlanParams(_IntervalParams):
                  f"ema_alpha must be in (0, 1], got {self.ema_alpha}")
         _require(self.ctrl_overhead_s >= 0.0,
                  f"ctrl_overhead_s must be >= 0, got {self.ctrl_overhead_s}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanOptParams(SchedulerParams):
+    """Plan-*optimization* knobs of the batch plane
+    (:func:`repro_torch.batch.plan.plan_schedule`): simulated annealing over
+    job orderings inside a lookahead window.  ``sa_steps``/``sa_restarts``
+    are structural (:data:`STATIC_FIELDS`: the annealer's length and its
+    number of parallel streams); ``t0_s`` is the initial Metropolis
+    temperature in seconds of mean wait; jobs submitted beyond
+    ``lookahead_s`` keep their arrival order at the plan's tail."""
+
+    sa_steps: int = 400
+    sa_restarts: int = 2
+    t0_s: float = 600.0
+    cooling: float = 0.985
+    lookahead_s: float = 1e9
+
+    def _validate(self):
+        super()._validate()
+        _require(self.sa_steps >= 1,
+                 f"sa_steps must be >= 1, got {self.sa_steps}")
+        _require(self.sa_restarts >= 1,
+                 f"sa_restarts must be >= 1, got {self.sa_restarts}")
+        _require(self.t0_s > 0.0, f"t0_s must be > 0, got {self.t0_s}")
+        _require((0.0 < self.cooling) & (self.cooling <= 1.0),
+                 f"cooling must be in (0, 1], got {self.cooling}")
+        _require(self.lookahead_s > 0.0,
+                 f"lookahead_s must be > 0, got {self.lookahead_s}")

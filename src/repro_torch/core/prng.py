@@ -399,3 +399,136 @@ def rejection_iters(n_lanes: int, odds: float = 1e-12) -> int:
     if n_lanes <= 0:
         return 0
     return int(np.ceil(np.log(odds / n_lanes) / np.log(PTRS_REJECT)))
+
+
+# -- randint, and the float32 exp and pow of the batch plane's annealer -------
+
+def randint(key: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, (), minval, maxval)`` (int32) for a key
+    ``[2]`` or a batch of keys ``[..., 2]`` and Python int bounds: two
+    32-bit draws from ``split(key)``, folded into the span by jax's
+    ``2**32 % span`` multiplier in uint32 arithmetic."""
+    if not (-2 ** 31 <= minval and maxval <= 2 ** 31 - 1):
+        raise ValueError("randint bounds must lie in int32")
+    span = max(maxval - minval, 1)
+    mult = ((2 ** 16 % span) ** 2 & _M32) % span
+    ks = split(key, 2)
+    higher = random_bits(ks[..., 0, :], 1)[..., 0]
+    lower = random_bits(ks[..., 1, :], 1)[..., 0]
+    off = (((higher % span) * mult) & _M32) + lower % span
+    return (minval + (off & _M32) % span).to(torch.int32)
+
+
+def _ftz(x: torch.Tensor) -> torch.Tensor:
+    """Results below the smallest normal read as zero (the CPU backend
+    runs with flush-to-zero)."""
+    return torch.where(x.abs() < _MIN_NORMAL, x * 0.0, x)
+
+
+# XLA's CPU backend expands float32 ``exp`` itself (read off the LLVM IR and
+# the object code of the annealer's fused ``exp``, ``XLA_FLAGS=--xla_dump_to``):
+# the argument clamped to [-87.8, 88.8], ``n = floor(x log2(e) + 0.5)``
+# clamped to [-127, 127], ``r = x - n ln 2`` with ``ln 2`` split in two, a
+# degree-5 polynomial, ``1 + r + r^2 p(r)`` scaled by ``2^n`` built in the
+# exponent bits (``n = -127`` builds zero).  Every multiply-add is fused.
+_EXP_LO, _EXP_HI = -87.80000305175781, 88.80000305175781
+_EXP_LOG2E = 1.4426950216293335
+_EXP_C2 = -2.1219444170128554e-4
+_EXP_P = (1.9875691e-4, 1.3981999e-3, 8.3334519e-3, 4.1665796e-2,
+          1.6666666e-1)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.exp`` of float32 ``x`` as the reference's compiled code
+    computes it, bit for bit (subnormal inputs and results read as zero)."""
+    x = _daz(x)
+    xc = torch.where(torch.isnan(x), x, torch.clamp(x, _EXP_LO, _EXP_HI))
+    n = torch.clamp(torch.floor(fma(xc, _EXP_LOG2E, 0.5)), -127.0, 127.0)
+    r = fma(n, -_LOG_C1, xc)
+    r = fma(n, -_EXP_C2, r)
+    p = fma(r, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:] + (0.5,):
+        p = fma(p, r, c)
+    y = fma(p, r * r, r) + 1.0
+    scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    return _ftz(y * scale)
+
+
+# ``p.cooling ** s`` (a float32 base, the int32 step converted to float32)
+# compiles to ``llvm.pow.f32``, a call into the host's libm: glibc's
+# ``powf``.  It takes ``log2(x)`` from a 16-entry table of ``1/c`` and
+# ``log2(c)`` plus a degree-5 polynomial, multiplies by ``y`` and takes
+# ``2^(y log2 x)`` from a 32-entry table of ``2^(i/32)`` plus a cubic, all
+# in double, rounding once to float32 at the end.  The tables are glibc's
+# (``__powf_log2_data``, ``__exp2f_data``); the double steps are taken
+# without glibc's fused multiply-adds, which moves no float32 result over
+# the tested inputs.
+_POWF_INVC_LOGC = (
+    ("0x1.661ec79f8f3bep+0", "-0x1.efec65b963019p-2"),
+    ("0x1.571ed4aaf883dp+0", "-0x1.b0b6832d4fca4p-2"),
+    ("0x1.49539f0f010b0p+0", "-0x1.7418b0a1fb77bp-2"),
+    ("0x1.3c995b0b80385p+0", "-0x1.39de91a6dcf7bp-2"),
+    ("0x1.30d190c8864a5p+0", "-0x1.01d9bf3f2b631p-2"),
+    ("0x1.25e227b0b8ea0p+0", "-0x1.97c1d1b3b7af0p-3"),
+    ("0x1.1bb4a4a1a343fp+0", "-0x1.2f9e393af3c9fp-3"),
+    ("0x1.12358f08ae5bap+0", "-0x1.960cbbf788d5cp-4"),
+    ("0x1.0953f419900a7p+0", "-0x1.a6f9db6475fcep-5"),
+    ("0x1.0000000000000p+0", "0x0.0p+0"),
+    ("0x1.e608cfd9a47acp-1", "0x1.338ca9f24f53dp-4"),
+    ("0x1.ca4b31f026aa0p-1", "0x1.476a9543891bap-3"),
+    ("0x1.b2036576afce6p-1", "0x1.e840b4ac4e4d2p-3"),
+    ("0x1.9c2d163a1aa2dp-1", "0x1.40645f0c6651cp-2"),
+    ("0x1.886e6037841edp-1", "0x1.88e9c2c1b9ff8p-2"),
+    ("0x1.767dcf5534862p-1", "0x1.ce0a44eb17bccp-2"))
+_POWF_LOG2_POLY = tuple(float.fromhex(h) for h in (
+    "0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2",
+    "-0x1.7154748bef6c8p-1", "0x1.71547652ab82bp0"))
+_POWF_EXP2_POLY = tuple(float.fromhex(h) for h in (
+    "0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1"))
+_POWF_SHIFT = float.fromhex("0x1.8p+47")          # rounds to a multiple of 1/32
+_POWF_OFLOW = float.fromhex("0x1.fffffffd1d571p+6")
+
+
+def _powf_tables(device):
+    tab = torch.tensor([[float.fromhex(a), float.fromhex(b)]
+                        for a, b in _POWF_INVC_LOGC], dtype=torch.float64,
+                       device=device)
+    exp2 = torch.tensor([2.0 ** (i / 32) for i in range(32)],
+                        dtype=torch.float64, device=device)
+    return tab, exp2
+
+
+def pow_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x ** y`` of float32 tensors as the reference's compiled code
+    computes it (glibc's ``powf`` with subnormal inputs and results read as
+    zero), bit for bit, for ``x >= 0`` and finite ``y``."""
+    x, y = torch.broadcast_tensors(_daz(x), y.to(torch.float32))
+    tab, exp2 = _powf_tables(x.device)
+    a = _POWF_LOG2_POLY
+    c = _POWF_EXP2_POLY
+    # log2(x) = log1p(z / c - 1) / ln 2 + log2(c) + k, z in [OFF, 2 OFF).
+    ix = x.view(torch.int32).to(torch.int64) & _M32
+    tmp = (ix - 0x3F330000) & _M32
+    i = (tmp >> 19) & 15
+    top = tmp & 0xFF800000
+    k = ((top ^ 0x80000000) - 0x80000000) >> 23
+    z = (ix - top).to(torch.int32).view(torch.float32).to(torch.float64)
+    r = z * tab[i, 0] - 1.0
+    y0 = tab[i, 1] + k.to(torch.float64)
+    r2 = r * r
+    q = a[4] * r + y0
+    q = (a[2] * r + a[3]) * r2 + q
+    logx = (a[0] * r + a[1]) * (r2 * r2) + q
+    ylogx = y.to(torch.float64) * logx
+    # 2^ylogx = 2^(k / 32) 2^r, |r| <= 1/64.
+    kd = (ylogx + _POWF_SHIFT) - _POWF_SHIFT
+    r = ylogx - kd
+    kk = (kd * 32).to(torch.int64)
+    j = kk & 31
+    scale = (((kk - j) >> 5) + 1023).clamp(1, 2046) << 52
+    s = exp2[j] * scale.view(torch.float64)
+    out = ((c[0] * r + c[1]) * (r * r) + (c[2] * r + 1.0)) * s
+    out = torch.where(ylogx > _POWF_OFLOW, torch.inf, out)
+    out = torch.where(ylogx <= -150.0, 0.0, out).to(torch.float32)
+    out = torch.where(x == 0, torch.where(y > 0, 0.0, torch.inf), out)
+    return _ftz(torch.where(y == 0, 1.0, out))

@@ -83,17 +83,21 @@ def test_sweep_lanes_equal_runs():
             assert sw.idle_worker_ticks[i, k] == one.idle_worker_ticks
 
 
-def test_sweep_refuses_mixed_cadence_and_unknown_fields():
+def test_sweep_refuses_mixed_cadence_and_unknown_fields(tmp_path):
+    """The grid's refusals, also through a workspace (which records
+    nothing for a refused grid)."""
     e = exp("gift")
-    with pytest.raises(ValueError, match="mu_ticks"):
-        e.sweep([params.GiftParams(mu_ticks=10), params.GiftParams(mu_ticks=20)],
-                0.01, seeds=(0,))
-    with pytest.raises(ValueError, match="not numeric fields"):
-        e.sweep({"mu_ticks": [10, 20]}, 0.01, seeds=(0,))
-    with pytest.raises(TypeError):
-        e.sweep([params.PlanParams()], 0.01, seeds=(0,))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        e.sweep({"coupon_frac": [0.5]}, 0.01, workspace="ws")
+    for ws in (None, tmp_path):
+        with pytest.raises(ValueError, match="mu_ticks"):
+            e.sweep([params.GiftParams(mu_ticks=10),
+                     params.GiftParams(mu_ticks=20)], 0.01, seeds=(0,),
+                    workspace=ws)
+        with pytest.raises(ValueError, match="not numeric fields"):
+            e.sweep({"mu_ticks": [10, 20]}, 0.01, seeds=(0,), workspace=ws)
+        with pytest.raises(TypeError):
+            e.sweep([params.PlanParams()], 0.01, seeds=(0,), workspace=ws)
+    from repro_torch.workspace import WorkspaceStore
+    assert len(WorkspaceStore(tmp_path)) == 0
 
 
 @functools.lru_cache(maxsize=None)

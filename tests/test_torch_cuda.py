@@ -13,7 +13,8 @@ agree with the engine on the CPU (``chip_smoke.phase_card_vs_cpu``, for the
 interval schedulers ``phase_schedulers_card_vs_cpu``), every lane of a
 batched run must equal its single run, and so
 must the dense and the recurrent models
-(``chip_smoke.phase_serve_card_vs_cpu``, ``phase_ssm_card_vs_cpu``)."""
+(``chip_smoke.phase_serve_card_vs_cpu``, ``phase_ssm_card_vs_cpu``), and
+the batch plane's list schedule and annealer must give the CPU's bits."""
 import importlib.util
 from pathlib import Path
 
@@ -467,3 +468,55 @@ def test_poisson_and_log_on_card_equal_cpu(card):
         want, _ = prng.poisson(prng.PRNGKey(seed), lam, **kw)
         assert not bool(unf)
         assert int((got.cpu() != want).sum()) == 0
+
+
+@pytest.mark.parametrize("preset", ("bb-heavy", "longtail", "mixed"))
+def test_batch_plane_on_card_equals_cpu(card, preset):
+    """``schedule_order`` (FCFS and a batch of random orders) and
+    ``plan_schedule`` give the CPU's bits on the card; exp_f32 and pow_f32
+    too."""
+    from repro_torch.batch import PlanOptParams, plan_schedule, queue_preset
+    from repro_torch.batch.sim import (queue_columns, schedule_order,
+                                       simulate_fcfs)
+    from repro_torch.core import prng
+    q = queue_preset(preset, n_jobs=24, seed=3)
+    np.testing.assert_array_equal(simulate_fcfs(q, device=card),
+                                  simulate_fcfs(q, device="cpu"))
+    rng = np.random.default_rng(1)
+    orders = torch.from_numpy(np.stack([rng.permutation(24)
+                                        for _ in range(4)]))
+    args = (q.cluster.n_nodes, q.cluster.bb_total)
+    got = schedule_order(orders.to(card), queue_columns(q, card), *args)
+    want = schedule_order(orders, queue_columns(q, "cpu"), *args)
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+    p = PlanOptParams(sa_steps=60, lookahead_s=4000.0)
+    s_card, o_card, c_card = plan_schedule(q, p, seed=5, device=card)
+    s_cpu, o_cpu, c_cpu = plan_schedule(q, p, seed=5, device="cpu")
+    assert o_card.tolist() == o_cpu.tolist() and c_card == c_cpu
+    assert s_card.tobytes() == s_cpu.tobytes()
+    # The steps recorded by the card's CUDA graph equal the CPU's.
+    from repro_torch.batch.plan import anneal, plan_window
+    from repro_torch.batch.sim import arrival_order
+    order0 = torch.from_numpy(arrival_order(q))
+    recs = [anneal(order0.to(dev), queue_columns(q, dev), *args, p, 5,
+                   plan_window(q, p), record=True)[2] for dev in (card, "cpu")]
+    for f, v in recs[1].items():
+        assert torch.equal(recs[0][f].cpu(), v), f
+    x = torch.from_numpy(np.arange(0, 2 ** 32, 4093, dtype=np.uint64)
+                         .astype(np.uint32).view(np.float32).copy())
+    a, b = prng.exp_f32(x.to(card)).cpu().numpy(), prng.exp_f32(x).numpy()
+    assert ((a.view(np.uint32) == b.view(np.uint32))
+            | (np.isnan(a) & np.isnan(b))).all()
+    base = x[(x >= 0) & (x <= 1)]
+    for s in (1.0, 299.0, 4000.0):
+        e = torch.full_like(base, s)
+        assert torch.equal(prng.pow_f32(base.to(card), e.to(card)).cpu(),
+                           prng.pow_f32(base, e))
+
+
+def test_workspace_sweep_resume_and_solo_on_card(card):
+    """docs/workspace.md's sweep interrupted by max_chunks, resumed and
+    reused on the card (merged = plain bit for bit), and a cached themis
+    solo (chip_smoke.phase_workspace at 0.3 s)."""
+    launches = smoke.phase_workspace(card, seconds=0.3, solo_seconds=0.3)
+    assert launches["tick_step[themis]"] == 300

@@ -7,10 +7,19 @@ takes them for ``fig_reference.json``: from the ``mean_cov`` calls of its
 own row functions.  On the CPU the port's engine equals the reference's
 until a pick flips (none at this size), so every row's means and CoVs
 agree to float64 rounding of the same per-seed values.
+
+The reference's Fig. 8d table runs every scheduler in the reference's
+registry, which a test file of the reference extends (``always-first`` in
+``tests/test_scheduler.py``) and which outlives that file in a worker
+process; the rows are recorded with the registry pinned to the port's six
+schedulers.
 """
+import contextlib
 import importlib.util
 import json
+import os
 import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -27,21 +36,40 @@ def load_tool():
     return tool
 
 
-@pytest.fixture(scope="module")
-def rows():
-    import os
-    import sys
+@contextlib.contextmanager
+def pinned_reference_registry():
+    """The reference's scheduler registry restricted to the names the
+    port's registry holds (the six shipped schedulers), restored exactly
+    afterwards."""
+    from repro.core import scheduler as ref_sched
+    from repro_torch.core.scheduler import available_schedulers
+    saved = dict(ref_sched._REGISTRY)
+    ref_sched._REGISTRY.clear()
+    ref_sched._REGISTRY.update({n: saved[n] for n in available_schedulers()})
+    try:
+        yield
+    finally:
+        ref_sched._REGISTRY.clear()
+        ref_sched._REGISTRY.update(saved)
+
+
+def reference_rows(row_fns) -> dict:
+    """``{name: {"derived", "means", "covs"}}`` of the reference's row
+    functions ``[(module name in benchmarks, function name)]`` at
+    ``SECONDS`` x ``SEEDS``, with the reference's registry pinned."""
     saved = {k: os.environ.get(k) for k in ("BENCH_SECONDS", "BENCH_SEEDS")}
     os.environ["BENCH_SECONDS"] = str(SECONDS)
     os.environ["BENCH_SEEDS"] = str(len(SEEDS))
     sys.path.insert(0, str(REPO))
     try:
-        from benchmarks import bench_comparison, bench_policies
         tool = load_tool()
-        ref = {**tool.assign(*tool.record(bench_policies.run_fig8,
-                                          bench_policies)),
-               **tool.assign(*tool.record(bench_comparison.run_fig12,
-                                          bench_comparison))}
+        out = {}
+        with pinned_reference_registry():
+            for mod_name, fn_name in row_fns:
+                mod = importlib.import_module(f"benchmarks.{mod_name}")
+                out.update(tool.assign(*tool.record(getattr(mod, fn_name),
+                                                    mod)))
+        return out
     finally:
         sys.path.remove(str(REPO))
         for k, v in saved.items():
@@ -49,6 +77,12 @@ def rows():
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+@pytest.fixture(scope="module")
+def rows():
+    ref = reference_rows([("bench_policies", "run_fig8"),
+                          ("bench_comparison", "run_fig12")])
     from repro_torch.bench import comparison, policies
     port = policies.run_fig8(SECONDS, SEEDS, device="cpu") + \
         comparison.run_fig12(SECONDS, SEEDS, device="cpu")
@@ -60,6 +94,35 @@ def test_same_rows(rows):
     assert list(port) == list(ref)
     assert any(n.startswith("fig8d_") for n in port)
     assert len([n for n in port if n.startswith("fig12_")]) == 6 * 4 + 5 * 2
+
+
+def test_rows_ignore_schedulers_registered_by_other_tests(monkeypatch):
+    """A scheduler another test file leaves in the reference's registry
+    adds no Fig. 8d row, and the registry is restored exactly."""
+    from repro.core import scheduler as ref_sched
+    from repro_torch.core.scheduler import available_schedulers
+
+    class Dummy(ref_sched.Scheduler):
+        pass
+
+    before = dict(ref_sched._REGISTRY)
+    monkeypatch.setitem(ref_sched._REGISTRY, "zz-dummy", Dummy())
+    after_register = list(ref_sched._REGISTRY.items())
+    # The table's row names without its runs: ``sweep`` yields one fake
+    # batch per variant, whose metrics ``mean_cov`` reads as (1, 0).
+    monkeypatch.syspath_prepend(str(REPO))
+    bench_policies = importlib.import_module("benchmarks.bench_policies")
+    monkeypatch.setattr(bench_policies, "sweep",
+                        lambda variants, seconds, seeds: {
+                            s: (None, None, 1.0) for s in variants})
+    monkeypatch.setattr(bench_policies, "seed_metric",
+                        lambda batch, fn: [1.0])
+    ref = reference_rows([("bench_policies", "run_scheduler_table")])
+    assert list(ref_sched._REGISTRY.items()) == after_register
+    names = [f"fig8d_{s}_{kind}" for s in available_schedulers()
+             for kind in ("equal_jobs_ratio", "sustained_gbps")]
+    assert list(ref) == names
+    assert "zz-dummy" not in before
 
 
 @pytest.mark.parametrize("prefix", ("fig8a", "fig8b", "fig8c", "fig8d",
@@ -84,7 +147,7 @@ def test_reference_file_is_complete():
     the card to) carries every gated row with its statistics."""
     doc = json.loads((REPO / "src" / "repro_torch" / "bench"
                       / "fig_reference.json").read_text())
-    assert doc["seconds"] == 2.0 and doc["seeds"] == list(range(8))
+    assert doc["seconds"] == 1.0 and doc["seeds"] == list(range(8))
     assert doc["jax"] and "record_figure_reference.py" in doc["command"]
     for name, row in doc["rows"].items():
         assert len(row["means"]) >= 1, name

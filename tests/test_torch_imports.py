@@ -21,6 +21,9 @@ for name in names:
 bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro.")
              or m == "jax" and sys.modules[m] is not None)
 assert not bad, bad
+for sub in ("workspace.store", "workspace.campaign", "batch.sim",
+            "batch.plan", "batch.bridge", "bench.batch"):
+    assert "repro_torch." + sub in names, sub
 print(len(names))
 """
 
@@ -50,7 +53,7 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_cuda_without_a_card_raises(no_card):
+def test_cuda_without_a_card_raises(no_card, tmp_path):
     from repro_torch import resolve_device
     from repro_torch.api import Experiment
     from repro_torch.core.engine import EngineConfig, make_workload
@@ -60,12 +63,19 @@ def test_cuda_without_a_card_raises(no_card):
         make_workload(EngineConfig(scheduler="fifo"), [dict(procs=4)])
     with pytest.raises(RuntimeError, match="cuda"):
         Experiment(scheduler="fifo").add_job(procs=4).run(0.01)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Experiment(scheduler="fifo").add_job(procs=4).solo(
+            0, 0.01, workspace=str(tmp_path))
+    bx = Experiment.batch("bb-heavy", n_jobs=4)
+    for policy in ("fcfs", "plan"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            bx.run(policy)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_unported_features_refuse():
-    """Fleet sharding and the batch plane are refused; the six schedulers,
-    Poisson phases, run_batch, scenario trees and the service run."""
+    """Fleet sharding is refused; the six schedulers, Poisson phases,
+    run_batch, scenario trees, the service and the batch plane run."""
     from repro_torch.api import Experiment
     from repro_torch.bb.service import BBCluster
     from repro_torch.core import engine
@@ -80,8 +90,8 @@ def test_unported_features_refuse():
         engine.EngineConfig(scheduler="fifo", shard_servers=2, device="cpu")
     with pytest.raises(NotImplementedError, match="sharding"):
         BBCluster(mesh_shape=(2, 1), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Experiment.batch()
+    assert Experiment.batch(n_jobs=4, device="cpu").run("easy").start.shape \
+        == (4,)
     with pytest.raises(TypeError):
         lower(object())
     tree = repeat(leaf(dict(procs=4, phases=[dict(start_s=0.0,

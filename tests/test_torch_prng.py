@@ -183,3 +183,58 @@ def test_ptrs_rejects_under_its_bound():
     k, _ = prng._poisson_rejection(prng.PRNGKey(3), torch.full((2 ** 20,), 10.0),
                                    1)
     assert float((k < 0).float().mean()) < prng.PTRS_REJECT
+
+
+# -- the batch plane's annealer: randint, exp and cooling ** s -----------------
+
+@pytest.mark.parametrize("lo,hi", [(0, 1), (0, 7), (0, 24), (3, 100),
+                                   (0, 2 ** 16 + 3), (-5, 2 ** 31 - 1),
+                                   (4, 4)])
+def test_randint_matches_jax(lo, hi):
+    """``prng.randint`` equals ``jax.random.randint(key, (), lo, hi)`` on
+    256 keys, spans past 2**16 (where jax's multiplier wraps) included."""
+    keys = jax.vmap(lambda i: jax.random.fold_in(prng_key(11), i))(
+        np.arange(256, dtype=np.uint32))
+    want = np.asarray(jax.vmap(lambda k: jax.random.randint(k, (), lo, hi))(
+        keys))
+    got = prng.randint(torch.from_numpy(words(keys)), lo, hi)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_exp_is_xlas_float32_expansion():
+    """``prng.exp_f32`` equals the reference's compiled ``jnp.exp`` bit for
+    bit on every 4093rd float32 (the annealer's ``-(c_prop - cost) /
+    temp`` reaches any of them) and the values next to 1."""
+    x = LOG_INPUTS
+    want = np.asarray(jax.jit(jax.numpy.exp)(x))
+    got = prng.exp_f32(torch.from_numpy(x.copy())).numpy()
+    same = (got.view(np.uint32) == want.view(np.uint32)) | (
+        np.isnan(got) & np.isnan(want))
+    assert same.all(), x[~same][:10]
+
+
+#: Every 4093rd float32 in [0, 1] (the cooling factors), zero and one.
+POW_BASES = np.concatenate([
+    np.arange(0, 0x3F800001, 4093, dtype=np.int64).astype(np.uint32)
+    .view(np.float32), np.float32([0.0, 1.0, 0.985, 2.0 ** -126])])
+POW_STEPS = (0, 1, 2, 3, 5, 7, 13, 31, 64, 99, 128, 255, 299, 399, 1000, 4000)
+
+
+def test_pow_is_glibcs_powf():
+    """``prng.pow_f32`` equals the reference's compiled ``p.cooling ** s``
+    (float32 base, int32 step) bit for bit over every 4093rd base in
+    [0, 1] at the steps listed, and over the default cooling's first
+    20,000 steps (into the flushed subnormals)."""
+    f = jax.jit(lambda c, s: c ** s)
+    base = torch.from_numpy(POW_BASES.copy())
+    for s in POW_STEPS:
+        want = np.asarray(f(POW_BASES, np.int32(s)))
+        got = prng.pow_f32(base, torch.full(base.shape, float(s))).numpy()
+        bad = got.view(np.uint32) != want.view(np.uint32)
+        assert not bad.any(), (s, POW_BASES[bad][:5])
+    steps = np.arange(20000, dtype=np.int32)
+    want = np.asarray(f(np.float32(0.985), steps))
+    got = prng.pow_f32(torch.tensor(0.985), torch.from_numpy(steps).float())
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))

@@ -1,5 +1,6 @@
 """Record the JAX reference's Fig. 8 and Fig. 12 rows (and, with
-``--scen``, its scenario rows) for the port to be held to.
+``--scen`` or ``--batch``, its scenario or batch-plane rows) for the port to
+be held to.
 
 Runs the reference's own row functions (``benchmarks/bench_policies.py``
 ``run_fig8`` with its 8d table, ``benchmarks/bench_comparison.py``
@@ -21,6 +22,15 @@ per row its ``derived`` text and the number it leads with.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/record_figure_reference.py \\
         --scen --seconds 1.6
+
+``--batch`` runs the reference's ``benchmarks/bench_batch.py``
+``run_batch`` (24 jobs, 300 annealing steps, seeds ``range(4)``: its own
+defaults; ``--seconds`` caps the bridge run as its ``BENCH_SECONDS``) and
+writes ``src/repro_torch/bench/batch_reference.json``: per row its
+``derived`` text and the number it leads with.
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tools/record_figure_reference.py \\
+        --batch --seconds 2
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 OUT = REPO / "src" / "repro_torch" / "bench" / "fig_reference.json"
 SCEN_OUT = OUT.with_name("scen_reference.json")
+BATCH_OUT = OUT.with_name("batch_reference.json")
 
 
 def stats_per_row(name: str) -> int:
@@ -86,18 +97,21 @@ def assign(rows, log) -> dict:
     return out
 
 
-def record_scen(seconds: float, out: Path) -> int:
+def record_text_rows(fn, flag: str, seconds: float, out: Path,
+                     **extra) -> int:
+    """Run a reference row function and write each row's ``derived`` text
+    and the number it leads with."""
     import jax
-    from benchmarks import bench_scenarios
 
     t0 = time.time()
-    rows = bench_scenarios.run_scen()
+    rows = fn()
     doc = {
         "seconds": seconds,
+        **extra,
         "jax": jax.__version__,
         "backend": jax.default_backend(),
         "command": ("JAX_PLATFORMS=cpu PYTHONPATH=src python "
-                    f"tools/record_figure_reference.py --scen --seconds "
+                    f"tools/record_figure_reference.py {flag} --seconds "
                     f"{seconds:g}"),
         "wall_s": round(time.time() - t0, 1),
         "rows": {name: {"derived": derived,
@@ -115,13 +129,26 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=8)
     ap.add_argument("--scen", action="store_true",
                     help="record the scenario rows instead")
+    ap.add_argument("--batch", action="store_true",
+                    help="record the batch plane's rows instead")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     os.environ["BENCH_SECONDS"] = str(args.seconds)
     os.environ["BENCH_SEEDS"] = str(args.seeds)
     sys.path.insert(0, str(REPO))
     if args.scen:
-        return record_scen(args.seconds, args.out or SCEN_OUT)
+        from benchmarks import bench_scenarios
+        return record_text_rows(bench_scenarios.run_scen, "--scen",
+                                args.seconds, args.out or SCEN_OUT)
+    if args.batch:
+        from benchmarks import bench_batch
+        for knob in ("BENCH_SEEDS", "BENCH_BATCH_JOBS", "BENCH_BATCH_STEPS"):
+            os.environ.pop(knob, None)      # the reference's own defaults
+        return record_text_rows(
+            bench_batch.run_batch, "--batch", args.seconds,
+            args.out or BATCH_OUT, seeds=list(range(4)),
+            n_jobs=bench_batch._n_jobs(),
+            sa_steps=bench_batch._params().sa_steps)
     args.out = args.out or OUT
     import jax
     from benchmarks import bench_comparison, bench_policies
