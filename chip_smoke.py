@@ -101,14 +101,38 @@ each printing its lines before the last:
                 one tick_step launch per tick; ms per anneal, per
                 schedule_order evaluation, launches per anneal, bridge
                 ms/tick
-  workspace     docs/workspace.md's example at EXAMPLE_SECONDS = 1 (adaptbf,
-                a 2 x 2 grid, seeds 0 and 1) into a temporary workspace: a
+  workspace     docs/workspace.md's example (adaptbf, a 2 x 2 grid, seeds
+                0 and 1) at 0.5 s (cut from its EXAMPLE_SECONDS = 1 to make
+                room for the shard and fleet phases) into a temporary
+                workspace: a
                 plain sweep, then max_chunks=1 stops after 2 points, the
                 resume computes the other 2, a third run reuses all 4, and
-                both merged sweeps equal the plain one bit for bit; a themis
-                solo at the figures' geometry cached in the workspace: the
+                both merged sweeps equal the plain one bit for bit; a 1 s
+                themis solo (2 s until the same cut) at the figures'
+                geometry cached in the workspace: the
                 first call launches tick_step once per tick, the second
                 none, with the same result
+  shard         tests/test_shard.py's job list (S = 4, J = 8, W = 4, user-
+                fair, seed 3, its Poisson phase; 0.2 s) on 4 gloo ranks
+                that share the card (repro_torch.launch.mesh.spawn): themis
+                and adaptbf run at shard_servers=4 and run_batch at
+                mesh_shape=(2, 2) over seeds 1-4, each equal to the
+                unsharded card run in every leaf but bytes_bin (held to the
+                atomic adds' bound) and in its integer counters to the
+                CPU's (a themis difference only as an edge-band pick);
+                every rank's result equal; the backend, ranks per card,
+                collectives per tick, ms/tick at x1 and x4 and every rank's
+                kernel launches
+  fleet         the fleet rows of repro_torch.bench.fleet at the fleet
+                geometry, cut from the reference's 0.1 s to 0.02 s (100
+                ticks): x1 in process on the fused tick, x2 and x4 each a
+                world of gloo ranks on the sharded scan; the reference's
+                row names, fleet_gbps_x1's text and x1's integer counters
+                equal to src/repro_torch/bench/fleet_reference.json (a
+                counter difference only after an edge-band pick, with the
+                CPU's run equal to the file), every rung's integer counters
+                equal to x1's; ms/tick, world seconds and
+                every rank's launches and collectives per tick
   serve         h2o-danube-1.8b at full width and depth in bf16 (random
                 weights from a seed): batched prefill of 2 x 6000 tokens
                 (past block_q and the 4096 window) through
@@ -192,18 +216,16 @@ BF16_OPS_PER_S = 989e12
 #: throughput of native arithmetic instructions), 132 SMs, 1.98 GHz boost.
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
-#: Facility-scale geometry of benchmarks/bench_fleet.py:41-62,83-86.
-FLEET = dict(n_servers=128, max_jobs=1024, n_workers=4, dt=2e-4, wheel=128,
-             ring_cap=16, bin_ticks=500)
+#: Facility-scale S, J and W of benchmarks/bench_fleet.py:41-62; the rest of
+#: its geometry and its job list are repro_torch.bench.fleet's.
+FLEET_SJW = dict(n_servers=128, max_jobs=1024, n_workers=4)
 FLEET_SECONDS = 0.1
 
 
-def fleet_jobs(n_jobs: int, n_servers: int) -> list[dict]:
-    """benchmarks/bench_fleet.py's mixed fleet: 8 users, job sizes 1-4,
-    staggered starts."""
-    return [dict(user=i % 8, size=min(1 + i % 4, n_servers), procs=2 + i % 6,
-                 req_mb=1 + i % 4, start_s=0.002 * (i % 50),
-                 think_s=0.004 + 0.001 * (i % 5)) for i in range(n_jobs)]
+def fleet_geometry() -> dict:
+    """The fleet geometry as Experiment keywords."""
+    from repro_torch.bench import fleet
+    return dict(FLEET_SJW, **fleet.ENGINE_KW)
 
 
 def striped_jobs(n_jobs: int, n_servers: int) -> list[dict]:
@@ -512,11 +534,13 @@ def check_no_host_sync(exp, ticks=10):
     torch.cuda.synchronize()
 
 
-def phase_engine(device, geometry=FLEET, seconds=FLEET_SECONDS):
+def phase_engine(device, geometry=None, seconds=FLEET_SECONDS):
     """The main path at fleet geometry; returns the launch counts."""
     from repro_torch.api import Experiment
     from repro_torch.kernels.tick_step import ops as ts_ops
     from repro_torch.kernels.token_select import ops as tk_ops
+    from repro_torch.bench.fleet import fleet_jobs
+    geometry = geometry or fleet_geometry()
     jobs = fleet_jobs(geometry["max_jobs"], geometry["n_servers"])
 
     def exp(scheduler, impl):
@@ -790,10 +814,12 @@ def expect_launches(tag, device, got, want) -> None:
         raise AssertionError(f"{tag}: kernel launches {got}, expected {want}")
 
 
-def phase_schedulers(device, geometry=FLEET, seconds=FLEET_SECONDS):
+def phase_schedulers(device, geometry=None, seconds=FLEET_SECONDS):
     """The four scan schedulers at fleet geometry; returns ms/tick."""
     import torch
     from repro_torch.api import Experiment
+    from repro_torch.bench.fleet import fleet_jobs
+    geometry = geometry or fleet_geometry()
     jobs = fleet_jobs(geometry["max_jobs"], geometry["n_servers"])
 
     def exp(scheduler, **kw):
@@ -932,11 +958,22 @@ def lane_bytes_bound(cfg) -> int:
     return cfg.bin_ticks * cfg.n_servers * cfg.n_workers
 
 
-def phase_batch(device, geometry=FLEET, seconds=0.05, n_seeds=8):
+def ulps_apart(a, b) -> float:
+    """The largest gap between float32 tensors ``a`` and ``b``, in ulps of
+    ``b``."""
+    import numpy as np
+    x, y = a.cpu().double(), b.cpu().double()
+    ulp = np.spacing(y.abs().numpy().astype(np.float32)).astype(float)
+    return float(((x - y).abs().numpy() / np.maximum(ulp, 1e-45)).max())
+
+
+def phase_batch(device, geometry=None, seconds=0.05, n_seeds=8):
     """run_batch lanes against run(); returns (launches, ms, records)."""
     import numpy as np
     import torch
     from repro_torch.api import Experiment
+    from repro_torch.bench.fleet import fleet_jobs
+    geometry = geometry or fleet_geometry()
     jobs = fleet_jobs(geometry["max_jobs"], geometry["n_servers"])
     seeds = tuple(range(n_seeds))
     out, launches = {}, {}
@@ -971,10 +1008,7 @@ def phase_batch(device, geometry=FLEET, seconds=0.05, n_seeds=8):
                 if not torch.equal(a, b):
                     raise AssertionError(f"{name} lane {k}: {f} differs from "
                                          f"run(seed={seed})")
-            a = batch.state.bytes_bin[k].cpu().double()
-            b = one.state.bytes_bin.cpu().double()
-            ulp = np.spacing(b.abs().numpy().astype(np.float32)).astype(float)
-            gap = ((a - b).abs().numpy() / np.maximum(ulp, 1e-45)).max()
+            gap = ulps_apart(batch.state.bytes_bin[k], one.state.bytes_bin)
             if gap > n_adds:
                 raise AssertionError(f"{name} lane {k}: bytes_bin {gap:.0f} "
                                      f"ulps from run(), bound {n_adds}")
@@ -1061,11 +1095,13 @@ def poisson_card_vs_cpu(exp, ticks):
     return n, differ
 
 
-def phase_poisson(device, geometry=FLEET, seconds=0.02, draw_ticks=8):
+def phase_poisson(device, geometry=None, seconds=0.02, draw_ticks=8):
     """Fleet jobs on Poisson arrivals (themis fused); returns launches."""
     import math
     import torch
     from repro_torch.api import Experiment
+    from repro_torch.bench.fleet import fleet_jobs
+    geometry = geometry or fleet_geometry()
     n_jobs, n_srv = geometry["max_jobs"], geometry["n_servers"]
     jobs = fleet_jobs(n_jobs, n_srv)
 
@@ -1628,12 +1664,13 @@ def phase_batch_plane(device, seconds=None, seeds=None, n_jobs=None,
     return {"tick_step[themis]": launches["tick_step"]}, metrics
 
 
-#: docs/workspace.md's example knob, and its grid and seeds.
-WORKSPACE_SECONDS = 1.0
+#: docs/workspace.md's example knob (its EXAMPLE_SECONDS = 1, cut in depth
+#: to 0.5 s), and its grid and seeds.
+WORKSPACE_SECONDS = 0.5
 WORKSPACE_GRID = {"burst_s": [0.5, 1.0], "repay": [0.5, 1.0]}
 
 
-def phase_workspace(device, seconds=WORKSPACE_SECONDS, solo_seconds=2.0):
+def phase_workspace(device, seconds=WORKSPACE_SECONDS, solo_seconds=1.0):
     """docs/workspace.md's resumable sweep on the card (interrupted by
     max_chunks, resumed, reused; merged = plain bit for bit), then a themis
     solo cached in the workspace (first call one tick_step launch per
@@ -1716,6 +1753,222 @@ def phase_workspace(device, seconds=WORKSPACE_SECONDS, solo_seconds=2.0):
             f"{w_a:.2f} s, kernel launches {n_a}; cached call "
             f"{w_b * 1e3:.1f} ms, kernel launches {n_b}, same result")
     return {"tick_step[themis]": n_a["tick_step"]}
+
+
+# -- fleet sharding: the engine on a mesh of ranks ------------------------------
+
+#: tests/test_shard.py's _BIT_IDENTITY job list (its Poisson phase
+#: included), geometry, horizon and batch seeds.
+SHARD_JOBS = [dict(user=0, size=2, procs=40, req_mb=8, think_s=0.002),
+              dict(user=1, size=1, procs=20, req_mb=4,
+                   phases=[dict(start_s=0.0, duration_s=0.08,
+                                arrival="poisson", rate_hz=300),
+                           dict(start_s=0.1, duration_s=0.1)]),
+              dict(user=2, size=1, procs=10, req_mb=16, start_s=0.04,
+                   think_s=0.001)]
+SHARD_GEOM = dict(n_servers=4, max_jobs=8, n_workers=4, seed=3)
+SHARD_SECONDS = 0.2
+SHARD_SEEDS = (1, 2, 3, 4)
+SHARD_SCHEDULERS = ("themis", "adaptbf")
+SHARD_RANKS = 4
+
+
+def shard_experiment(scheduler, device, **knobs):
+    from repro_torch.api import Experiment
+    return Experiment(policy="user-fair", scheduler=scheduler, device=device,
+                      **SHARD_GEOM, **knobs).add_jobs(SHARD_JOBS)
+
+
+def state_digest(state) -> str:
+    """sha256 of every leaf's bytes (aux included) and the tick."""
+    import hashlib
+    h = hashlib.sha256(str(state.t).encode())
+    for f in state._fields:
+        leaves = (state.aux if f == "aux" else
+                  () if f == "t" else (getattr(state, f),))
+        for x in leaves:
+            h.update(x.cpu().contiguous().view(-1).numpy().tobytes())
+    return h.hexdigest()
+
+
+def shard_rank(device):
+    """One rank of the shard phase's world: themis and adaptbf ``run`` at
+    ``shard_servers=4`` (rank 0 timing it between barriers) and
+    ``run_batch`` at ``mesh_shape=(2, 2)`` over ``SHARD_SEEDS``.  Returns
+    rank 0's states on the CPU, and every rank's digest of its results, its
+    kernel launches and its collectives per tick."""
+    import torch.distributed as dist
+    from repro_torch.core import engine, shard
+    reset_launches()
+    out, digests, per_tick = {}, [], {}
+    for name in SHARD_SCHEDULERS:
+        exp = shard_experiment(name, device, shard_servers=SHARD_RANKS)
+        c0 = shard.COLLECTIVES
+        shard.barrier()
+        t0 = synced(device)
+        res = exp.run(SHARD_SECONDS)
+        t1 = synced(device)
+        shard.barrier()
+        per_tick[name] = (shard.COLLECTIVES - c0) / res.ticks
+        batch = shard_experiment(name, device, mesh_shape=(2, 2)).run_batch(
+            SHARD_SECONDS, seeds=SHARD_SEEDS)
+        out[name] = dict(run=engine.map_state(res.state, lambda x: x.cpu()),
+                         batch=engine.map_state(batch.state,
+                                                lambda x: x.cpu()),
+                         ms_per_tick=(t1 - t0) / res.ticks * 1e3)
+        digests += [state_digest(res.state), state_digest(batch.state)]
+    mine = dict(digest=digests, launches=read_launches(),
+                collectives_per_tick=per_tick)
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return dict(results=out, ranks=ranks, backend=dist.get_backend())
+
+
+def leaves_equal_but_bytes(a, b, tag, n_adds):
+    """Every leaf of states ``a`` and ``b`` (aux included) equal, but
+    ``bytes_bin``, held within ``n_adds`` ulps (the order of the card's
+    atomic adds).  Returns that gap."""
+    import torch
+    if a.t != b.t:
+        raise AssertionError(f"{tag}: t differs")
+    for f in a._fields:
+        if f in ("t", "bytes_bin"):
+            continue
+        pairs = (zip(a.aux._fields, a.aux, b.aux) if f == "aux"
+                 else ((f, getattr(a, f), getattr(b, f)),))
+        for name, x, y in pairs:
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise AssertionError(f"{tag}: {name} differs")
+    gap = ulps_apart(a.bytes_bin, b.bytes_bin)
+    if gap > n_adds:
+        raise AssertionError(f"{tag}: bytes_bin {gap:.0f} ulps apart, bound "
+                             f"{n_adds}")
+    return gap
+
+
+def phase_shard(device):
+    """The 4-rank sharded runs against the unsharded card runs (every leaf
+    exact but bytes_bin) and against the CPU's integer counters; every
+    rank's result equal.  Returns rank 0's token_select launches."""
+    import torch
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    world = spawn(shard_rank, SHARD_RANKS, args=(device,), backend="gloo",
+                  device=device)
+    spawn_s = time.perf_counter() - t0
+    ranks = world["ranks"]
+    if len({tuple(r["digest"]) for r in ranks}) != 1:
+        raise AssertionError("shard: the ranks' results differ")
+    n_cards = torch.cuda.device_count() if device != "cpu" else 1
+    ms = {}
+    for name in SHARD_SCHEDULERS:
+        got = world["results"][name]
+        exp = shard_experiment(name, device)
+        n_adds = lane_bytes_bound(exp.engine_config())
+        t1 = synced(device)
+        one = exp.run(SHARD_SECONDS)
+        t2 = synced(device)
+        ms[name] = dict(x1=(t2 - t1) / one.ticks * 1e3,
+                        x4=got["ms_per_tick"])
+        gap = leaves_equal_but_bytes(got["run"], one.state, f"{name} run x4",
+                                     n_adds)
+        batch = exp.run_batch(SHARD_SECONDS, seeds=SHARD_SEEDS)
+        gap_b = leaves_equal_but_bytes(got["batch"], batch.state,
+                                       f"{name} run_batch (2, 2)", n_adds)
+        cpu = shard_experiment(name, "cpu").run(SHARD_SECONDS)
+        bad = int_leaves_equal(got["run"], cpu.state)
+        if bad is not None:
+            if name != "themis":
+                raise AssertionError(f"{name} run x4: {bad} differs from the "
+                                     "CPU's")
+            flip, why, _, _ = lockstep(
+                name, "scan", device, one.ticks,
+                make=lambda dev: shard_experiment(name, dev))
+            say("shard", f"{name}: card and CPU first differ at tick {flip}: "
+                f"{why}")
+        say("shard", f"{name}: run at shard_servers=4 = the unsharded card "
+            f"run in every leaf but bytes_bin ({gap:.0f} ulps, bound "
+            f"{n_adds}); run_batch at mesh (2, 2) over seeds "
+            f"{list(SHARD_SEEDS)} = the unsharded batch ({gap_b:.0f} ulps); "
+            f"integer counters {'=' if bad is None else 'vs'} the CPU's; "
+            f"completed {int(cpu.completed.sum())}")
+    say("shard", f"backend {world['backend']}, {SHARD_RANKS} ranks on "
+        f"{n_cards} card(s) ({SHARD_RANKS // n_cards} ranks per card), "
+        f"collectives per tick {ranks[0]['collectives_per_tick']}; ms/tick "
+        f"{json.dumps(ms)}; world {spawn_s:.1f} s; every rank's result "
+        "equal")
+    say("shard", "kernel launches per rank " + json.dumps(
+        [r["launches"] for r in ranks]))
+    return ranks[0]["launches"]["token_select"]
+
+
+#: The fleet phase's depth: the reference's 0.1 s cut to 0.02 s (100 ticks
+#: at dt 2e-4), the depth fleet_reference.json was recorded at.
+FLEET_PHASE_SECONDS = 0.02
+FLEET_COUNTERS = ("issued", "completed", "dropped", "idle_worker_ticks")
+FLEET_ROWS = ["fleet_run_us_per_tick_x1", "fleet_gbps_x1",
+              "fleet_run_us_per_tick_x2", "fleet_x2_vs_x1",
+              "fleet_run_us_per_tick_x4", "fleet_x4_vs_x1"]
+
+
+def phase_fleet(device, seconds=FLEET_PHASE_SECONDS):
+    """The fleet rows of repro_torch.bench.fleet at the fleet geometry:
+    the reference's row names, fleet_gbps_x1's text and x1's integer
+    counters equal to bench/fleet_reference.json, every rung's integer
+    counters equal to x1's.  Returns rank 0's launches per rung."""
+    import numpy as np
+    from repro_torch.bench import fleet
+    results = {}
+    rows = fleet.run_fleet(device=device, seconds=seconds, results=results)
+    for r in rows:
+        say("fleet", f"{r.name},{r.us_per_call},{r.derived}")
+    if [r.name for r in rows] != FLEET_ROWS:
+        raise AssertionError(f"fleet rows {[r.name for r in rows]}, expected "
+                             f"{FLEET_ROWS}")
+    ref = fleet.load_reference()
+    if ref["seconds"] != seconds:
+        raise AssertionError(f"fleet_reference.json was recorded at "
+                             f"{ref['seconds']} s, the phase runs {seconds}")
+    got = {r.name: r.derived for r in rows}["fleet_gbps_x1"]
+    want = ref["rows"]["fleet_gbps_x1"]["derived"]
+    if got != want:
+        raise AssertionError(f"fleet_gbps_x1 {got!r}, the reference's "
+                             f"{want!r}")
+    one = results[1]
+    same = lambda a, b: np.array_equal(np.reshape(a, -1), np.reshape(b, -1))
+    bad = [f for f in FLEET_COUNTERS if not same(one[f], ref["x1"][f])]
+    if bad:
+        # The card's themis picks may differ from the CPU's at edge-band
+        # picks only: step the card and the CPU together, name the first
+        # flip, and hold the CPU run to the reference.
+        s, j, w, _ = fleet.geometry()
+        flip, why, _, cpu = lockstep(
+            "themis", "fused", device, one["ticks"],
+            make=lambda dev: fleet.experiment(s, j, w, dev, 1))
+        if flip is None:
+            raise AssertionError(f"fleet x1: {bad} differ from the "
+                                 "reference's, yet card and CPU agree")
+        for f in FLEET_COUNTERS:
+            if not same(getattr(cpu, f).cpu().numpy(), ref["x1"][f]):
+                raise AssertionError(f"fleet x1 on the CPU: {f} differs "
+                                     "from the reference's")
+        say("fleet", f"x1: {bad} differ from the reference's after an "
+            f"edge-band pick at tick {flip}: {why}; the CPU run equals the "
+            "reference's counters")
+    for k, rung in results.items():
+        for f in FLEET_COUNTERS:
+            if not np.array_equal(rung[f], one[f]):
+                raise AssertionError(f"fleet x{k}: {f} differs from x1's")
+        say("fleet", f"x{k}: {rung['wall_s'] / rung['ticks'] * 1e3:.3f} "
+            f"ms/tick over {rung['ticks']} ticks"
+            + (f", world {rung['spawn_s']:.1f} s" if k > 1 else "")
+            + "; per rank launches and collectives per tick "
+            + json.dumps(rung["ranks"]))
+    say("fleet", f"fleet_gbps_x1 = the reference's text ({want!r}); x1's "
+        f"integer counters {'vs' if bad else '='} the reference's; every "
+        f"rung's integer counters equal x1's (completed "
+        f"{int(one['completed'].sum())})")
+    return {k: rung["ranks"][0] for k, rung in results.items()}
 
 
 # -- the dense serving path (h2o-danube-1.8b) -----------------------------------
@@ -2786,6 +3039,11 @@ def main() -> int:
     ws_launches = timed("workspace", phase_workspace, device)
     launches["tick_step[themis]"] += (plane_launches["tick_step[themis]"]
                                       + ws_launches["tick_step[themis]"])
+    launches["token_select"] += timed("shard", phase_shard, device)
+    fleet_launches = timed("fleet", phase_fleet, device)
+    launches["tick_step[themis]"] += fleet_launches[1]["tick_step"]
+    launches["token_select"] += sum(r["token_select"]
+                                    for k, r in fleet_launches.items() if k > 1)
     params, served, layer0, serve = timed("serve", phase_serve, device)
     launches["flash_attention"] = served["flash_attention"]
     say("serve", "metrics " + json.dumps(serve))

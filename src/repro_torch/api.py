@@ -21,6 +21,15 @@ through it.  ``sweep(workspace=...)`` and ``solo(workspace=...)`` resume
 and cache runs in a :mod:`repro_torch.workspace` store, and
 :meth:`Experiment.batch` opens the batch plane
 (:class:`~repro_torch.batch.api.BatchExperiment`).
+
+Fleet scale: any extra keyword (``**engine_kw``) flows to
+:class:`~repro_torch.core.engine.EngineConfig`, the sharding knobs
+included: ``Experiment(..., shard_servers=4)`` (or ``mesh_shape=(m, k)``)
+splits the engine's server slabs (and the sweep grid) over the ranks of a
+``torch.distributed`` world (:mod:`repro_torch.core.shard`, started by
+:func:`repro_torch.launch.mesh.spawn` or ``torchrun``).  Every rank calls
+``run``/``run_batch``/``sweep``/``solo`` and gets the unsharded run's
+result.
 """
 from __future__ import annotations
 

@@ -199,7 +199,9 @@ class BBCluster:
     does.  ``tick_impl`` is accepted for the reference's signature and
     selects nothing: a themis pop launches ``token_select`` on the card and
     runs its plain version on the CPU.  ``shard_servers``/``mesh_shape`` go
-    to the engine's config, which refuses sharding (not ported)."""
+    to the engine's config for parity with it (validated there: sharding
+    needs a process group with enough ranks); ``drain`` ignores them, as the
+    reference's does: its eager draw already sees the full ``[S, J]``."""
 
     def __init__(self, n_servers: int = 2, *, policy: str | Policy = "size-fair",
                  scheduler: str = "themis", scheduler_params=None,

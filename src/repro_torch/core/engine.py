@@ -29,8 +29,11 @@ the scheduler's params are per-lane float32 tensors
 The tick updates the state's time wheel and arrival rings in place (they
 are the two large tensors); every other leaf is replaced.
 
-Not ported yet, and refused with ``NotImplementedError``: fleet sharding
-(``shard_servers``/``mesh_shape``, ``ROADMAP.md`` section 1, item 7).
+Fleet sharding (:mod:`.shard`): with ``shard_servers``/``mesh_shape`` set,
+every rank of a ``torch.distributed`` world calls :func:`run` or
+:func:`run_batch`; each rank of the mesh keeps a slab of the servers and
+runs the per-worker scan on the gathered control plane, and every rank
+returns the full result, equal to the unsharded run's.
 """
 from __future__ import annotations
 
@@ -49,6 +52,9 @@ from .ordered import ordered_sum
 from .params import SchedulerParams, lane_params
 from .policy import Policy, PolicyChain
 from .scheduler import Scheduler, TickView, get_scheduler
+from .shard import (AXIS_SERVERS, AXIS_SWEEP, SLAB_FIELDS, ServerSlabs,
+                    any_rank, broadcast, resolve_shard, server_shards,
+                    state_specs, world_size)
 from ..kernels.tick_step.ops import tick_step
 from ..scenario.lowering import (ARRIVAL_CLOSED, ARRIVAL_INTERVAL,
                                  ARRIVAL_POISSON, lower_for_config)
@@ -93,11 +99,8 @@ class EngineConfig:
         if self.tick_impl not in TICK_IMPLS:
             raise ValueError(
                 f"unknown tick_impl {self.tick_impl!r}; one of {TICK_IMPLS}")
-        if self.shard_servers != 1 or self.mesh_shape is not None:
-            raise NotImplementedError(
-                "fleet sharding (shard_servers / mesh_shape) is not ported to "
-                "repro_torch yet (ROADMAP.md section 1, item 7)")
         get_scheduler(self.scheduler)
+        resolve_shard(self)    # the mesh knobs fail here, before any run
 
     @property
     def worker_bw(self) -> float:
@@ -110,8 +113,11 @@ def resolve_tick_impl(cfg: EngineConfig, sched: Scheduler) -> str:
     """The worker path of this (config, scheduler), by the reference's rule:
     the fused kernel needs a scheduler with a kernel mode (``kernel_tick``)
     whose ``charge`` is the base no-op (the kernel carries no aux state);
-    every other scheduler runs the per-worker scan."""
-    lowered = sched.kernel_tick and type(sched).charge is Scheduler.charge
+    every other scheduler runs the per-worker scan.  A server-sharded
+    config always runs the scan, silently: the fused kernel's ``[S, J, W]``
+    window is not slab-local."""
+    lowered = (sched.kernel_tick and type(sched).charge is Scheduler.charge
+               and server_shards(cfg) == 1)
     return "fused" if cfg.tick_impl == "fused" and lowered else "scan"
 
 
@@ -175,11 +181,15 @@ def make_workload(cfg: EngineConfig, jobs: Sequence[dict]
 
 
 def init_state(cfg: EngineConfig, n_bins: int, device=None,
-               seeds: Optional[Sequence[int]] = None) -> EngineState:
+               seeds: Optional[Sequence[int]] = None,
+               rows: Optional[int] = None) -> EngineState:
     """The zero state of one lane per seed (by default the one seed
-    ``cfg.seed``); every leaf leads with ``[len(seeds)]``."""
+    ``cfg.seed``); every leaf leads with ``[len(seeds)]``.  ``rows`` sizes
+    the server axis of the slab fields (a rank's slab; default all
+    ``n_servers``)."""
     device = _device.resolve_device(cfg.device if device is None else device)
-    s_, j_, w_ = cfg.n_servers, cfg.max_jobs, cfg.n_workers
+    s_ = cfg.n_servers if rows is None else rows
+    j_, w_ = cfg.max_jobs, cfg.n_workers
     seeds = (cfg.seed,) if seeds is None else seeds
     lanes = (len(seeds),)
     z = lambda shape, dtype: torch.zeros(lanes + shape, dtype=dtype,
@@ -198,18 +208,23 @@ def init_state(cfg: EngineConfig, n_bins: int, device=None,
         idle_worker_ticks=z((), torch.int32), dropped=z((), torch.int32))
 
 
-def _push_arrivals(state: EngineState, arrivals: torch.Tensor,
-                   t_sec: float) -> EngineState:
-    """Append ``arrivals[l, s, j]`` identically-stamped requests to each
-    ring (in place); arrivals beyond a ring's free space are rejected and
-    counted in ``dropped``."""
-    cap = state.arr_time.shape[-1]
-    space = torch.clamp_min(cap - state.qcount, 0)
-    accepted = torch.minimum(arrivals, space)
-    idx = torch.arange(cap, dtype=torch.int32, device=arrivals.device)
-    tail = (state.head + state.qcount)[..., None]
-    pos = (idx - tail) % cap
-    state.arr_time.masked_fill_(pos < accepted[..., None], t_sec)
+def _accept(qcount: torch.Tensor, arrivals: torch.Tensor, cap: int):
+    """The arrivals each ring has room for."""
+    return torch.minimum(arrivals, torch.clamp_min(cap - qcount, 0))
+
+
+def _write_ring(arr_time, head, qcount, accepted, t_sec: float) -> None:
+    """Stamp ``accepted[l, s, j]`` new requests into each ring, in place."""
+    cap = arr_time.shape[-1]
+    idx = torch.arange(cap, dtype=torch.int32, device=arr_time.device)
+    pos = (idx - (head + qcount)[..., None]) % cap
+    arr_time.masked_fill_(pos < accepted[..., None], t_sec)
+
+
+def _account_arrivals(state: EngineState, arrivals: torch.Tensor,
+                      accepted: torch.Tensor) -> EngineState:
+    """The counters after ``accepted`` of ``arrivals[l, s, j]`` went into
+    the rings; the rest are rejected and counted in ``dropped``."""
     return state._replace(
         qcount=state.qcount + accepted,
         known=state.known | (accepted > 0),
@@ -218,14 +233,34 @@ def _push_arrivals(state: EngineState, arrivals: torch.Tensor,
         + (arrivals - accepted).sum(dim=(-2, -1)).to(torch.int32))
 
 
-def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
+def _push_arrivals(state: EngineState, arrivals: torch.Tensor,
+                   t_sec: float) -> EngineState:
+    """Append ``arrivals[l, s, j]`` identically-stamped requests to each
+    ring (in place); arrivals beyond a ring's free space are rejected and
+    counted in ``dropped``."""
+    accepted = _accept(state.qcount, arrivals, state.arr_time.shape[-1])
+    _write_ring(state.arr_time, state.head, state.qcount, accepted, t_sec)
+    return _account_arrivals(state, arrivals, accepted)
+
+
+def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int,
+              slabs: Optional[ServerSlabs] = None,
+              n_lanes: Optional[int] = None):
     """Build the per-tick transition ``tick(p, state) -> state``.
 
     ``state`` leads every leaf with its lanes (:func:`init_state`); ``p`` is a params schema of the configured scheduler,
     with Python numbers (every lane the same) or per-lane tensors
     (:func:`~.params.lane_params`).  ``tick.poisson_unfinished`` holds, per
     lane, whether a Poisson draw ran out of iterations (see
-    :func:`~.prng.poisson`); :func:`run` raises if it is set."""
+    :func:`~.prng.poisson`); :func:`run` raises if it is set.
+
+    With ``slabs`` (a server-sharded run) the state's slab fields hold this
+    rank's rows: each tick gathers the control plane (one collective),
+    computes every decision on the full ``[L, S, ...]`` plane with the
+    unsharded tick's ops, and keeps its own rows.  ``n_lanes``, the run's
+    lanes over every sweep rank, sizes the Poisson loops (default: this
+    state's lanes), so each rank runs the iterations the unsharded run
+    does."""
     s_, j_, w_ = cfg.n_servers, cfg.max_jobs, cfg.n_workers
     cap, h_ = cfg.ring_cap, cfg.wheel
     device = wl.procs.device
@@ -242,6 +277,10 @@ def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
         if cfg.policy is None:
             raise ValueError(f"scheduler {cfg.scheduler!r} needs a policy")
         chain = PolicyChain.from_table(cfg.policy, table)
+    # A sharded tick gathers the aux only for schedulers that keep aux
+    # state (themis and fifo never touch it).
+    keeps_aux = (type(sched).pre_tick is not Scheduler.pre_tick
+                 or type(sched).charge is not Scheduler.charge)
     worker_ids = torch.arange(w_, dtype=torch.int64, device=device)
     # True divisions by device scalars: dividing by a Python float on the
     # card multiplies by its reciprocal, which rounds differently.
@@ -301,6 +340,39 @@ def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
 
     lanes_of(sched.params(cfg), 1)
 
+    def gather_plane(state: EngineState, arrivals, slot: int, t_sec: float):
+        """The sharded tick's arrivals: stamp this slab's rings, then gather
+        the control plane (the wheel's current slot, the ring window of
+        the W requests at each head, and every small slab field) and
+        account the arrivals on the full plane.  Returns that plane
+        (``arr_time`` and ``wheel`` stay this rank's) and the read of a
+        ring's head stamp at a full-plane ``head``."""
+        rows = slabs.rows
+        wheel_slot = state.wheel[..., slot].clone()
+        _write_ring(state.arr_time, state.head, state.qcount,
+                    _accept(state.qcount, wheel_slot + rows(arrivals), cap),
+                    t_sec)
+        state.wheel[..., slot] = 0
+        ring_idx = ((state.head[..., None] + worker_ids) % cap).to(torch.int64)
+        window = state.arr_time.gather(3, ring_idx)
+        aux = list(state.aux) if keeps_aux else []
+        (wheel_slot, qcount, head, known, seg, free_at, window, *aux
+         ) = slabs.gather([wheel_slot, state.qcount, state.head, state.known,
+                           state.seg, state.free_at, window, *aux])
+        plane = state._replace(
+            qcount=qcount, head=head, known=known, seg=seg, free_at=free_at,
+            aux=AuxState(*aux) if keeps_aux else state.aux)
+        arrivals = wheel_slot + arrivals
+        plane = _account_arrivals(plane, arrivals,
+                                  _accept(qcount, arrivals, cap))
+
+        def head_stamp(h):
+            # Worker w pops at ring offset (h - head) % cap <= w < W, so the
+            # window covers every head a tick reads.
+            off = ((h - head) % cap).clamp_max(w_ - 1).to(torch.int64)
+            return window.gather(3, off[..., None])[..., 0]
+        return plane, head_stamp
+
     def tick(p, state: EngineState) -> EngineState:
         n_l = state.qcount.shape[0]
         p = lanes_of(p, n_l)
@@ -332,15 +404,15 @@ def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
             inject = inject | (phase_live & (gap == 0)
                                & (wl.arrival_mode == ARRIVAL_INTERVAL)
                                ).any(dim=1)
-        arrivals = state.wheel[..., slot] + torch.where(
-            inject[None, :], wl.procs, 0)
+        arrivals = torch.where(inject[None, :], wl.procs, 0).expand(
+            n_l, s_, j_)
         key_carry = state.key
         if has_poisson:
             ks = prng.split(state.key)
             key_carry, kp = ks[:, 0], ks[:, 1]
             lam = ordered_sum(torch.where(phase_live & poisson_mode,
                                           wl.arrival_rate, 0.0))
-            knuth_iters, rejection_iters = poisson_plan(t, n_l)
+            knuth_iters, rejection_iters = poisson_plan(t, n_lanes or n_l)
             counts, unfinished = prng.poisson(
                 kp, (lam[None, :] * wl.procs).expand(n_l, s_, j_),
                 knuth_iters=knuth_iters, rejection_iters=rejection_iters)
@@ -348,8 +420,15 @@ def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
             tick.poisson_unfinished = (unfinished
                                        if tick.poisson_unfinished is None
                                        else tick.poisson_unfinished | unfinished)
-        state.wheel[..., slot] = 0
-        state = _push_arrivals(state, arrivals, t_sec)
+        if slabs is None:
+            arrivals = state.wheel[..., slot] + arrivals
+            state.wheel[..., slot] = 0
+            state = _push_arrivals(state, arrivals, t_sec)
+            arr_time = state.arr_time
+            head_stamp = lambda h: arr_time.gather(
+                3, (h % cap).to(torch.int64)[..., None])[..., 0]
+        else:
+            state, head_stamp = gather_plane(state, arrivals, slot, t_sec)
 
         # -- 2. scheduler bookkeeping -----------------------------------------
         aux = sched.pre_tick(cfg, p, state.aux, state.qcount, t)
@@ -363,8 +442,11 @@ def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
         # Worker w's key, fold_in(sub, w), for the schedulers that draw.
         worker_keys = lambda: prng.fold_in(sub[None], worker_ids[:, None])
         wheel = state.wheel
-        # Flat offset of row (l, s) in [L, S, J] tensors.
-        row_base = (lane[:, None] * s_ + torch.arange(s_, device=device)) * j_
+        # Flat offset of row (l, s) in the [L, S, J, H] wheel (a sharded
+        # tick's holds its slab's rows).
+        n_rows = wheel.shape[1]
+        row_base = (lane[:, None] * n_rows
+                    + torch.arange(n_rows, device=device)) * j_
         bytes_job = torch.zeros((n_l * j_,), dtype=torch.float32, device=device)
         pops_job = torch.zeros((n_l * j_,), dtype=torch.int32, device=device)
 
@@ -382,7 +464,10 @@ def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
 
         def wheel_add(j_safe, slot, vals):
             """``wheel[l, s, j_safe, slot] += vals`` (integer adds, any
-            order), one ``index_add_`` on the flat wheel."""
+            order), one ``index_add_`` on the flat wheel; a sharded tick
+            adds its own rows."""
+            if slabs is not None:
+                j_safe, slot, vals = map(slabs.rows, (j_safe, slot, vals))
             base = row_base.view(row_base.shape + (1,) * (j_safe.dim() - 2))
             wheel.view(-1).index_add_(0, ((base + j_safe) * h_ + slot).reshape(-1),
                                       vals.reshape(-1))
@@ -430,11 +515,7 @@ def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
             for w in range(w_):
                 free = free_at[..., w] < t_next
                 demand = qcount > 0
-                head_time = torch.where(
-                    demand,
-                    state.arr_time.gather(
-                        3, (head % cap).to(torch.int64)[..., None])[..., 0],
-                    torch.inf)
+                head_time = torch.where(demand, head_stamp(head), torch.inf)
                 j_sel = sched.select(cfg, p, shares, head_time, demand, aux,
                                      req_now, None if rand is None else rand[w])
                 valid = free & (j_sel >= 0)
@@ -470,15 +551,26 @@ def make_tick(cfg: EngineConfig, wl: Workload, table: JobTable, n_bins: int):
             state = state._replace(
                 seg=sync_segments(chain, support, n_iters=cfg.sinkhorn_iters),
                 synced=support.any(dim=-2))
+        if slabs is not None:
+            slab = lambda x: slabs.rows(x).contiguous()
+            state = state._replace(
+                qcount=slab(state.qcount), head=slab(state.head),
+                free_at=slab(state.free_at), known=slab(state.known),
+                seg=slab(state.seg),
+                aux=AuxState(*map(slab, state.aux)) if keeps_aux else state.aux)
         return state
 
     tick.poisson_unfinished = None
     return tick
 
 
-def _check_poisson(tick) -> None:
-    if tick.poisson_unfinished is not None \
-            and bool(tick.poisson_unfinished.any()):
+def _poisson_short(tick) -> bool:
+    return (tick.poisson_unfinished is not None
+            and bool(tick.poisson_unfinished.any()))
+
+
+def _check_poisson(short: bool) -> None:
+    if short:
         raise RuntimeError(
             "a Poisson draw needed more iterations than the engine gave it "
             "(prng.poisson_iters / prng.rejection_iters); its count differs "
@@ -498,19 +590,116 @@ def _check_device(cfg: EngineConfig, wl: Workload, table: JobTable):
     return device
 
 
+def _simulate(cfg, wl, table, ticks, n_bins, device, points, seeds,
+              p_lanes, grid: Optional[str] = None) -> EngineState:
+    """``len(points) * len(seeds)`` lanes (point-major) for ``ticks`` ticks;
+    ``p_lanes(points, seeds)`` gives the params the tick takes.  With
+    ``cfg``'s mesh knobs set the run is sharded, and ``grid`` (``"points"``
+    or ``"seeds"``; None for :func:`run`) names the axis a sweep axis
+    splits."""
+    shard = resolve_shard(cfg)
+    if shard is None:
+        tick = make_tick(cfg, wl, table, n_bins)
+        state = init_state(cfg, n_bins, device, seeds=seeds * len(points))
+        p = p_lanes(points, seeds)
+        for _ in range(ticks):
+            state = tick(p, state)
+        _check_poisson(_poisson_short(tick))
+        return state
+    split = grid is not None and shard.n_sweep > 1
+    lanes = points if grid == "points" else seeds
+    if split and len(lanes) % shard.n_sweep:
+        what = "params_points" if grid == "points" else "seeds"
+        raise ValueError(
+            f"len({what})={len(lanes)} is not divisible by the mesh's sweep "
+            f"axis ({shard.n_sweep}); each rank sweeps an equal slice of "
+            "the grid")
+    n_lanes = len(points) * len(seeds)
+    mesh = shard.mesh(device.type)
+    state, short = None, False
+    if mesh.get_coordinate() is not None:
+        slabs = ServerSlabs(shard, mesh, cfg.n_servers)
+        if split:
+            block = len(lanes) // shard.n_sweep
+            mine = lanes[slabs.sweep_index * block:
+                         (slabs.sweep_index + 1) * block]
+            points, seeds = ((mine, seeds) if grid == "points"
+                             else (points, mine))
+        # A sweep-only mesh (one server slab) gathers nothing per tick.
+        tick = make_tick(cfg, wl, table, n_bins, n_lanes=n_lanes,
+                         slabs=slabs if shard.n_servers > 1 else None)
+        state = init_state(cfg, n_bins, device, seeds=seeds * len(points),
+                           rows=slabs.height)
+        p = p_lanes(points, seeds)
+        for _ in range(ticks):
+            state = tick(p, state)
+        short = _poisson_short(tick)
+        state = _collect(state, slabs, split)
+    _check_poisson(any_rank(short))
+    if state is None:       # a rank outside the mesh: rank 0 sends it all
+        state = init_state(cfg, n_bins, device,
+                           seeds=[0] * n_lanes)._replace(t=ticks)
+    return _from_rank0(state, everything=world_size() > shard.n_devices)
+
+
+_LEAVES = ([f for f in EngineState._fields if f not in ("t", "aux")]
+           + [f"aux.{f}" for f in AuxState._fields])
+
+
+def _get(state: EngineState, name: str) -> torch.Tensor:
+    if name.startswith("aux."):
+        return getattr(state.aux, name[4:])
+    return getattr(state, name)
+
+
+def _with(state: EngineState, names, values) -> EngineState:
+    new = dict(zip(names, values))
+    aux = {f[4:]: v for f, v in new.items() if f.startswith("aux.")}
+    top = {f: v for f, v in new.items() if not f.startswith("aux.")}
+    return state._replace(aux=state.aux._replace(**aux), **top)
+
+
+def _collect(state: EngineState, slabs: ServerSlabs, split: bool
+             ) -> EngineState:
+    """The full state from this rank's: the fields :func:`.shard.state_specs`
+    splits over the servers axis gathered over it, then (``split``) every
+    field over the sweep axis."""
+    specs = state_specs(state, slabs.spec,
+                        (AXIS_SWEEP,) if split else (None,))
+    for axis, gather in ((AXIS_SERVERS, slabs.gather),
+                         (AXIS_SWEEP, slabs.gather_lanes)):
+        names = [n for n in _LEAVES
+                 if axis in getattr(specs, n.split(".")[0])]
+        if names:
+            state = _with(state, names,
+                          gather([_get(state, n) for n in names]))
+    return state
+
+
+def _from_rank0(state: EngineState, everything: bool) -> EngineState:
+    """Rank 0's replicated fields on every rank of the world (on the card a
+    rank's float throughput bins follow its own atomic adds), and with
+    ``everything`` every field (for ranks outside the mesh)."""
+    names = [n for n in _LEAVES
+             if everything or n.split(".")[0] not in SLAB_FIELDS]
+    return _with(state, names,
+                 broadcast([_get(state, n) for n in names], src=0))
+
+
 def run(cfg: EngineConfig, wl: Workload, table: JobTable, sim_seconds: float):
     """Run the simulation on ``cfg.device``; returns the reference's dict:
     ``state`` (final :class:`EngineState`), ``gbps[J, NB]``, ``bin_s``,
     ``issued``, ``completed``, ``dropped``, ``idle_worker_ticks``, ``ticks``.
+
+    With ``cfg.mesh_shape``/``shard_servers`` set, every rank of the world
+    calls this and gets the full result (see :mod:`.shard`); a sweep axis
+    is idle here (one run has one lane).
     """
     device = _check_device(cfg, wl, table)
     ticks, n_bins = _ticks_bins(cfg, sim_seconds)
-    tick = make_tick(cfg, wl, table, n_bins)
-    state = init_state(cfg, n_bins, device)
     params = get_scheduler(cfg.scheduler).params(cfg)
-    for _ in range(ticks):
-        state = tick(params, state)
-    _check_poisson(tick)
+    state = _simulate(cfg, wl, table, ticks, n_bins, device, [params],
+                      [cfg.seed], lambda points, seeds: points[0])
     state = map_state(state, lambda x: x[0])
     bin_s = cfg.bin_ticks * cfg.dt
     return {
@@ -539,6 +728,11 @@ def run_batch(cfg: EngineConfig, wl: Workload, table: JobTable,
     of ``index_add_``'s atomic adds.  Without ``params_points`` every array
     leads with ``K = len(seeds)``; with them (concrete params of
     ``cfg.scheduler``, one schema, one ``mu_ticks``) with ``[P, K]``.
+
+    Sharded (:mod:`.shard`): a ``servers`` mesh axis slabs the servers as
+    in :func:`run`; a ``sweep`` axis splits the leading grid axis (the
+    ``params_points`` when given, else the seeds), which must divide
+    evenly.  Every rank of the world returns the full result.
     """
     device = _check_device(cfg, wl, table)
     seeds = [prng.normalize_seed(s) for s in seeds]
@@ -555,13 +749,11 @@ def run_batch(cfg: EngineConfig, wl: Workload, table: JobTable,
                     f"params_points entries must be {sched.params_cls.__name__} "
                     f"for scheduler {cfg.scheduler!r}, got {type(p).__name__}")
         lead = (len(points), len(seeds))
-    p_lanes = lane_params(points, len(seeds), device)
     ticks, n_bins = _ticks_bins(cfg, sim_seconds)
-    tick = make_tick(cfg, wl, table, n_bins)
-    state = init_state(cfg, n_bins, device, seeds=seeds * len(points))
-    for _ in range(ticks):
-        state = tick(p_lanes, state)
-    _check_poisson(tick)
+    state = _simulate(
+        cfg, wl, table, ticks, n_bins, device, points, seeds,
+        lambda points, seeds: lane_params(points, len(seeds), device),
+        grid="seeds" if params_points is None else "points")
     state = map_state(state, lambda x: x.reshape(lead + x.shape[1:]))
     bin_s = cfg.bin_ticks * cfg.dt
     host = lambda x: x.cpu().numpy()

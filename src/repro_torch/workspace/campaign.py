@@ -25,11 +25,16 @@ does not enter the key: a point recorded on the CPU is reused on the card.
 ``max_chunks`` bounds one invocation's work: the campaign raises
 :class:`CampaignInterrupted` *after* flushing that many chunks, and the next
 invocation picks up where it stopped.
+
+In a ``torch.distributed`` world (a sharded experiment) every rank calls
+these functions: rank 0 alone writes, between barriers, and the other ranks
+read back what it wrote, so every rank returns the same result.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..core.shard import barrier, is_writer
 from .store import (RunKey, RunRecord, WorkspaceStore, canonical_json,
                     content_hash, encode_payload, env_fingerprint)
 
@@ -139,6 +144,7 @@ def run_sweep(exp, grid, seconds, seeds=tuple(range(4)), *,
     seeds = tuple(int(s) for s in seeds)
     sh = spec_hash(exp, seconds, seeds)
     keys = [point_key(campaign, exp, p, sh) for p in points]
+    _sync(store)
 
     stored: dict[int, dict] = {}
     missing: list[int] = []
@@ -160,11 +166,14 @@ def run_sweep(exp, grid, seconds, seeds=tuple(range(4)), *,
             report["io_writes"] = store.io_writes - writes_before
             raise CampaignInterrupted(report)
         sub = exp.sweep([points[i] for i in idxs], seconds, seeds=seeds)
-        with store.buffered(campaign) as buf:
-            for j, i in enumerate(idxs):
-                payload = _point_payload(sub, j)
-                buf.put(RunRecord(key=keys[i], payload=payload))
-                fresh[i] = payload
+        if is_writer():
+            with store.buffered(campaign) as buf:
+                for j, i in enumerate(idxs):
+                    buf.put(RunRecord(key=keys[i],
+                                      payload=_point_payload(sub, j)))
+        _sync(store)
+        for i in idxs:
+            fresh[i] = store.get(keys[i]).payload
         report["computed"] += len(idxs)
         report["chunks"] += 1
         if progress is not None:
@@ -203,6 +212,14 @@ def _merge(exp, points, seconds, seeds, payloads: dict[int, dict]):
         ticks=int(first["ticks"]))
 
 
+def _sync(store: WorkspaceStore) -> None:
+    """Wait for every rank; then the ranks that do not write re-read the
+    store (nothing without a process group)."""
+    barrier()
+    if not is_writer():
+        store.refresh()
+
+
 # -- cached single runs -------------------------------------------------------
 
 def run_cached(exp, seconds, *, store: WorkspaceStore, name: str):
@@ -216,6 +233,7 @@ def run_cached(exp, seconds, *, store: WorkspaceStore, name: str):
                  params_hash=params.params_hash(),
                  scenario_hash=spec_hash(exp, seconds, (exp.seed,)),
                  env=env_fingerprint())
+    _sync(store)
     rec = store.get(key)
     if rec is None:
         res = exp.run(seconds)
@@ -227,7 +245,10 @@ def run_cached(exp, seconds, *, store: WorkspaceStore, name: str):
             "idle_worker_ticks": int(res.idle_worker_ticks),
             "ticks": int(res.ticks), "seconds": float(res.seconds),
             "n_jobs": int(res.n_jobs)})
-        store.put(rec)
+        if is_writer():
+            store.put(rec)
+        _sync(store)
+        rec = store.get(key)
     p = rec.payload
     return RunResult(
         scheduler=exp.scheduler, params=params,

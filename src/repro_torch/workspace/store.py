@@ -42,6 +42,9 @@ journal lines (an explicit ``put`` is always the newest statement).
 ndarrays round-trip **bit-identically**: they are serialized as base64 of
 the raw buffer plus dtype/shape (``{"__ndarray__": ...}``), not as decimal
 floats — the campaign layer's bit-identical-resume contract rests on this.
+
+In a ``torch.distributed`` world only rank 0 writes (the marker here, the
+records in :mod:`.campaign`); the other ranks read what it wrote.
 """
 from __future__ import annotations
 
@@ -56,6 +59,8 @@ from pathlib import Path
 from typing import Iterator, Optional
 
 import numpy as np
+
+from ..core.shard import is_writer
 
 WORKSPACE_VERSION = 1
 
@@ -213,12 +218,12 @@ class WorkspaceStore:
         self.campaigns_dir = self.root / "campaigns"
         self.io_writes = 0
         marker = self.root / "workspace.json"
-        if not marker.exists():
+        if not marker.exists() and is_writer():
             self.root.mkdir(parents=True, exist_ok=True)
             # The reference's marker: one on-disk format for both packages.
             atomic_write_json(marker, {"format": "repro.workspace",
                                        "version": WORKSPACE_VERSION})
-        else:
+        elif marker.exists():
             doc = json.loads(marker.read_text())
             if doc.get("version", 0) > WORKSPACE_VERSION:
                 raise ValueError(

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports with ``jax`` blocked, loads
 nothing of ``repro``, runs on the card unless asked for the CPU, and refuses
-what it has not ported with ``NotImplementedError``."""
+what cannot run where it is asked for."""
 import os
 import subprocess
 import sys
@@ -22,7 +22,8 @@ bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro.")
              or m == "jax" and sys.modules[m] is not None)
 assert not bad, bad
 for sub in ("workspace.store", "workspace.campaign", "batch.sim",
-            "batch.plan", "batch.bridge", "bench.batch"):
+            "batch.plan", "batch.bridge", "bench.batch", "core.shard",
+            "launch.mesh", "bench.fleet"):
     assert "repro_torch." + sub in names, sub
 print(len(names))
 """
@@ -74,8 +75,10 @@ def test_cuda_without_a_card_raises(no_card, tmp_path):
 
 
 def test_unported_features_refuse():
-    """Fleet sharding is refused; the six schedulers, Poisson phases,
-    run_batch, scenario trees, the service and the batch plane run."""
+    """Fleet sharding outside a world of enough ranks is refused with the
+    reference's ValueError, naming the launcher; the six schedulers,
+    Poisson phases, run_batch, scenario trees, the service and the batch
+    plane run."""
     from repro_torch.api import Experiment
     from repro_torch.bb.service import BBCluster
     from repro_torch.core import engine
@@ -86,9 +89,9 @@ def test_unported_features_refuse():
         engine.EngineConfig(scheduler=name, device="cpu")
     with pytest.raises(ValueError, match="unknown scheduler"):
         engine.EngineConfig(scheduler="fiffo", device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(ValueError, match="launch.mesh.spawn"):
         engine.EngineConfig(scheduler="fifo", shard_servers=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(ValueError, match="needs 2 devices"):
         BBCluster(mesh_shape=(2, 1), device="cpu")
     assert Experiment.batch(n_jobs=4, device="cpu").run("easy").start.shape \
         == (4,)

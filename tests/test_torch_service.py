@@ -100,7 +100,7 @@ def test_autodrain_client_reads_back_and_sharding_refused():
     f.seek(-6, 2)
     assert f.read() == b"hello "
     bb.BBCluster(tick_impl="auto", device="cpu")     # accepted, selects nothing
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(ValueError, match="sharding needs .* 2 ranks"):
         bb.BBCluster(shard_servers=2, device="cpu")
 
 

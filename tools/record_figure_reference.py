@@ -31,12 +31,25 @@ writes ``src/repro_torch/bench/batch_reference.json``: per row its
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/record_figure_reference.py \\
         --batch --seconds 2
+
+``--fleet`` runs the reference's ``benchmarks/bench_fleet.py``
+``run_fleet`` at its full geometry (S = 128, J = 1024, W = 4) for
+``--seconds`` (``BENCH_FLEET_SECONDS``) in a subprocess with
+``XLA_FLAGS=--xla_force_host_platform_device_count=4`` and
+``JAX_PLATFORMS=cpu`` (its x1, x2 and x4 rungs), and writes
+``src/repro_torch/bench/fleet_reference.json``: per row its ``derived``
+text and ``us_per_call``, and under ``x1`` the x1 run's integer counters
+(``issued``, ``completed``, ``dropped``, ``idle_worker_ticks``).
+
+    PYTHONPATH=src python tools/record_figure_reference.py --fleet \\
+        --seconds 0.02
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -45,6 +58,25 @@ REPO = Path(__file__).resolve().parent.parent
 OUT = REPO / "src" / "repro_torch" / "bench" / "fig_reference.json"
 SCEN_OUT = OUT.with_name("scen_reference.json")
 BATCH_OUT = OUT.with_name("batch_reference.json")
+FLEET_OUT = OUT.with_name("fleet_reference.json")
+
+#: Run in the subprocess of ``--fleet``: the reference's rows and its x1
+#: run's integer counters as JSON.
+FLEET_CHILD = """
+import json, jax, numpy as np
+from benchmarks import bench_fleet
+runs, simulate = [], bench_fleet.simulate
+def recording(*args, **kw):
+    out = simulate(*args, **kw)
+    runs.append(out[0])
+    return out
+bench_fleet.simulate = recording
+rows = bench_fleet.run_fleet()
+x1 = {f: np.asarray(getattr(runs[0], f)).tolist() for f in
+      ("issued", "completed", "dropped", "idle_worker_ticks")}
+print(json.dumps({"jax": jax.__version__, "devices": jax.device_count(),
+                  "rows": rows, "x1": x1}))
+"""
 
 
 def stats_per_row(name: str) -> int:
@@ -123,6 +155,39 @@ def record_text_rows(fn, flag: str, seconds: float, out: Path,
     return 0
 
 
+def record_fleet(seconds: float, out: Path) -> int:
+    """The reference's fleet rows from a subprocess with four forced host
+    devices (``XLA_FLAGS`` must be set before jax is imported)."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", BENCH_FLEET_SECONDS=str(seconds),
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.pathsep.join(
+                   [str(REPO / "src"), str(REPO)]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for knob in ("BENCH_FLEET_SERVERS", "BENCH_FLEET_JOBS",
+                 "BENCH_FLEET_WORKERS"):
+        env.pop(knob, None)             # the reference's own geometry
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", FLEET_CHILD], env=env,
+                          cwd=REPO, capture_output=True, text=True,
+                          check=True)
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    doc = {
+        "seconds": seconds,
+        "jax": child["jax"],
+        "backend": "cpu",
+        "devices": child["devices"],
+        "command": ("PYTHONPATH=src python tools/record_figure_reference.py "
+                    f"--fleet --seconds {seconds:g}"),
+        "wall_s": round(time.time() - t0, 1),
+        "rows": {name: {"derived": derived, "us_per_call": us}
+                 for name, us, derived in child["rows"]},
+        "x1": child["x1"],
+    }
+    out.write_text(json.dumps(doc, indent=1) + "\n")
+    print(f"wrote {len(doc['rows'])} rows to {out} in {doc['wall_s']} s")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seconds", type=float, default=2.0)
@@ -131,11 +196,15 @@ def main(argv=None) -> int:
                     help="record the scenario rows instead")
     ap.add_argument("--batch", action="store_true",
                     help="record the batch plane's rows instead")
+    ap.add_argument("--fleet", action="store_true",
+                    help="record the fleet rows instead")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     os.environ["BENCH_SECONDS"] = str(args.seconds)
     os.environ["BENCH_SEEDS"] = str(args.seeds)
     sys.path.insert(0, str(REPO))
+    if args.fleet:
+        return record_fleet(args.seconds, args.out or FLEET_OUT)
     if args.scen:
         from benchmarks import bench_scenarios
         return record_text_rows(bench_scenarios.run_scen, "--scen",
