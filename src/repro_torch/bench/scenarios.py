@@ -22,7 +22,7 @@ from typing import Callable, Optional
 
 from ..api import Experiment, RunResult
 from ..scenario import leaf, mask, overlay, presets, repeat, to_jobs
-from .common import Row, bench_seconds
+from .common import Row, bench_seconds, log_run
 
 
 def onoff_jobs(t: float) -> list[dict]:
@@ -51,7 +51,9 @@ def simulate(scheduler: str, jobs, seconds: float, *, policy="job-fair",
     exp = Experiment(policy=policy, scheduler=scheduler, n_servers=1,
                      device=device).add_jobs(jobs)
     run = lambda: exp.run(seconds)   # noqa: E731
-    return run() if wrap is None else wrap(label or scheduler, run)
+    res = run() if wrap is None else wrap(label or scheduler, run)
+    log_run(res, seconds)
+    return res
 
 
 def run_scen(seconds: Optional[float] = None, *, device: str = "cuda",

@@ -177,14 +177,21 @@ def adaptbf_interval(aux: AuxState, qcount, mu_s: float, server_bw: float,
     of the debt into the pool, waterfill the pooled surplus over the
     deficits; token mass is conserved."""
     need, _ = _bsip_need(qcount, mu_s, server_bw)
-    repay = repay_frac * torch.clamp_min(aux.borrowed, 0.0)
-    donatable = torch.clamp_min(aux.bucket - repay - need, 0.0) + repay
-    deficit = torch.clamp_min(need - (aux.bucket - repay), 0.0)
+    debt = torch.clamp_min(aux.borrowed, 0.0)
+    repay = repay_frac * debt
+    # XLA recomputes the repayment inside each fusion that subtracts it and
+    # contracts bucket - repay_frac * debt into one multiply-add.
+    kept = fma(-debt, repay_frac, aux.bucket)
+    donatable = torch.clamp_min(kept - need, 0.0) + repay
+    deficit = torch.clamp_min(need - kept, 0.0)
     pool = ordered_sum(donatable)
     grant = waterfill(deficit, pool)
     take_frac = ordered_sum(grant) / torch.clamp_min(pool, 1e-30)
     bucket = fma(-donatable, take_frac[..., None], aux.bucket) + grant
-    borrowed = fma(-repay, take_frac[..., None], aux.borrowed) + grant
+    # It also folds (repay_frac * debt) * take_frac into debt * (take_frac
+    # * repay_frac), the two per-row scalars multiplied first.
+    borrowed = fma(-debt, take_frac[..., None] * repay_frac,
+                   aux.borrowed) + grant
     return aux._replace(bucket=bucket, borrowed=borrowed,
                         served=torch.zeros_like(aux.served))
 

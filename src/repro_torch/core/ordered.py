@@ -24,7 +24,9 @@ not a kernel's inner loop.
 
 XLA's compiled CPU code also contracts a product feeding a sum into one
 fused multiply-add where the port's ops round twice; :func:`fma` rounds
-once, for the expressions where the reference was found to contract.
+once, for the expressions where the reference was found to contract.  It
+runs with subnormals flushed to zero, as inputs and as results
+(:func:`ftz`).
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ import torch
 SUM_WINDOW = 32
 #: Block of XLA CPU's rewrite of a prefix sum.
 CUMSUM_BLOCK = 16
+#: The least normal float32.
+MIN_NORMAL = 2.0 ** -126
 
 
 def _round(x: torch.Tensor, acc: torch.dtype) -> torch.Tensor:
@@ -93,3 +97,9 @@ def fma(a, b, c) -> torch.Tensor:
     a, b, c = (x.to(torch.float64) if torch.is_tensor(x)
                else float(np.float32(x)) for x in (a, b, c))
     return (a * b + c).to(torch.float32)
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its subnormal values flushed to (signed) zero, as XLA's
+    CPU code reads an input and writes a result."""
+    return torch.where(x.abs() < MIN_NORMAL, x * 0.0, x)

@@ -14,16 +14,21 @@ level's entities and never builds a matrix: for child entity ``c`` of parent
 
     share[c] = share[p] * w[c] / sum(w[children of p])
 
-which is the reference's ``vec @ tm`` term for term; only the order of the
-row sums differs.  The entity structure of a table (which job belongs to
-which composite entity, and each entity's parent) is static, so it is built
-once into a :class:`PolicyChain` and reused every tick.
+which is the reference's ``vec @ tm`` term for term.  Each row sum is
+taken in the order XLA's CPU code takes ``tm.sum(axis=1)``: over the
+parent's ``dim`` columns (the composite ids) by windows of 32, then over the
+window sums by the same rule (:mod:`repro_torch.core.ordered`); the zero
+columns change no sum, so only the windows holding a child are added
+(:func:`_sum_stages`).  The entity structure of a table (which job belongs
+to which composite entity, each entity's parent and window) is static, so
+it is built once into a :class:`PolicyChain` and reused every tick.
 
-Float sums run through ``index_add_``, which on the card uses atomics.  The
-named policies only sum exact values there (counts of 1.0 for ``fair``
-levels, integer node counts for ``size``), so their shares are
-deterministic; non-integer ``priority`` weights may differ in the last bit
-from run to run on the card.
+Float sums run through ``index_add_``, which on the CPU adds in index order
+and on the card uses atomics.  The named policies only sum exact values
+(counts of 1.0 for ``fair`` levels, integer node counts for ``size``), so
+their shares are deterministic everywhere; non-integer ``priority`` weights
+equal the reference's on the CPU and may differ in the last bit from run
+to run on the card.
 """
 from __future__ import annotations
 
@@ -109,17 +114,49 @@ class Policy:
         return Policy(tuple(levels), name=spec)
 
 
+def _sum_stages(pos: np.ndarray, parent: np.ndarray, dim: int
+                ) -> list[tuple[np.ndarray, int]]:
+    """How to sum per-entity values into per-parent sums in XLA CPU's
+    order of a row sum over ``dim`` columns, entity ``e`` at column
+    ``pos[e]`` (ascending within a parent): one ``(index, size)`` per
+    ``index_add`` stage.  Above 32 columns each stage sums the windows of 32
+    (the row zero-padded, half the padding in front) into one value per
+    (parent, window) that holds an entity; the last stage adds the
+    remaining values of each parent in order into the parent."""
+    stages = []
+    owner, length = parent, dim
+    while length > 32:
+        m = -(-length // 32)
+        win = (pos + (32 * m - length) // 2) // 32
+        pairs, index = np.unique(owner * m + win, return_inverse=True)
+        stages.append((index, len(pairs)))
+        owner, pos, length = pairs // m, pairs % m, m
+    stages.append((owner, -1))
+    return stages
+
+
 class _ChainLevel:
     """One level of a compiled chain: job -> entity and entity -> parent."""
 
     def __init__(self, weight: str, ent: torch.Tensor, parent: torch.Tensor,
-                 n_ent: int, n_parent: int, w_job: Optional[torch.Tensor]):
+                 n_ent: int, n_parent: int, w_job: Optional[torch.Tensor],
+                 stages: list[tuple[torch.Tensor, int]]):
         self.weight = weight
         self.ent = ent            # long[J]      entity index of each job
         self.parent = parent      # long[n_ent]  parent entity (previous level)
         self.n_ent = n_ent
         self.n_parent = n_parent
         self.w_job = w_job        # f32[J] per-job weight (None for fair)
+        self.stages = stages      # _sum_stages, indices on the device
+
+    def row_sums(self, cols: torch.Tensor) -> torch.Tensor:
+        """``[b, n_parent]`` sums of ``cols`` ``[b, n_ent]`` over each
+        parent's children, in the reference's order."""
+        for index, size in self.stages[:-1]:
+            cols = cols.new_zeros((cols.shape[0], size)).index_add(
+                1, index, cols)
+        return cols.new_zeros((cols.shape[0], self.n_parent)).index_add(
+            1, self.stages[-1][0], cols)
 
 
 class PolicyChain:
@@ -142,11 +179,14 @@ class PolicyChain:
                    "group": group_id.detach().cpu().numpy().astype(np.int64)}
         prev_cid = np.zeros((n,), np.int64)
         prev_ent = np.zeros((n,), np.int64)
-        prev_n = 1
+        prev_n, prev_dim = 1, 1
         levels = []
         for level in policy.levels:
             raw = raw_ids[level.entity]
-            cid = raw if level.entity == "job" else prev_cid * n + raw
+            if level.entity == "job":
+                cid, dim = raw, n
+            else:
+                cid, dim = prev_cid * n + raw, prev_dim * n
             keys, ent = np.unique(cid, return_inverse=True)
             parent = np.zeros((len(keys),), np.int64)
             parent[ent] = prev_ent
@@ -155,11 +195,13 @@ class PolicyChain:
                 w_job = size.to(torch.float32)
             elif level.weight == "priority":
                 w_job = priority.to(torch.float32)
+            stages = [(torch.as_tensor(index, device=device), size)
+                      for index, size in _sum_stages(keys, parent, dim)]
             levels.append(_ChainLevel(
                 level.weight, torch.as_tensor(ent, device=device),
                 torch.as_tensor(parent, device=device), len(keys), prev_n,
-                w_job))
-            prev_cid, prev_ent, prev_n = cid, ent, len(keys)
+                w_job, stages))
+            prev_cid, prev_ent, prev_n, prev_dim = cid, ent, len(keys), dim
         self.levels = tuple(levels)
 
     @classmethod
@@ -184,8 +226,7 @@ class PolicyChain:
             else:
                 w_child = zeros.index_add(1, lv.ent, lv.w_job * maskf)
             cols = torch.where(child_live, w_child, 0.0)
-            row_sum = maskf.new_zeros((b, lv.n_parent)).index_add(
-                1, lv.parent, cols)[:, lv.parent]
+            row_sum = lv.row_sums(cols)[:, lv.parent]
             frac = torch.where(row_sum > 0,
                                cols / torch.clamp_min(row_sum, 1e-30), 0.0)
             vec = vec[:, lv.parent] * frac

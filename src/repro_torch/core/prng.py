@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from .ordered import fma
+from .ordered import MIN_NORMAL, fma, ftz
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -174,7 +174,6 @@ _LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
           2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
 _LOG_C1, _LOG_C2 = 0.693359375, -2.12194440e-4
 _SQRT_HALF = 0.70710678
-_MIN_NORMAL = 2.0 ** -126
 # ``log1p`` for |x| < sqrt(2) - 1: x - x^2 / 2 + x^3 * N(x) / D(x), both
 # polynomials by Horner's rule from the highest coefficient.
 _LOG1P_BELOW = 0.41421357
@@ -206,14 +205,10 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return r
 
 
-def _daz(x: torch.Tensor) -> torch.Tensor:
-    return torch.where(x.abs() < _MIN_NORMAL, x * 0.0, x)
-
-
 def _log_finite(x: torch.Tensor) -> torch.Tensor:
     """The expansion for a positive normal float32 ``x`` (anything below
     the smallest normal, NaN too, is read as the smallest normal)."""
-    x = torch.where(x > _MIN_NORMAL, x, torch.full_like(x, _MIN_NORMAL))
+    x = torch.where(x > MIN_NORMAL, x, torch.full_like(x, MIN_NORMAL))
     bits = x.view(torch.int32)
     m = ((bits & -0x7F800001) | 0x3F000000).view(torch.float32)
     e = ((bits >> 23) - 127).to(torch.float32) + 1.0
@@ -239,7 +234,7 @@ def _log_special(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 def log_f32(x: torch.Tensor) -> torch.Tensor:
     """``jnp.log`` of float32 ``x`` as the reference's compiled code
     computes it, bit for bit."""
-    x = _daz(x)
+    x = ftz(x)
     return _log_special(x, _log_finite(x))
 
 
@@ -247,7 +242,7 @@ def log1p_f32(x: torch.Tensor) -> torch.Tensor:
     """``jnp.log1p`` of float32 ``x`` as the reference's compiled code
     computes it, bit for bit: the rational form near 0, else ``log(1 + x)``
     by :func:`log_f32`'s expansion."""
-    x = _daz(x)
+    x = ftz(x)
     y = x + 1.0
     big = _log_special(y, _log_finite(y))
     zero = x * 0.0
@@ -403,26 +398,61 @@ def rejection_iters(n_lanes: int, odds: float = 1e-12) -> int:
 
 # -- randint, and the float32 exp and pow of the batch plane's annealer -------
 
-def randint(key: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
-    """``jax.random.randint(key, (), minval, maxval)`` (int32) for a key
+def randint(key: torch.Tensor, minval: int, maxval: int,
+            shape=()) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) for a key
     ``[2]`` or a batch of keys ``[..., 2]`` and Python int bounds: two
     32-bit draws from ``split(key)``, folded into the span by jax's
     ``2**32 % span`` multiplier in uint32 arithmetic."""
     if not (-2 ** 31 <= minval and maxval <= 2 ** 31 - 1):
         raise ValueError("randint bounds must lie in int32")
+    shape = tuple(shape)
+    n = int(np.prod(shape)) if shape else 1
     span = max(maxval - minval, 1)
     mult = ((2 ** 16 % span) ** 2 & _M32) % span
     ks = split(key, 2)
-    higher = random_bits(ks[..., 0, :], 1)[..., 0]
-    lower = random_bits(ks[..., 1, :], 1)[..., 0]
+    lead = key.shape[:-1]
+    higher = random_bits(ks[..., 0, :], n).reshape(lead + shape)
+    lower = random_bits(ks[..., 1, :], n).reshape(lead + shape)
     off = (((higher % span) * mult) & _M32) + lower % span
     return (minval + (off & _M32) % span).to(torch.int32)
 
 
-def _ftz(x: torch.Tensor) -> torch.Tensor:
-    """Results below the smallest normal read as zero (the CPU backend
-    runs with flush-to-zero)."""
-    return torch.where(x.abs() < _MIN_NORMAL, x * 0.0, x)
+# ``jax.random.normal``: a uniform in (-1, 1) (the unit float times 2 plus
+# the float32 after -1, which XLA contracts into one multiply-add, exact
+# either way) through ``sqrt(2) * erf_inv``.  XLA expands ``erf_inv`` as
+# Giles' single-precision approximation: w = -log1p(-x^2), a degree-8
+# polynomial in w - 2.5 (w < 5) or sqrt(w) - 3 (above), each Horner step
+# contracted into a fused multiply-add, times x; +-1 maps to +-inf.
+_ERFINV_LO = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_HI = (-0.000200214257, 0.000100950558, 0.00134934322,
+              -0.00367342844, 0.00573950773, -0.0076224613,
+              0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` of float32 ``x`` in (-1, 1) as the reference's
+    compiled code computes it, bit for bit."""
+    w = -log1p_f32(-(x * x))
+    lt = w < 5.0
+    t = torch.where(lt, w - 2.5, sqrt_f32(w) - 3.0)
+    coef = lambda i: torch.where(lt, _ERFINV_LO[i], _ERFINV_HI[i])  # noqa: E731
+    p = coef(0).to(torch.float32)
+    for i in range(1, len(_ERFINV_LO)):
+        p = fma(p, t, coef(i))
+    return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32) for one key ``[2]``."""
+    shape = tuple(shape)
+    n = int(np.prod(shape)) if shape else 1
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = torch.clamp_min(bits_to_unit_float(random_bits(key, n)) * 2.0 + lo,
+                        lo)
+    return (_f32(np.sqrt(2.0)) * erfinv_f32(u)).reshape(shape)
 
 
 # XLA's CPU backend expands float32 ``exp`` itself (read off the LLVM IR and
@@ -441,7 +471,7 @@ _EXP_P = (1.9875691e-4, 1.3981999e-3, 8.3334519e-3, 4.1665796e-2,
 def exp_f32(x: torch.Tensor) -> torch.Tensor:
     """``jnp.exp`` of float32 ``x`` as the reference's compiled code
     computes it, bit for bit (subnormal inputs and results read as zero)."""
-    x = _daz(x)
+    x = ftz(x)
     xc = torch.where(torch.isnan(x), x, torch.clamp(x, _EXP_LO, _EXP_HI))
     n = torch.clamp(torch.floor(fma(xc, _EXP_LOG2E, 0.5)), -127.0, 127.0)
     r = fma(n, -_LOG_C1, xc)
@@ -451,7 +481,14 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
         p = fma(p, r, c)
     y = fma(p, r * r, r) + 1.0
     scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
-    return _ftz(y * scale)
+    return ftz(y * scale)
+
+
+def softplus_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` of float32 ``x`` (``jnp.logaddexp(x, 0)``) as the
+    reference computes it, bit for bit: ``max(x, 0) + log1p(exp(-|x|))``
+    through :func:`exp_f32` and :func:`log1p_f32`."""
+    return torch.clamp_min(x, 0.0) + log1p_f32(exp_f32(-x.abs()))
 
 
 # ``p.cooling ** s`` (a float32 base, the int32 step converted to float32)
@@ -502,7 +539,7 @@ def pow_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x ** y`` of float32 tensors as the reference's compiled code
     computes it (glibc's ``powf`` with subnormal inputs and results read as
     zero), bit for bit, for ``x >= 0`` and finite ``y``."""
-    x, y = torch.broadcast_tensors(_daz(x), y.to(torch.float32))
+    x, y = torch.broadcast_tensors(ftz(x), y.to(torch.float32))
     tab, exp2 = _powf_tables(x.device)
     a = _POWF_LOG2_POLY
     c = _POWF_EXP2_POLY
@@ -531,4 +568,4 @@ def pow_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     out = torch.where(ylogx > _POWF_OFLOW, torch.inf, out)
     out = torch.where(ylogx <= -150.0, 0.0, out).to(torch.float32)
     out = torch.where(x == 0, torch.where(y > 0, 0.0, torch.inf), out)
-    return _ftz(torch.where(y == 0, 1.0, out))
+    return ftz(torch.where(y == 0, 1.0, out))

@@ -9,18 +9,18 @@
 // Per row: mask shares by qcount > 0, renormalise, fall back to uniform over
 // demanded slots when massless, inclusive prefix sum, then for each of the W
 // draws count the segment ends <= u, clip to J, -1 when the row has no mass,
-// and snap an undemanded pick to the first demanded slot (draw.cuh; bf16
-// shares in the reference's bf16 arithmetic, with a per-warp shared-memory
-// scratch of draw.cuh bf16_floats).
+// and snap an undemanded pick to the first demanded slot (draw.cuh: the
+// sums in the reference's order over a per-warp shared-memory scratch of
+// draw.cuh scratch_floats; bf16 shares in the reference's bf16 arithmetic).
 //
 // Bound on the H100 at S=128, J=1024, W=1: it reads qcount, the shares of
 // the demanded slots and u, and writes the picks, ~0.7 MB, 0.216 us at
 // 3.35 TB/s; its arithmetic is a few ops per slot.  What holds it is
-// latency: one draw is a chain of dependent reductions over the row.
-// Design: one warp per row (kRows rows per block), the row's run of slots
-// in each lane's registers (J <= 1024, loaded once with 16-byte loads) or in
-// a per-warp shared-memory slab, every reduction a warp shuffle or a
-// redux.sync, no block barrier.
+// latency: one draw is a chain of dependent reductions over the row, the
+// ordered ones one lane per window or block.  Design: one warp per row
+// (kRows rows per block), the row's run of slots in each lane's registers
+// (J <= 1024, loaded once with 16-byte loads) or in a per-warp
+// shared-memory slab, no block barrier.
 #include "draw.cuh"
 
 namespace {
@@ -31,27 +31,22 @@ namespace {
 constexpr int kRows = 1;
 constexpr int kSlabArrays = 2;
 
-template <class T>
-constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
-
-// Floats of shared memory per warp: the slab (J > 1024) and the bf16
-// scratch.
-template <int C, class T>
+// Floats of shared memory per warp: the slab (J > 1024) and the scratch.
+template <int C>
 __host__ __device__ constexpr size_t warp_floats(int J) {
   return (C == 0 ? rt::slab_bytes(J, kSlabArrays) / 4 : 0) +
-         (kBf16<T> ? rt::bf16_floats(J, C == 0) : 0);
+         rt::scratch_floats(J, C == 0);
 }
 
 template <class R, class T>
 __device__ __forceinline__ void select_row(R& r, const rt::Span& sp,
                                            const T* sh, const int* q,
                                            const float* u, int* out, int W,
-                                           const rt::Bf16Scratch& scratch) {
+                                           const rt::Scratch& scratch) {
   rt::load_run<R>(sp, q, [&](int k, int l) -> int& { return r.Q(k, l); });
   rt::load_run<R>(sp, sh, [&](int k, int l) -> float& { return r.A(k, l); });
   const rt::PerDraw<float> uw(u, W, sp.lane);
-  const bool fast = !kBf16<T> && rt::shares_in_range(r, sp);
-  const rt::Table t = rt::build_table_of<T>(r, sp, fast, scratch);
+  const rt::Table t = rt::build_table_of<T>(r, sp, scratch);
   for (int w = 0; w < W; ++w) {
     const int idx = rt::draw(r, sp, t, uw(w));
     if (sp.lane == 0) out[w] = idx;
@@ -72,17 +67,17 @@ token_select_kernel(const T* __restrict__ shares,
   const int* q = qcount + row * J;
   extern __shared__ float4 smem_raw[];
   float* base =
-      reinterpret_cast<float*>(smem_raw) + warp * warp_floats<C, T>(J);
+      reinterpret_cast<float*>(smem_raw) + warp * warp_floats<C>(J);
   if constexpr (C > 0) {
     rt::Regs<C> r;
-    const rt::Bf16Scratch scratch{base, base + 32 * sp.c};
+    const rt::Scratch scratch{base, base + 32 * sp.c};
     select_row(r, sp, sh, q, u + row * W, out + row * W, W, scratch);
   } else {
     const size_t len = rt::slab_bytes(J, kSlabArrays) / 4 / kSlabArrays;
     // The segments overwrite the shares slot by slot (read, then written).
     rt::Slab r{base, base, reinterpret_cast<int*>(base + len), nullptr,
                sp.lane};
-    const rt::Bf16Scratch scratch{nullptr, base + kSlabArrays * len};
+    const rt::Scratch scratch{nullptr, base + kSlabArrays * len};
     select_row(r, sp, sh, q, u + row * W, out + row * W, W, scratch);
   }
 }
@@ -91,19 +86,16 @@ template <int C, class T>
 int launch(const T* shares, const int* qcount, const float* u, int* out,
            int S, int J, int W, cudaStream_t stream) {
   int rows = kRows;
-  size_t smem = 0;
-  const size_t per = warp_floats<C, T>(J) * 4;
-  if (per > 0) {
-    const size_t fit = (size_t)232448 / per;
-    rows = fit < (size_t)kRows ? (int)fit : kRows;
-    if (rows < 1) return (int)cudaErrorInvalidValue;
-    smem = per * rows;
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          token_select_kernel<C, T>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
+  const size_t per = warp_floats<C>(J) * 4;
+  const size_t fit = (size_t)232448 / per;
+  rows = fit < (size_t)kRows ? (int)fit : kRows;
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = per * rows;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        token_select_kernel<C, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
   token_select_kernel<C, T><<<(S + rows - 1) / rows, 32 * rows, smem,
                               stream>>>(shares, qcount, u, out, S, J, W);

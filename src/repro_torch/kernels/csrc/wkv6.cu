@@ -33,7 +33,8 @@
 // elementwise and bound by memory.
 //   chunk_state  one 256-thread block per (b, chunk, group of heads): per
 //                head, k, v and lw staged by cp.async; the exclusive prefix
-//                cwe of each channel in order (one thread per channel) and
+//                cwe of each channel in XLA CPU's order (one thread per
+//                channel) and
 //                cwl, written to a [B, nc, H, K] scratch; then the chunk's
 //                own state d_c[k][v] = sum_j exp(cwl_k - cwe_jk - lw_jk)
 //                k_jk v_jv into a [B, nc, H, K, K] scratch (k-major; 197 MB
@@ -73,6 +74,7 @@
 #include <algorithm>
 
 #include "async_copy.cuh"
+#include "ordered_prefix.cuh"
 #include "tile4x4.cuh"
 
 namespace {
@@ -119,13 +121,16 @@ __device__ __forceinline__ void stage(T* dst, int ld, const T* src,
   }
 }
 
-// Channel kk's exclusive prefix cwe_i = (lw_0 + ... + lw_i) - lw_i, summed
-// in order, into cs; with ``ds`` (may alias lws) also d_i = cwe_i + lw_i.
-// Returns the chunk's total cwl = cwe_{L-1} + lw_{L-1}.  Four loads are
-// issued ahead of their sums (L is a multiple of 4).
+// Channel kk's exclusive prefix cwe_i = (lw_0 + ... + lw_i) - lw_i, the
+// sum taken in XLA CPU's order (ordered_prefix.cuh, as the plain version
+// and the reference take it), into cs; with ``ds`` (may alias lws) also
+// d_i = cwe_i + lw_i.  Returns the chunk's total cwl = cwe_{L-1} +
+// lw_{L-1}.  Four loads are issued ahead of their sums (L is a multiple of
+// 4).
 __device__ __forceinline__ float prefix(const float* lws, float* cs, float* ds,
                                         int ld, int L, int kk) {
-  float run = 0.f, c = 0.f, w = 0.f;
+  ordered::Prefix run;
+  float c = 0.f, w = 0.f;
   for (int i0 = 0; i0 < L; i0 += 4) {
     float w4[4];
 #pragma unroll
@@ -133,8 +138,7 @@ __device__ __forceinline__ float prefix(const float* lws, float* cs, float* ds,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       w = w4[q];
-      run += w;
-      c = run - w;
+      c = run.add(w) - w;
       cs[(i0 + q) * ld + kk] = c;
       if (ds) ds[(i0 + q) * ld + kk] = c + w;
     }

@@ -14,6 +14,10 @@ contiguous), so the slices of the model's fused projection need no copy;
 the strides do not fit).
 ``LAUNCHES`` counts calls of ``mamba2_ssd`` on the card (one per mamba
 layer), ``PASS_LAUNCHES`` the launches of each pass, from any wrapper.
+
+``step_and_decay`` is a fourth, elementwise kernel of the same source: the
+scan's step ``dt`` and decay ``a`` from the projection's ``dt_raw``, in
+the reference's float32 roundings (``STEP_DECAY_LAUNCHES`` counts it).
 """
 from __future__ import annotations
 
@@ -25,13 +29,16 @@ import torch.nn.functional as F
 
 from .. import _build
 from .ref import (chunk_scan_ref, chunk_state_ref, mamba2_ssd_ref,
-                  state_pass_ref)
+                  state_pass_ref, step_and_decay_ref)
 
 #: Calls of :func:`mamba2_ssd` on the card in this process.
 LAUNCHES = 0
 
 #: Kernel launches of each pass in this process.
 PASS_LAUNCHES = {"chunk_state": 0, "state_pass": 0, "chunk_scan": 0}
+
+#: Launches of the step_decay kernel in this process.
+STEP_DECAY_LAUNCHES = 0
 
 #: Shared memory one block may use on the H100 (bytes).
 MAX_SMEM = 232448
@@ -52,12 +59,13 @@ def _launcher(name: str):
         "chunk_state": [_PTR] * 5 + [_INT] * 6 + [_LL] * 7 + [_INT, _PTR],
         "state_pass": [_PTR] * 4 + [_INT] * 6 + [_PTR],
         "chunk_scan": [_PTR] * 6 + [_INT] * 6 + [_LL] * 7 + [_INT, _PTR],
+        "step_decay": [_PTR] * 5 + [_INT] * 2 + [_LL, _INT, _PTR],
     }[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, device, *args) -> None:
+def _call(name: str, device, *args) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     # The C launcher runs on the current device: make it the tensors'.
     with torch.cuda.device(device):
@@ -65,6 +73,10 @@ def _launch(name: str, device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"mamba2_ssd {name} kernel launch failed: CUDA "
                            f"error {rc}")
+
+
+def _launch(name: str, device, *args) -> None:
+    _call(name, device, *args)
     PASS_LAUNCHES[name] += 1
 
 
@@ -315,3 +327,39 @@ def mamba2_ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     _run_chunk_scan(x, b, c, cum, states, chunk, y)
     LAUNCHES += 1
     return from_kernel_layout(y, hf, pn)
+
+
+def step_and_decay(dt_raw: torch.Tensor, dt_bias: torch.Tensor,
+                   a_log: torch.Tensor):
+    """(dt = softplus(dt_raw + dt_bias), a = exp(-dt exp(a_log))), both
+    float32 of ``dt_raw``'s shape [..., H], every operation rounded as the
+    reference's compiled float32 code rounds it (``step_and_decay_ref``).
+    ``dt_raw`` is float32 or bfloat16 (read as float32); ``dt_bias`` and
+    ``a_log`` are float32 [H].  On the card: one launch that reads
+    ``dt_raw`` through its row stride (innermost dimension contiguous)."""
+    global STEP_DECAY_LAUNCHES
+    h = dt_raw.shape[-1]
+    if dt_raw.dtype not in _DTYPES or dt_raw.dim() < 1:
+        raise TypeError("step_and_decay takes float32 or bfloat16 dt_raw "
+                        f"[..., H], got {dt_raw.dtype} {tuple(dt_raw.shape)}")
+    for name, t in (("dt_bias", dt_bias), ("a_log", a_log)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (h,):
+            raise ValueError(f"step_and_decay: {name} must be float32 "
+                             f"({h},), got {t.dtype} {tuple(t.shape)}")
+    _check_devices("step_and_decay", [dt_raw, dt_bias, a_log])
+    if dt_raw.device.type == "cpu":
+        return step_and_decay_ref(dt_raw, dt_bias, a_log)
+    rows = dt_raw.reshape(-1, h)
+    if rows.stride(1) != 1 or rows.stride(0) < h:
+        rows = rows.contiguous()
+    if rows.numel() >= 2 ** 31 or rows.shape[0] == 0:
+        raise ValueError(f"step_and_decay kernel takes 1 to 2^31 - 1 "
+                         f"elements, got {rows.numel()}")
+    bias, a_log = dt_bias.contiguous(), a_log.contiguous()
+    dt = torch.empty(rows.shape, dtype=torch.float32, device=rows.device)
+    a = torch.empty_like(dt)
+    _call("step_decay", rows.device, rows.data_ptr(), bias.data_ptr(),
+          a_log.data_ptr(), dt.data_ptr(), a.data_ptr(), rows.shape[0], h,
+          rows.stride(0), _DTYPES[rows.dtype])
+    STEP_DECAY_LAUNCHES += 1
+    return dt.view(dt_raw.shape), a.view(dt_raw.shape)

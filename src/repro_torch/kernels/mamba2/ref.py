@@ -2,7 +2,8 @@
 
 The reference's ``repro.models.ssm.ssd_chunked`` in the three passes the
 kernel runs (``csrc/mamba2_ssd.cu``): the log decay ``la = log(max(a,
-1e-20))`` is summed within each chunk into ``cum``; ``chunk_state_ref``
+1e-20))`` is summed within each chunk into ``cum`` (in float32, in the
+order XLA's CPU code sums a prefix: :mod:`repro_torch.core.ordered`); ``chunk_state_ref``
 forms each chunk's own state ``sum_j exp(cum_{L-1} - cum_j) x_j (x) B_j``,
 kept transposed (``[N, P]`` per head, the layout the kernel's last pass
 reads); ``state_pass_ref`` carries the state from chunk to chunk
@@ -13,10 +14,26 @@ to -inf above the diagonal before the exponential, never factored into
 inter-chunk term ``exp(cum_i) C_i . h`` from the state entering the chunk.
 ``mamba2_ssd_ref`` composes them.  The CPU path of ``ops.mamba2_ssd`` runs
 it; on the card it is only the comparison the kernel is held to.
+``step_and_decay_ref`` is the plain version of the kernel that computes
+the scan's step and decay from the projection (``ops.step_and_decay``).
 """
 from __future__ import annotations
 
 import torch
+
+from ...core.ordered import ordered_cumsum
+from ...core.prng import exp_f32, softplus_f32
+
+
+def step_and_decay_ref(dt_raw, dt_bias, a_log):
+    """(dt = softplus(dt_raw + dt_bias), the decay a = exp(-dt exp(a_log))),
+    float32 of ``dt_raw``'s shape [..., H], each transcendental rounded as
+    the reference's compiled code rounds it (:mod:`repro_torch.core.prng`).
+    The scan sums the log decay in the reference's order, where the prefix
+    reaches thousands under strong decay, so a decay rounded apart moves
+    the states."""
+    dt = softplus_f32(dt_raw.float() + dt_bias)
+    return dt, exp_f32(-dt * exp_f32(a_log))
 
 
 def chunk_state_ref(x, a, b, *, chunk: int):
@@ -28,7 +45,7 @@ def chunk_state_ref(x, a, b, *, chunk: int):
     n = b.shape[-1]
     nc = s // chunk
     la = torch.log(torch.clamp_min(a.float(), 1e-20)).reshape(bsz, nc, chunk, h)
-    cum = torch.cumsum(la, dim=2)                                 # [B,nc,L,H]
+    cum = ordered_cumsum(la.movedim(2, -1)).movedim(-1, 2)        # [B,nc,L,H]
     w = torch.exp(cum[:, :, -1:] - cum)                           # [B,nc,L,H]
     xs = x.float().reshape(bsz, nc, chunk, h, p)
     bs = b.float().reshape(bsz, nc, chunk, n)

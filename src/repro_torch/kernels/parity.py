@@ -1,20 +1,20 @@
-"""How a themis draw is held to its plain version, given float sums in
-another order.
+"""How a themis draw is held to its plain version, and how a difference
+is named.
 
-Two implementations of the same draw sum the renormalised shares in
-different orders, so their segment ends can differ in the last bits, and a
-uniform ``u`` that lies within those bits of a segment end may pick the
-neighbouring job.  Such a draw is excused; any other mismatch is a fault.
-The band is ``J`` times the unit roundoff of the dtype the draws sum in
-(``sum_dtype``) around every segment end computed in float64 from the same
-shares and queue counts: ``J * 2**-24`` where both sides sum in float32 (the
-port's kernels and plain versions on float32 shares), ``J * 2**-8``
-where the draws sum in bf16 (bf16 shares: a J-term prefix of values in
-[0, 1] may be off by up to about J bf16 roundings; the port's bf16 draw
-takes the reference's order of sums and has needed none of the band).
-Where the two sides computed their share tables apart (the engine on the
-card against the engine on the CPU), the band also covers each draw that
-lies between the two tables' ends.
+Two implementations of the same draw that sum the renormalised shares in
+different orders can differ in a segment end's last bits, and a uniform
+``u`` that lies within those bits of the end may then pick the
+neighbouring job.  The port's draws (its plain versions and its kernels,
+float32 and bf16 shares alike) take the reference's order of sums
+(:mod:`repro_torch.core.ordered`), so every comparison of this repo
+requires that no draw falls in that band: a draw in it is still reported
+as excused, and the callers fail on any.  The band is ``J`` times the unit
+roundoff of the dtype the draws sum in (``sum_dtype``) around every
+segment end computed in float64 from the same shares and queue counts:
+``J * 2**-24`` for float32 sums, ``J * 2**-8`` for bf16 sums.  Where the
+two sides computed their share tables apart (the engine on the card
+against the engine on the CPU), the band also covers each draw that lies
+between the two tables' ends.
 """
 from __future__ import annotations
 

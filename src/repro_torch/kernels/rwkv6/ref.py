@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ...core.ordered import ordered_cumsum
+
 
 def _chunks(t, chunk):
     """[B, S, H, K] -> float32 [B, nc, L, H, K]."""
@@ -26,8 +28,9 @@ def _chunks(t, chunk):
 
 
 def _prefix(lws):
-    """(cwe, cwl) of [B, nc, L, H, K] log decays."""
-    cwe = torch.cumsum(lws, dim=2) - lws
+    """(cwe, cwl) of [B, nc, L, H, K] log decays, the prefix sums in float32
+    in XLA CPU's order (:mod:`repro_torch.core.ordered`)."""
+    cwe = ordered_cumsum(lws.movedim(2, -1)).movedim(-1, 2) - lws
     return cwe, cwe[:, :, -1] + lws[:, :, -1]
 
 

@@ -17,9 +17,9 @@ from .ref import MODES, tick_step_ref
 #: Kernel launches made by :func:`tick_step` in this process.
 LAUNCHES = 0
 
-#: Largest J the kernel takes, per share dtype (3 slab arrays; fifo reads
-#: no shares and takes the float32 bound).
-MAX_J = {dt: max_j(3, dt) for dt in SHARE_DTYPES}
+#: Largest J the kernel takes, per mode (3 slab arrays; fifo builds no
+#: table, so it needs no scratch).
+MAX_J = {"themis": max_j(3), "fifo": max_j(3, scratch=False)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,7 +73,7 @@ def tick_step(shares, qcount, window, free, u, *, mode: str = "themis"):
         raise ValueError("tick_step kernel takes contiguous tensors")
     s, j = qcount.shape
     w = u.shape[1]
-    limit = MAX_J[shares.dtype if mode == "themis" else torch.float32]
+    limit = MAX_J[mode]
     if j > limit:
         raise ValueError(f"J={j} exceeds the kernel's shared memory (J <= "
                          f"{limit})")

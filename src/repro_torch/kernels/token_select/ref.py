@@ -2,11 +2,11 @@
 
 The op sequence of the reference's ``repro.kernels.token_select.ref``
 (opportunity renormalisation -> uniform fallback -> segment search ->
-demand guard), vectorised over a trailing worker axis.  float32 shares draw
-in float32.  bf16 shares draw as the reference draws them: renormalised and
-prefix-summed in bf16, each sum taken in float32 in XLA CPU's order and
-rounded to bf16 where the reference's compiled code rounds it
-(:mod:`repro_torch.core.ordered`), so the picks are the reference's.  The
+demand guard), vectorised over a trailing worker axis.  Every order-sensitive
+sum is taken in XLA CPU's order (:mod:`repro_torch.core.ordered`), so the
+picks are the reference's: float32 shares renormalise and prefix-sum in
+float32; bf16 shares in bf16, each sum taken in float32 and rounded to bf16
+where the reference's compiled code rounds it.  The
 CPU path of ``ops.token_select`` runs it; on the card it is the comparison
 the kernel is held to.
 """
@@ -40,17 +40,20 @@ def _probs_bf16(shares: torch.Tensor, demand: torch.Tensor) -> torch.Tensor:
 
 
 def _probs_f32(shares: torch.Tensor, demand: torch.Tensor) -> torch.Tensor:
-    dm = demand.to(shares.dtype)
+    """The reference's float32 renormalised probabilities, the masked total
+    summed in XLA CPU's order.  The two tests that only compare a sum of
+    non-negative terms with 0 (no mass) and the demanded count (an integer,
+    exact in any order) need no order."""
+    dm = demand.to(torch.float32)
     masked = shares * dm
-    total_m = masked.sum(dim=-1, keepdim=True)
+    total_m = ordered_sum(masked)[..., None]
     probs = torch.where(total_m > 0,
                         masked / torch.clamp_min(total_m, 1e-30), 0.0)
     # Work conservation: demand with no policy mass draws uniformly.
-    no_mass = probs.sum(dim=-1, keepdim=True) <= 0
-    ones_m = torch.ones_like(shares) * dm
-    total_u = ones_m.sum(dim=-1, keepdim=True)
+    no_mass = ~(probs > 0).any(dim=-1, keepdim=True)
+    total_u = dm.sum(dim=-1, keepdim=True)
     uniform = torch.where(total_u > 0,
-                          ones_m / torch.clamp_min(total_u, 1e-30), 0.0)
+                          dm / torch.clamp_min(total_u, 1e-30), 0.0)
     return torch.where(no_mass, uniform, probs)
 
 
@@ -62,7 +65,7 @@ def token_select_ref(shares: torch.Tensor, qcount: torch.Tensor,
     if shares.dtype == torch.bfloat16:
         seg = ordered_cumsum(_probs_bf16(shares, demand), torch.bfloat16)
     else:
-        seg = torch.cumsum(_probs_f32(shares.float(), demand), dim=-1)
+        seg = ordered_cumsum(_probs_f32(shares.float(), demand))
     total = seg[:, -1]                                     # [S]
     # Branchless segment search per worker: count boundaries <= u.
     idx = (seg[:, None, :] <= u[:, :, None]).sum(dim=-1)   # [S, W]

@@ -9,7 +9,10 @@ with a_t = exp(-softplus(dt_raw_t + dt_bias) * A_head).
 The sequence path is the chunked SSD scan (:func:`ssd_chunked`): the
 ``mamba2_ssd`` kernel on the card, its plain version (the reference's
 ``ssd_chunked``) on the CPU; it returns the final state, which fills the
-decode cache.  Decode is the one-step recurrence carrying (conv window,
+decode cache.  Prefill and decode take the step dt and the decay a from
+one kernel (``step_and_decay``) in the reference's float32 roundings: the
+scan sums the log decay in the reference's order, where the prefix
+reaches thousands under strong decay.  Decode is the one-step recurrence carrying (conv window,
 state).  ``ssd_reference`` is the sequential oracle of the tests.
 """
 from __future__ import annotations
@@ -17,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.mamba2.ops import mamba2_ssd
+from ..kernels.mamba2.ops import mamba2_ssd, step_and_decay
 from .layers import Init, linear, linear_init, rmsnorm, rmsnorm_init
 
 
@@ -99,8 +102,8 @@ def mamba2_forward(params, cfg, x, *, chunk: int = 128, return_state=False):
     xi = xbc[..., :di].reshape(bsz, s, heads, hd)
     b = xbc[..., di:di + n]
     c = xbc[..., di + n:]
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])           # [B,S,H]
-    a = torch.exp(-dt * torch.exp(params["a_log"]))                # decay
+    dt, a = step_and_decay(dt_raw, params["dt_bias"],
+                           params["a_log"])                       # [B,S,H]
     xin = xi.float() * dt[..., None]
     pad = (-s) % chunk
     if pad:
@@ -133,8 +136,8 @@ def mamba2_decode(params, cfg, x, state, pos=None):
     xi = xbc[:, 0, :di].reshape(bsz, heads, hd).float()
     b = xbc[:, 0, di:di + n].float()
     c = xbc[:, 0, di + n:].float()
-    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])     # [B,H]
-    a = torch.exp(-dt * torch.exp(params["a_log"]))
+    dt, a = step_and_decay(dt_raw[:, 0], params["dt_bias"],
+                           params["a_log"])                       # [B,H]
     h = state["h"] * a[:, :, None, None] \
         + xi[..., None] * b[:, None, None, :] * dt[:, :, None, None]
     y = torch.einsum("bhpn,bn->bhp", h, c)

@@ -147,7 +147,7 @@ def test_reference_file_is_complete():
     the card to) carries every gated row with its statistics."""
     doc = json.loads((REPO / "src" / "repro_torch" / "bench"
                       / "fig_reference.json").read_text())
-    assert doc["seconds"] == 1.0 and doc["seeds"] == list(range(8))
+    assert doc["seconds"] == 0.5 and doc["seeds"] == list(range(8))
     assert doc["jax"] and "record_figure_reference.py" in doc["command"]
     for name, row in doc["rows"].items():
         assert len(row["means"]) >= 1, name

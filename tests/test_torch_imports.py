@@ -23,7 +23,10 @@ bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro.")
 assert not bad, bad
 for sub in ("workspace.store", "workspace.campaign", "batch.sim",
             "batch.plan", "batch.bridge", "bench.batch", "core.shard",
-            "launch.mesh", "bench.fleet"):
+            "launch.mesh", "bench.fleet", "bench.scaling", "bench.composite",
+            "bench.apps", "bench.lambda_sync", "bench.kernels", "bench.tick",
+            "bench.run", "bench.trend", "bench.calibrate", "roofline",
+            "roofline.analysis"):
     assert "repro_torch." + sub in names, sub
 print(len(names))
 """
@@ -36,6 +39,29 @@ def test_imports_with_jax_blocked():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_no_source_imports_jax_repro_or_benchmarks():
+    """Every module of the port and chip_smoke.py, read as source: no import
+    of ``jax``, ``repro`` or ``benchmarks`` anywhere, a function body's
+    included (the import test above only runs module-level imports)."""
+    import ast
+    import pathlib
+    root = pathlib.Path(REPO)
+    files = sorted((root / "src" / "repro_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(root)}: {m}" for m in mods
+                    if m.split(".")[0] in ("jax", "repro", "benchmarks")]
+    assert len(files) > 80 and not bad, bad
 
 
 def test_package_import_is_lazy():
@@ -71,6 +97,13 @@ def test_cuda_without_a_card_raises(no_card, tmp_path):
     for policy in ("fcfs", "plan"):
         with pytest.raises(RuntimeError, match="cuda"):
             bx.run(policy)
+    from repro_torch.bench import calibrate, kernels, scaling, tick
+    for section in (lambda: tick.run_kern(iters=1),
+                    lambda: kernels.run_micro(iters=1),
+                    lambda: scaling.run_fig7(scale=0.001, servers=(1,)),
+                    lambda: calibrate.calibrate_plan(0.01, (0,))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            section()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

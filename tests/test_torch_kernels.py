@@ -3,15 +3,14 @@
 The same numpy inputs go through the port's wrappers (on CPU tensors they
 run the plain PyTorch versions) and through the reference's
 ``token_select`` / ``tick_step`` with ``impl="pallas"`` (the Pallas kernel in
-interpret mode) and ``impl="ref"``.  fifo and every integer output must be
-exact; a themis pick may differ only where ``u`` lies within ``J * 2**-24``
-of a float64 segment end (``repro_torch.kernels.parity``), and such draws are
-counted.  With bf16 shares both sides renormalise and prefix-sum in bf16,
-the port in the reference's order (``repro_torch.core.ordered``), so the
-bf16 draws are held to the same band with ``J * 2**-8``
-(``parity.UNIT_ROUNDOFF``) and must need none of it.  The card's kernels
-are held to the same plain versions by ``chip_smoke.py`` and
-``tests/test_torch_cuda.py``."""
+interpret mode) and ``impl="ref"``.  The port renormalises and prefix-sums
+in the reference's order (``repro_torch.core.ordered``), float32 shares in
+float32 and bf16 shares in bf16, so every pick and every other output must
+be exact: the edge band of ``repro_torch.kernels.parity`` (``J`` unit
+roundoffs around a float64 segment end) is counted and must excuse none.
+Draws placed on the segment ends themselves show any bit of difference.
+The card's kernels are held to the same plain versions by
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -248,21 +247,43 @@ def excused_counts(reference, dtype):
 
 
 def test_excused_edge_band_draws_are_rare(reference):
-    """Edge-band draws excused over every case of the two tests above,
-    counted here (exact agreement is expected almost everywhere)."""
+    """Edge-band draws excused over every float32 case of the tests above:
+    none (the draw sums in the reference's order)."""
     counts = excused_counts(reference, "float32")
     total = sum(counts)
     print(f"edge-band draws excused across {len(counts)} comparisons: {total}")
-    assert total <= max(1, len(counts) // 20)
+    assert total == 0
+
+
+@pytest.mark.parametrize("j", (3, 16, 17, 33, 127, 1000, 1024, 1025, 4096))
+def test_float32_draws_on_segment_ends_match_jax(j):
+    """u placed on the port's float32 segment ends and one float below
+    each: a segment end one bit apart from the reference's picks another
+    slot, so equal picks at every such draw show equal ends."""
+    from repro_torch.core.ordered import ordered_cumsum
+    from repro_torch.kernels.token_select.ref import _probs_f32
+    rng = np.random.default_rng(j)
+    shares = (rng.random((8, j), dtype=np.float32) ** 3).astype(np.float32)
+    qcount = rng.integers(0, 3, (8, j)).astype(np.int32)
+    seg = ordered_cumsum(_probs_f32(torch.as_tensor(shares),
+                                    torch.as_tensor(qcount) > 0)).numpy()
+    cols = rng.integers(0, j, 16)
+    at = seg[:, cols]
+    u = np.concatenate([at, np.nextafter(at, np.float32(-1))], axis=1)
+    u = np.clip(u, 0, np.nextafter(np.float32(1), np.float32(0)))
+    got = tk_ops.token_select(*torch_of(shares, qcount, u.astype(np.float32)))
+    want = ref_token_select(jnp.asarray(shares), jnp.asarray(qcount),
+                            jnp.asarray(u, jnp.float32), impl="ref")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_excused_bf16_edge_band_draws_are_counted(reference):
     """bf16 shares: the plain versions renormalise and prefix-sum in bf16 in
     the reference's order (windows of 32 for the totals, blocks of 16 for
     the prefix sums, each partial sum rounded where XLA rounds it), so no
-    draw needs the edge band, at any J (a float32 draw of the same shares
-    differed from the reference in 48 of 640 token_select draws and 20 of
-    120 themis rows here)."""
+    draw needs the edge band, at any J (the same shares widened and drawn
+    in float32 in torch's own order of sums differed from the reference in
+    48 of 640 token_select draws and 20 of 120 themis rows here)."""
     per_j = {}
     draws = rows = 0
     for j in JS:

@@ -1,10 +1,10 @@
 """Policy chain, λ-sync and params schemas of the port against the JAX
 reference, on the same numpy inputs.
 
-Tolerances: the chain divides the same numbers as the reference but sums its
-row weights in another order, so shares agree within rtol 1e-6 / atol 1e-7;
-Sinkhorn iterates 32 rounds of such sums, so segments agree within rtol
-1e-5."""
+The chain's row sums and Sinkhorn's column and row sums are taken in the
+reference's order (XLA CPU's windows of 32, its fused multiply-adds and
+flushed subnormals), so shares and segments equal the reference's bit for
+bit."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,8 +50,7 @@ def test_compute_job_shares_matches_reference(name, with_demand):
         Policy.parse(name), active=tt.active, user_id=tt.user_id,
         group_id=tt.group_id, size=tt.size, priority=tt.priority,
         demand=None if demand is None else torch.as_tensor(demand))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
-                               atol=1e-7)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert abs(float(got.sum()) - 1.0) < 1e-5
 
 
@@ -84,8 +83,7 @@ def test_sinkhorn_fig5_fixed_point():
                                atol=1e-3)
     want = ref_sync.sinkhorn_balance(jnp.asarray(support.numpy()),
                                      jnp.asarray(col.numpy()))
-    np.testing.assert_allclose(a.numpy(), np.asarray(want), rtol=1e-5,
-                               atol=1e-7)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -97,8 +95,46 @@ def test_sinkhorn_random_support(seed):
                                        torch.as_tensor(col), n_iters=32)
     want = ref_sync.sinkhorn_balance(jnp.asarray(support), jnp.asarray(col),
                                      n_iters=32)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                               atol=1e-7)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("s,j", ((2, 3), (40, 8), (3, 70), (128, 1024)))
+def test_sinkhorn_orders_its_sums_as_the_reference(s, j):
+    """Past 32 servers or jobs XLA sums by windows of 32; up to 32 jobs it
+    fuses the row scaling's product into the row sum (one fused
+    multiply-add a step); segments driven toward 0 pass through the
+    subnormals, which it flushes.  Every segment equal, also jitted and
+    over a lane axis."""
+    import jax
+    rng = np.random.default_rng(s * j)
+    support = (rng.random((3, s, j)) < 0.5).astype(np.float32)
+    col = rng.random((3, j)).astype(np.float32)
+    got = global_sync.sinkhorn_balance(torch.as_tensor(support),
+                                       torch.as_tensor(col))
+    want = jax.jit(jax.vmap(ref_sync.sinkhorn_balance))(
+        jnp.asarray(support), jnp.asarray(col))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", ("priority-fair", "user:priority",
+                                  "group-user-size-fair"))
+def test_chain_row_sums_in_the_reference_order(name):
+    """Non-dyadic priorities over 100 slots: the row sums of the chain's
+    transition matrices run over more than 32 columns, by windows of 32 of
+    the composite ids; every share equal."""
+    import jax
+    rng = np.random.default_rng(5)
+    jobs = [dict(user=int(rng.integers(0, 40)), group=int(rng.integers(0, 3)),
+                 size=int(rng.integers(1, 64)),
+                 priority=float(rng.random() * 3 + 0.1)) for _ in range(100)]
+    rt, tt = ref_jt.make_table(jobs, max_jobs=100), make_table(jobs, 100)
+    demand = rng.random(100) < 0.7
+    rp = ref_policy.Policy.parse(name)
+    want = jax.jit(lambda d: ref_policy.compute_job_shares_from_table(
+        rp, rt, demand=d))(jnp.asarray(demand))
+    chain = PolicyChain.from_table(Policy.parse(name), tt)
+    got = chain.shares(chain.active & torch.as_tensor(demand))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("name", ("user-fair", "size-fair",
@@ -110,12 +146,10 @@ def test_sync_and_local_segments_match_reference(name):
     rp = ref_policy.Policy.parse(name)
     got = global_sync.local_segments(chain, torch.as_tensor(demand))
     want = ref_sync.local_segments(rp, rt, jnp.asarray(demand))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
-                               atol=1e-7)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     got = global_sync.sync_segments(chain, torch.as_tensor(demand))
     want = ref_sync.sync_segments(rp, rt, jnp.asarray(demand))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                               atol=1e-7)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_params_hash_matches_reference():

@@ -238,3 +238,19 @@ def test_pow_is_glibcs_powf():
     got = prng.pow_f32(torch.tensor(0.985), torch.from_numpy(steps).float())
     np.testing.assert_array_equal(got.numpy().view(np.uint32),
                                   want.view(np.uint32))
+
+
+def test_softplus_is_xlas_float32_expansion():
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``) bit for bit over a wide
+    range, through the port's float32 ``exp`` and ``log1p``; torch's own
+    softplus is an ulp apart in places (and linear above 20)."""
+    rng = np.random.default_rng(3)
+    x = np.concatenate([rng.standard_normal(200_000) * 6,
+                        np.linspace(-90, 90, 20_001),
+                        [0.0, -0.0, 20.0, -20.0, 88.7, -103.9]]
+                       ).astype(np.float32)
+    want = np.asarray(jax.nn.softplus(x))
+    got = prng.softplus_f32(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (torch.nn.functional.softplus(torch.from_numpy(x)).numpy()
+            != want).any()

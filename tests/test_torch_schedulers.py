@@ -5,11 +5,9 @@ JAX reference, on the CPU.
 * Allocation math (``core/baselines.py``) on random inputs: the μ-boundary
   updates, ``waterfill`` and ``adaptbf_cross_donate``, and the select rules
   from the same keys.  Sums and prefix sums follow the reference's order
-  (``core/ordered.py``), so results are bit-equal; the one exception is
-  AdapTBF's bucket update, where XLA contracts some products into fused
-  multiply-adds the port does not reproduce: a bucket emptied by the
-  exchange keeps a residual of a few bytes' fraction that differs in its
-  last bits (held within 4 ulps of the row's largest bucket).
+  (``core/ordered.py``), and so do the products XLA contracts into fused
+  multiply-adds or reassociates (AdapTBF's exchange), so every result is
+  bit-equal.
 * Engine: one tick from the reference's state (a plain tick and a μ
   boundary), and a 400-tick lockstep run with every integer counter equal
   on every tick (a flipped pick would show as a counter difference), then
@@ -101,11 +99,9 @@ def ref_states(scheduler, n_ticks):
 
 def assert_aux_close(got, want, tag):
     for f in want._fields:
-        a, b = getattr(got, f), np.asarray(getattr(want, f))
-        scale = np.abs(b).max(axis=-1, keepdims=True) if b.ndim > 1 else \
-            np.abs(b)
-        ulp = np.spacing(np.maximum(scale, np.float32(1e-30)))
-        assert (np.abs(a - b) <= 4 * ulp).all(), f"{tag}: aux.{f}"
+        np.testing.assert_array_equal(getattr(got, f),
+                                      np.asarray(getattr(want, f)),
+                                      err_msg=f"{tag}: aux.{f}")
 
 
 # -- schemas ------------------------------------------------------------------

@@ -22,8 +22,7 @@ _spec.loader.exec_module(smoke)
 def test_lockstep_cpu_against_cpu_never_differs(scheduler, impl):
     from repro_torch.core import engine, tokens
     saved = engine.tick_step, tokens.token_select
-    flip, why, a, b = smoke.lockstep(scheduler, impl, "cpu", 80)
-    assert (flip, why) == (None, None)
+    a, b = smoke.lockstep(scheduler, impl, "cpu", 80)
     assert a.t == b.t == 80 and int(b.completed.sum()) > 0
     assert smoke.int_leaves_equal(a, b) is None
     assert (engine.tick_step, tokens.token_select) == saved   # unpatched
@@ -40,8 +39,8 @@ def test_lockstep_takes_a_phased_preset():
             Scenario(tree=tree), policy="job-fair", scheduler="themis",
             n_workers=2, device=dev)
 
-    flip, why, a, b = smoke.lockstep("themis", "fused", "cpu", 100, make=make)
-    assert (flip, why) == (None, None) and a.t == b.t == 100
+    a, b = smoke.lockstep("themis", "fused", "cpu", 100, make=make)
+    assert a.t == b.t == 100
     assert int(b.completed[:, 1].sum()) > 0
     assert smoke.int_leaves_equal(a, b) is None
 
@@ -125,7 +124,8 @@ def test_serve_phases_rehearse_on_the_cpu(monkeypatch):
     monkeypatch.setattr(smoke, "time_ms", lambda fn, reps=1: (fn(), 1.0)[1])
     params, launches, layer0, metrics = smoke.phase_serve(
         "cpu", reduced=True, seq=600, steps=8)
-    assert launches == {"flash_attention": 0, "mamba2_ssd": 0, "wkv6": 0}
+    assert launches == {"flash_attention": 0, "mamba2_ssd": 0, "wkv6": 0,
+                        "step_decay": 0}
     assert set(layer0) == {"flash_attention"}
     assert layer0["flash_attention"]["args"][0].shape == (2, 600, 8, 16)
     assert metrics["prefill_vs_decode_max_abs"] < 1e-4
@@ -146,16 +146,18 @@ def test_recurrent_serve_phases_rehearse_on_the_cpu(monkeypatch, arch,
     """serve_zamba2 / serve_rwkv6 at the reduced config on the CPU (the
     plain scans, no launch; 600 tokens, not a multiple of either chunk),
     the scan phase on the inputs they recorded with a short case list, and
-    zamba2's ServeEngine against its CPU self."""
+    zamba2's ServeEngine against its CPU self and its step_decay phase."""
     monkeypatch.setattr(smoke, "time_ms", lambda fn, reps=1: (fn(), 1.0)[1])
     monkeypatch.setattr(smoke, "MAMBA2_CASES", smoke.MAMBA2_CASES[:1]
                         + smoke.MAMBA2_CASES[-1:])
     monkeypatch.setattr(smoke, "WKV6_CASES", smoke.WKV6_CASES[:1])
     params, launches, layer0, metrics = smoke.phase_serve(
         "cpu", arch, tag=f"serve_{arch}", reduced=True, seq=600, steps=8)
-    assert launches == {"flash_attention": 0, "mamba2_ssd": 0, "wkv6": 0}
+    assert launches == {"flash_attention": 0, "mamba2_ssd": 0, "wkv6": 0,
+                        "step_decay": 0}
     assert kernel in layer0
     assert ("flash_attention" in layer0) == (arch == "zamba2-2.7b")
+    assert ("step_and_decay" in layer0) == (arch == "zamba2-2.7b")
     assert metrics["prefill_vs_decode_max_abs"] < 1e-4
     if arch == "zamba2-2.7b":
         draws, _ = smoke.phase_serve_engine("cpu", params, arch=arch,
@@ -164,6 +166,10 @@ def test_recurrent_serve_phases_rehearse_on_the_cpu(monkeypatch, arch,
     record = smoke.phase_scan("cpu", kernel, layer0[kernel])
     assert record["max_abs_err"] == 0.0 and record["library_ms"] is None
     assert record["bound_by"] == "operations"
+    if arch == "zamba2-2.7b":
+        record = smoke.phase_step_decay("cpu", layer0["step_and_decay"])
+        assert record["max_abs_err"] == 0.0 and record["library_ms"] is None
+        assert record["bound_by"] == "bytes"
 
 
 def test_scan_bounds_and_counts():

@@ -26,18 +26,20 @@ WARMUP, TICKS = 20, 100
 
 def profile(scheduler: str, impl: str, lanes: int = 1) -> None:
     import torch
-    from chip_smoke import (FLEET, FLEET_MU_TICKS, SCAN_SCHEDULERS,
-                            fleet_jobs, scheduler_params)
+    from chip_smoke import (FLEET_MU_TICKS, SCAN_SCHEDULERS, fleet_geometry,
+                            scheduler_params)
     from repro_torch.api import Experiment
+    from repro_torch.bench.fleet import fleet_jobs
     from repro_torch.core import engine
     from repro_torch.core.params import lane_params
 
     point = (scheduler_params(scheduler, FLEET_MU_TICKS)
              if scheduler in SCAN_SCHEDULERS else None)
+    geom = fleet_geometry()
     cfg, wl, table = Experiment(
         policy="user-fair", scheduler=scheduler, tick_impl=impl,
-        params=point, **FLEET
-    ).add_jobs(fleet_jobs(FLEET["max_jobs"], FLEET["n_servers"])).build()
+        params=point, **geom
+    ).add_jobs(fleet_jobs(geom["max_jobs"], geom["n_servers"])).build()
     tick = engine.make_tick(cfg, wl, table, n_bins=1)
     params = engine.get_scheduler(cfg.scheduler).params(cfg)
     state = engine.init_state(cfg, 1, seeds=range(lanes))
