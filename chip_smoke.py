@@ -166,7 +166,8 @@ each printing its lines before the last:
                 steps; 24 flash_attention launches per prefill, finite
                 logits, and prefill of the prompt plus k generated tokens
                 agrees with k decode steps (k = 1, 8)
-  serve_engine  the port's ServeEngine at full width with the set-up of
+  serve_engine  the port's ServeEngine at full width (its own weights from
+                seed 0) with the set-up of
                 ``repro_torch.launch.serve`` (3 tenants, size-fair, 4
                 slots, 12 requests of 16 tokens, 8 new each; key seed 1,
                 whose draws decide admissions): all complete, every
@@ -221,17 +222,58 @@ each printing its lines before the last:
                 block plus the shared block; rwkv6: 2 layers): one
                 1100-token prompt and 8 decode steps on the card and on the
                 CPU, logits within rtol 1e-3 (atol 1e-3), tokens equal
+  serve_blocks  the serve phase on the seven archs the phases above do not
+                serve, at full width cut in depth (SERVE_BLOCKS: gemma3-4b
+                one 5:1 period, qwen3-32b 4 layers, qwen3-moe-30b-a3b 4
+                (128 experts, top-8), mixtral-8x7b 4, minicpm3-4b 4,
+                llama-3.2-vision-11b 4 attn + cross, musicgen-medium 4),
+                bf16, 2 x 6000 tokens (codes and the vision stub drawn from
+                the seed), 16 decode steps; flash launches per prefill for
+                every self-attention block (attn_moe's too), MLA's heads
+                folded into the batch, none for cross; every cross gate set
+                to atanh(0.5); prefill + k vs decode step k (MoE and MLA
+                also in float32: MLA's bf16 noise bounds its bf16 check;
+                the MoE float32 run is dropless, capacity >= T, and must
+                hold a row at each k); a row an MoE prefill keeps
+                otherwise than the path that filled the decode cache is
+                excused by name and count, a routing flip only at a
+                top-k margin under twice the measured router-score gap;
+                dropped assignments counted; both MoE dispatches on
+                layer 0's MoE input (the same drop count, outputs
+                within one bf16 rounding, each timed); flash on layer 0's
+                inputs of minicpm3 (folded, D = 96), mixtral (window 4096)
+                and gemma3 (D = 256) beside SDPA and its bound
+  blocks_card_vs_cpu  qwen3-moe (each dispatch), minicpm3 (past MLA's 512),
+                llama-vision (attn + cross) and musicgen at full width cut
+                to 2 layers, float32 (qwen3-moe dropless): one 1100-token
+                prompt and 8 decode steps on the card and on the CPU,
+                logits within rtol 1e-3 (atol 1e-3), tokens equal
 
-then one JSON line describing every kernel, the ``nvidia-smi`` line, and
-as the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
+The phases run in this order: device, build, kernels, engine, batch and
+service alone, since each times a kernel or the engine's tick; then three
+processes share the card until all are done.  This one runs
+fused_vs_scan, card_vs_cpu, anchor, schedulers, schedulers_card_vs_cpu,
+poisson and workspace; two more (the script with ``--plane NAME OUT``,
+each ended with this one) run figures, scenarios, batch_plane,
+calibrate, kern, micro and cli, and shard, fleet, fig7, fig9, fig13 and
+fig14, and hand back their draws' launch counts and their lines.  The
+host times these phases print are taken while the other processes run.
+The serving phases follow, alone again.
+
+The script ends with one JSON line describing every kernel, the
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+{...}}``.  Any failure raises and
 the script exits non-zero.  Without a CUDA card, or outside a checkout, it
 exits 2 and prints no result.  It imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
 import json
+import os
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2254,13 +2296,21 @@ def kernel_ops() -> dict:
     return {"flash_attention": fa_ops, "mamba2_ssd": ssd_ops, "wkv6": wkv_ops}
 
 
-def launches_per_prefill(cfg) -> dict:
-    """Kernel launches one prefill longer than ``block_q`` makes on the
-    card: flash_attention per attention block (the shared block at each of
-    its invocations), mamba2_ssd per mamba block, wkv6 per rwkv block."""
+def launches_per_prefill(cfg, seq=None) -> dict:
+    """Kernel launches one prefill of ``seq`` tokens makes on the card (by
+    default one longer than ``block_q`` and MLA's dense limit):
+    flash_attention per self-attention block past ``block_q`` (the shared
+    block at each of its invocations, an attn_moe block's attention too) and
+    per MLA block past ``MLA_DENSE_MAX`` (its heads folded into the batch),
+    none for a cross block (dense attention over the vision tokens);
+    mamba2_ssd per mamba block, wkv6 per rwkv block."""
+    from repro_torch.models.attention import MLA_DENSE_MAX
     kinds = [k for rep, ks in cfg.pattern for _ in range(rep) for k in ks]
-    return {"flash_attention": sum(k in ("attn", "local", "global",
-                                         "shared_attn") for k in kinds),
+    blocked = seq is None or seq > cfg.block_q
+    folded = seq is None or seq > MLA_DENSE_MAX
+    return {"flash_attention": blocked * sum(
+                k in ("attn", "local", "global", "shared_attn", "attn_moe")
+                for k in kinds) + folded * kinds.count("mla"),
             "mamba2_ssd": kinds.count("mamba"), "wkv6": kinds.count("rwkv")}
 
 
@@ -2292,21 +2342,26 @@ def check_argmax(tag, want_logits, got_logits, vocab, atol, phase="serve"):
 
 
 def record_first_calls(store):
-    """Patch the model modules' kernel wrappers so that the first call of
-    each keeps a copy of its inputs in ``store[kernel]`` (``args``, a list
-    of tensors or None, and ``kw``); returns the undo."""
-    from repro_torch.models import attention, rwkv, ssm
+    """Patch the model modules' kernel wrappers (and the MoE FFN) so that
+    the first call of each keeps a copy of its inputs in ``store[name]``
+    (``args``, a list with its tensors cloned, and ``kw``); returns the
+    undo."""
+    import torch
+    from repro_torch.models import attention, moe, rwkv, ssm
     saved = []
+
+    def copy(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
     for module, name in ((attention, "flash_attention"), (ssm, "mamba2_ssd"),
-                         (ssm, "step_and_decay"), (rwkv, "wkv6")):
+                         (ssm, "step_and_decay"), (rwkv, "wkv6"),
+                         (moe, "moe_forward")):
         real = getattr(module, name)
 
         def wrapper(*args, _real=real, _name=name, **kw):
             if _name not in store:
-                store[_name] = dict(
-                    args=[a if a is None else a.clone() for a in args],
-                    kw={k: v.clone() if hasattr(v, "clone") else v
-                        for k, v in kw.items()})
+                store[_name] = dict(args=[copy(a) for a in args],
+                                    kw={k: copy(v) for k, v in kw.items()})
             return _real(*args, **kw)
 
         setattr(module, name, wrapper)
@@ -2325,56 +2380,256 @@ def synced(device):
     return time.perf_counter()
 
 
+#: tanh of the gate every cross block gets before a serving check: the
+#: reference initialises the gate to 0, and tanh(0) = 0 makes a fresh cross
+#: block add nothing, so no check of it could fail.
+CROSS_GATE = 0.5
+
+
+def open_gates(params, cfg) -> int:
+    """Set every cross block's gate to atanh(CROSS_GATE), in place; returns
+    the number of cross layers."""
+    import math
+    n = 0
+    for si, (rep, kinds) in enumerate(cfg.pattern):
+        for j, kind in enumerate(kinds):
+            if kind == "cross":
+                params[f"seg{si}"][f"blk{j}"]["gate"].fill_(
+                    math.atanh(CROSS_GATE))
+                n += rep
+    return n
+
+
+def ids_key(cfg) -> str:
+    return "codes" if cfg.n_codebooks else "tokens"
+
+
+def serve_prompt(cfg, batch, seq, device, seed):
+    """A prompt of ``batch`` x ``seq`` on ``device``: (token ids [B, S], or
+    musicgen's codes [B, S, nq]; the other inputs, i.e. llama-vision's
+    vision stub).  Token ids are numpy integers from ``seed``; codes and the
+    vision stub are drawn from ``seed`` by
+    ``repro_torch.configs.inputs.random_batch`` on the CPU, so the card and
+    the CPU get the same inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.inputs import random_batch
+    if not (cfg.n_codebooks or cfg.n_vision_tokens):
+        ids = np.random.default_rng(seed).integers(0, cfg.vocab, (batch, seq))
+        return torch.as_tensor(ids, dtype=torch.int32, device=device), {}
+    drawn = random_batch(torch.Generator().manual_seed(seed), cfg, seq, batch,
+                         with_labels=False)
+    ids = drawn.pop(ids_key(cfg)).to(device)
+    return ids, {k: v.to(device) for k, v in drawn.items()}
+
+
+def greedy(cfg, logits):
+    """The next input of a greedy decode step: [B, 1] token ids, or [B, 1,
+    nq] codes (each codebook's own argmax)."""
+    import torch
+    return torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+
+
+class RouteLog:
+    """Within ``with``: every MoE routing, in call order (one per attn_moe
+    block and forward), as (expert indices [T, k], the float32 scores
+    [T, E] ``moe.route`` took their top-k of: the router's logits for
+    mixtral's topk_softmax, their softmax for qwen3's softmax_topk)."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        from repro_torch.models.layers import linear
+        self.calls, self._real = [], moe.route
+
+        def wrapper(params, cfg, x_flat):
+            out = self._real(params, cfg, x_flat)
+            scores = linear(params["router"], x_flat).float()
+            if cfg.moe_router != "topk_softmax":
+                scores = torch.softmax(scores, dim=-1)
+            self.calls.append((out[1], scores))
+            return out
+
+        moe.route = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._real
+
+
+def dropless(cfg):
+    """``cfg`` with a capacity factor of E / k, so that every expert's
+    buffer holds all T tokens of a prefill (capacity = T) and, like decode,
+    it drops nothing; a config without experts unchanged."""
+    import dataclasses
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(cfg,
+                               moe_capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def dropped(cfg, routes) -> int:
+    """Assignments a prefill's MoE blocks dropped at capacity."""
+    from repro_torch.models.moe import kept
+    return sum(int((~kept(cfg, idx)).sum()) for idx, _ in routes)
+
+
+def moe_excused(cfg, base_routes, pf_routes, dec_routes, batch,
+                tol) -> dict:
+    """{row: [why, ...]} for the rows a prefill of the prompt plus k tokens
+    (``pf_routes``) and decode step k cannot agree on.  Decode (at most 32
+    tokens) is dropless, and its cache holds what the prompt's prefill
+    (``base_routes``) computed; ``dec_routes[j]`` is step j's routing.
+
+    A row is excused, by name and count, where in some MoE block the longer
+    prefill keeps one of its prompt tokens' assignments otherwise than the
+    prompt's prefill or drops one of a generated token's (capacity moves
+    with the stream), or routes a token to other experts than the path that
+    filled the cache.  A routing flip before any such event in its row must
+    be a near tie, as ``check_argmax`` holds swaps: the top-k margin of the
+    cache path's scores under twice the largest score difference between
+    the two paths, and that difference within ``tol``; otherwise this
+    raises.  A flip after an event is its consequence."""
+    import torch
+    from repro_torch.models.moe import kept
+    why: dict = {}
+    k, n = len(dec_routes), cfg.top_k
+    for layer, ((base, z_base), (idx, z_pf)) in enumerate(
+            zip(base_routes, pf_routes)):
+        seq = base.shape[0] // batch
+        keep = kept(cfg, idx).reshape(batch, seq + k, -1).cpu()
+        keep0 = kept(cfg, base).reshape(batch, seq, -1).cpu()
+        # Each token's routing on the path that filled the decode cache.
+        ref = torch.cat([base.reshape(batch, seq, -1)]
+                        + [dec_routes[j][layer][0][:, None]
+                           for j in range(k)], 1).cpu()
+        z_ref = torch.cat([z_base.reshape(batch, seq, -1)]
+                          + [dec_routes[j][layer][1][:, None]
+                             for j in range(k)], 1).cpu()
+        got = idx.reshape(batch, seq + k, -1).cpu()
+        z_got = z_pf.reshape(batch, seq + k, -1).cpu()
+        flips = (got.sort(-1).values != ref.sort(-1).values).any(-1)
+        earlier = set(why)
+        for b in range(batch):
+            notes = []
+            moved = int((keep[b, :seq] != keep0[b]).any(-1).sum())
+            if moved:
+                notes.append(f"{moved} prompt token(s) kept otherwise than "
+                             f"in the prompt's prefill")
+            for j in range(k):
+                lost = int((~keep[b, seq + j]).sum())
+                if lost:
+                    notes.append(f"generated token {j} lost {lost} "
+                                 f"assignment(s)")
+            for t in torch.nonzero(flips[b]).flatten().tolist():
+                top = torch.topk(z_ref[b, t], n + 1).values
+                margin = float(top[n - 1] - top[n])
+                gap = float((z_got[b, t] - z_ref[b, t]).abs().max())
+                name, path = ((f"prompt token {t}", "the prompt's prefill")
+                              if t < seq else
+                              (f"generated token {t - seq}", "its decode step"))
+                flip = (f"{name} routed to {sorted(got[b, t].tolist())}, "
+                        f"{path} to {sorted(ref[b, t].tolist())} (top-{n} "
+                        f"margin {margin:.3g}, score gap {gap:.3g})")
+                if b not in earlier and not (gap <= tol and margin < 2 * gap):
+                    raise AssertionError(
+                        f"row {b} layer {layer}: {flip}: not a near tie "
+                        f"(the margin must be under twice the gap, the gap "
+                        f"within {tol})")
+                notes.append(flip)
+            if notes:
+                why.setdefault(b, []).append(f"layer {layer}: "
+                                             + ", ".join(notes))
+    return why
+
+
+def held_rows(tag, phase, excused, batch, what, require=True):
+    """The rows a comparison holds: all but the excused, each of which is
+    reported with its reasons.  Where it holds none, it raises unless
+    ``require`` is off."""
+    for b, why in sorted(excused.items()):
+        say(phase, f"{tag}: row {b} excused from {what}: {'; '.join(why)}")
+    rows = [b for b in range(batch) if b not in excused]
+    if not rows:
+        if require:
+            raise AssertionError(f"{tag}: every row excused, {what} "
+                                 f"compares nothing")
+        say(phase, f"{tag}: every row excused, {what} compares nothing")
+    return rows
+
+
 def phase_serve(device, arch=SERVE_ARCH, *, tag="serve", reduced=False,
-                seq=6000, steps=16):
-    """A serving path at full width; returns (params, kernel launches in
-    the phase by kernel, the inputs each kernel's first call got, metrics).
-    Every launch counter is zeroed before the path runs and read after.
+                seq=6000, steps=16, cut=None):
+    """A serving path at full width (its depth cut by ``cut``, overrides of
+    the config); returns (params, kernel launches in the phase by kernel,
+    the inputs each kernel's first call got, metrics).  Every launch counter
+    is zeroed before the path runs and read after.
 
     Prefill of the prompt plus k generated tokens must agree with k decode
-    steps.  For the dense model the bf16 bounds are BF16_LOGIT_TOL.  For a
-    model with a recurrent scan (zamba2, rwkv6) the same weights also run
-    in float32 arithmetic, where the two paths must agree within
-    F32_DEPTH_TOL: that holds the final state each scan hands to the decode
-    cache.  Their bf16 paths must then agree within BF16_LOGIT_TOL or within
-    the bf16 prefill's own distance from the float32 one, whichever is
-    larger: at full depth these random models' bf16 rounding noise (RMS
-    0.22 for rwkv6, 0.64 for zamba2 against float32, on an H100) is far
-    above the dense model's 0.02 that BF16_LOGIT_TOL was set for."""
+    steps.  For the dense models the bf16 bounds are BF16_LOGIT_TOL.  For a
+    model with a recurrent scan (zamba2, rwkv6), MoE blocks or MLA the same
+    weights also run in float32 arithmetic, where the two paths must agree
+    within F32_DEPTH_TOL: that holds the final state each scan hands to the
+    decode cache, MLA's latent cache, whose decode runs in float32 against
+    a bf16 prefill, and the MoE blocks' caches.  The bf16 paths of the scan
+    and MLA models must then agree within BF16_LOGIT_TOL or within the bf16
+    prefill's own distance from the float32 one, whichever is larger: at
+    full depth these random models' bf16 rounding noise (RMS 0.22 for
+    rwkv6, 0.64 for zamba2 against float32, on an H100) is far above the
+    dense model's 0.02 that BF16_LOGIT_TOL was set for.
+
+    An MoE prefill drops assignments at capacity where decode (at most 32
+    tokens) is dropless.  The float32 run is therefore dropless (``dropless``:
+    capacity = T, by ragged_sort, as dense_onehot's [T, E, T] tensors would
+    take 74 GB for qwen3-moe) and must hold a row at each k.  The bf16 run
+    keeps the config's capacity: a row the longer prefill keeps otherwise
+    than the path that filled the decode cache is excused by name and count
+    (``moe_excused``), and the bf16 check, under BF16_LOGIT_TOL (the dropless
+    float32 run's distance from it is not rounding noise), may then hold
+    none.  A routing flip is excused only as a near tie.  Each prefill's
+    dropped assignments are counted.  Cross blocks get tanh(gate) =
+    CROSS_GATE."""
     import copy
     import dataclasses
-    import numpy as np
     import torch
     from repro_torch.models import model as M
     from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
-    cfg = serve_config(reduced, arch)
+    cfg = serve_config(reduced, arch, **(cut or {}))
+    kinds = {k for _, ks in cfg.pattern for k in ks}
     ops = kernel_ops()
-    batch, check_ks = 2, (1, 8)
+    batch, check_ks = 2, tuple(sorted({1, min(8, steps)}))
     t0 = synced(device)
     params = M.init_params(cfg, seed=0, device=device)
     say(tag, f"{cfg.name} d={cfg.d_model} layers={cfg.layer_count()} "
         f"pattern={cfg.pattern} heads={cfg.n_heads}/{cfg.n_kv_heads}x"
         f"{cfg.head_dim} window={cfg.window} {cfg.param_dtype}: "
-        f"{cfg.param_count() / 1e9:.3f} B params initialised in "
+        f"{cfg.param_count() / 1e9:.3f} B params "
+        f"({cfg.active_param_count() / 1e9:.3f} B active) initialised in "
         f"{synced(device) - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, seq)),
-                             dtype=torch.int32, device=device)
+    if open_gates(params, cfg):
+        say(tag, f"every cross block's gate set to atanh({CROSS_GATE}) "
+            f"(the fresh gate 0 would make cross-attention add nothing)")
+    prompt, extra = serve_prompt(cfg, batch, seq, device, seed=0)
+    key = ids_key(cfg)
     max_len = seq + steps
     prefill = make_prefill_step(cfg, max_len)
     decode = make_decode_step(cfg)
-    per_prefill = launches_per_prefill(cfg)
+    per_prefill = launches_per_prefill(cfg, seq)
     has_scan = per_prefill["mamba2_ssd"] + per_prefill["wkv6"] > 0
+    has_moe = "attn_moe" in kinds
     if torch.device(device).type != "cuda":
         per_prefill = dict.fromkeys(per_prefill, 0)
     layer0: dict = {}
+    drops: dict = {}
 
-    def run_prefill(tokens, step=prefill, weights=params):
+    def run_prefill(tokens, step=prefill, weights=params, c=cfg):
         before = {name: op.LAUNCHES for name, op in ops.items()}
         passes = dict(ssd_ops.PASS_LAUNCHES)
         steps_before = ssd_ops.STEP_DECAY_LAUNCHES
         t = synced(device)
-        logits, caches = step(weights, {"tokens": tokens})
+        with RouteLog() as routes:
+            logits, caches = step(weights, {key: tokens, **extra})
         wall = synced(device) - t
         n = {name: op.LAUNCHES - before[name] for name, op in ops.items()}
         if n != per_prefill:
@@ -2388,7 +2643,22 @@ def phase_serve(device, arch=SERVE_ARCH, *, tag="serve", reduced=False,
                                  f"each once per call ({n['mamba2_ssd']})")
         if not torch.isfinite(logits).all():
             raise AssertionError("prefill logits are not finite")
-        return logits, caches, wall
+        if has_moe:
+            drops[(tokens.shape[1], weights is params)] = dropped(
+                c, routes.calls)
+        return logits, caches, wall, routes.calls
+
+    def run_decode(weights, caches, step, n, first):
+        """``n`` decode steps feeding gen[i]; (logits, routes) per step."""
+        out = []
+        for i in range(n):
+            pos = torch.full((batch,), seq + i, dtype=torch.int32,
+                             device=device)
+            with RouteLog() as routes:
+                logits, _, caches = step(weights, caches, {key: first(i)},
+                                         pos)
+            out.append((logits, routes.calls))
+        return out
 
     ssd_ops = ops["mamba2_ssd"]
     for op in ops.values():
@@ -2400,69 +2670,92 @@ def phase_serve(device, arch=SERVE_ARCH, *, tag="serve", reduced=False,
         run_prefill(prompt)                                  # warm-up
     finally:
         undo()
-    logits, caches, prefill_s = run_prefill(prompt)
-    gen, step_logits, step_s = [], [], []
-    tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+    logits, caches, prefill_s, base_routes = run_prefill(prompt)
+    gen, step_logits, step_routes, step_s = [], [], [], []
+    tok = greedy(cfg, logits)
     for i in range(steps):
         gen.append(tok)
         pos = torch.full((batch,), seq + i, dtype=torch.int32, device=device)
         t = synced(device)
-        logits, nxt, caches = decode(params, caches, {"tokens": tok}, pos)
+        with RouteLog() as routes:
+            logits, nxt, caches = decode(params, caches, {key: tok}, pos)
         step_s.append(synced(device) - t)
         if not torch.isfinite(logits).all():
             raise AssertionError(f"decode step {i} logits are not finite")
         step_logits.append(logits)
-        tok = torch.argmax(logits[..., :cfg.vocab], dim=-1).to(torch.int32)
-    pf = {k: run_prefill(torch.cat([prompt] + gen[:k], dim=1))[0]
-          for k in check_ks}
+        step_routes.append(routes.calls)
+        tok = greedy(cfg, logits)
+    pf, pf_routes, excused = {}, {}, {}
+    for k in check_ks:
+        pf[k], _, _, pf_routes[k] = run_prefill(
+            torch.cat([prompt] + gen[:k], dim=1))
     tol = {k: dict(BF16_LOGIT_TOL) for k in check_ks}
     n_prefills = 2 + len(check_ks)
-    if has_scan:
+    if has_scan or has_moe or "mla" in kinds:
         del caches
-        cfg32 = dataclasses.replace(cfg, dtype="float32",
+        cfg32 = dataclasses.replace(dropless(cfg), dtype="float32",
                                     param_dtype="float32")
+        if has_moe:
+            cfg32 = dataclasses.replace(cfg32, moe_dispatch="ragged_sort")
         params32 = copy.deepcopy(params).float()
         prefill32 = make_prefill_step(cfg32, max_len)
-        decode32 = make_decode_step(cfg32)
-        _, caches32, _ = run_prefill(prompt, prefill32, params32)
-        dec32 = []
-        for i in range(max(check_ks)):
-            pos = torch.full((batch,), seq + i, dtype=torch.int32,
-                             device=device)
-            logits32, _, caches32 = decode32(params32, caches32,
-                                             {"tokens": gen[i]}, pos)
-            dec32.append(logits32)
+        _, caches32, _, base32 = run_prefill(prompt, prefill32, params32,
+                                             cfg32)
+        dec32 = run_decode(params32, caches32, make_decode_step(cfg32),
+                           max(check_ks), gen.__getitem__)
+        del caches32
         for k in check_ks:
-            pf32 = run_prefill(torch.cat([prompt] + gen[:k], dim=1),
-                               prefill32, params32)[0]
-            err, rms = logit_gap(pf32, dec32[k - 1])
-            say(tag, f"float32 arithmetic: prefill of prompt + {k} token(s) "
-                f"vs decode step {k}: max |logit diff| {err:.4g}, RMS "
-                f"{rms:.4g} (tolerance {F32_DEPTH_TOL})")
+            pf32, _, _, routes32 = run_prefill(
+                torch.cat([prompt] + gen[:k], dim=1), prefill32, params32,
+                cfg32)
+            want32 = dec32[k - 1][0]
+            rows = held_rows(f"float32 prefill + {k} vs decode step {k}",
+                             tag, moe_excused(
+                                 cfg32, base32, routes32,
+                                 [r for _, r in dec32[:k]], batch,
+                                 F32_DEPTH_TOL["max"]),
+                             batch, "the float32 check")
+            err, rms = logit_gap(pf32[rows], want32[rows])
+            say(tag, f"float32 arithmetic: prefill of prompt + {k} "
+                f"token(s) vs decode step {k}: max |logit diff| "
+                f"{err:.4g}, RMS {rms:.4g} over rows {rows} (tolerance "
+                f"{F32_DEPTH_TOL})")
             if err > F32_DEPTH_TOL["max"] or rms > F32_DEPTH_TOL["rms"]:
                 raise AssertionError(f"float32 prefill+{k} vs decode: "
                                      f"logits beyond {F32_DEPTH_TOL}")
             noise_max, noise_rms = logit_gap(pf[k], pf32)
-            tol[k] = dict(rms=max(tol[k]["rms"], noise_rms),
-                          max=max(tol[k]["max"], noise_max))
+            if not has_moe:
+                tol[k] = dict(rms=max(tol[k]["rms"], noise_rms),
+                              max=max(tol[k]["max"], noise_max))
             say(tag, f"bf16 prefill of prompt + {k} vs float32: max "
-                f"{noise_max:.4g}, RMS {noise_rms:.4g} (the bf16 noise)")
-        del params32, caches32
+                f"{noise_max:.4g}, RMS {noise_rms:.4g} ("
+                f"{'at other capacities' if has_moe else 'the bf16 noise'})")
+        if has_moe and any(d for (_, bf16), d in drops.items() if not bf16):
+            raise AssertionError(f"the dropless float32 prefills dropped "
+                                 f"{drops}")
+        del params32, dec32
         n_prefills += 1 + len(check_ks)
     worst = 0.0
     for k in check_ks:
         want = step_logits[k - 1]
-        err, rms = logit_gap(pf[k], want)
+        excused[k] = moe_excused(cfg, base_routes, pf_routes[k],
+                                 step_routes[:k], batch, tol[k]["max"])
+        rows = held_rows(f"prefill + {k} vs decode step {k}", tag,
+                         excused[k], batch, "the bf16 check",
+                         require=not has_moe)
+        if not rows:
+            continue
+        err, rms = logit_gap(pf[k][rows], want[rows])
         worst = max(worst, err)
         say(tag, f"prefill of prompt + {k} generated token(s) vs decode "
             f"step {k}: max |logit diff| {err:.4g}, RMS diff / RMS logit "
-            f"{rms:.4g} (tolerance {tol[k]})")
+            f"{rms:.4g} over rows {rows} (tolerance {tol[k]})")
         if err > tol[k]["max"] or rms > tol[k]["rms"]:
             raise AssertionError(f"prefill+{k} vs decode: logits beyond "
                                  f"{tol[k]}")
         # A swap is excused only where this measured difference explains it.
-        check_argmax(f"prefill+{k} vs decode", want, pf[k], cfg.vocab,
-                     err, phase=tag)
+        check_argmax(f"prefill+{k} vs decode", want[rows], pf[k][rows],
+                     cfg.vocab, err, phase=tag)
     launches = {name: op.LAUNCHES for name, op in ops.items()}
     launches["step_decay"] = ssd_ops.STEP_DECAY_LAUNCHES
     decode_ms = sorted(step_s)[len(step_s) // 2] * 1e3
@@ -2470,7 +2763,15 @@ def phase_serve(device, arch=SERVE_ARCH, *, tag="serve", reduced=False,
                    prefill_tokens_per_s=batch * seq / prefill_s,
                    decode_ms_per_step=decode_ms,
                    decode_tokens_per_s=batch / (decode_ms / 1e3),
-                   prefill_vs_decode_max_abs=worst)
+                   prefill_vs_decode_max_abs=worst,
+                   excused_rows={k: sorted(v) for k, v in excused.items()})
+    if has_moe:
+        metrics["dropped"] = {f"{n} tokens{'' if bf16 else ' float32'}": d
+                              for (n, bf16), d in drops.items()}
+        say(tag, f"assignments dropped at capacity per prefill (of "
+            f"{batch} x length x top_k {cfg.top_k} x "
+            f"{sum(ks.count('attn_moe') * r for r, ks in cfg.pattern)} "
+            f"layers): {metrics['dropped']}")
     say(tag, f"prefill B={batch} S={seq}: {metrics['prefill_ms']:.1f} ms "
         f"({metrics['prefill_tokens_per_s']:.0f} tokens/s); decode at B="
         f"{batch}: {decode_ms:.2f} ms/step median of {steps} (one token per "
@@ -2523,15 +2824,16 @@ def draws_off_lowest(calls) -> int:
                for _, args, out, _ in calls)
 
 
-def phase_serve_engine(device, params, *, arch=SERVE_ARCH, tag="serve_engine",
+def phase_serve_engine(device, *, arch=SERVE_ARCH, tag="serve_engine",
                        reduced=False):
-    """ServeEngine on the card against the CPU (the arch's reduced config);
+    """ServeEngine on the card (full width, random weights from seed 0) against the CPU (the arch's reduced config);
     returns (token_select launches, requests/s)."""
     from repro_torch.kernels import parity
     from repro_torch.kernels.token_select import ops as tk_ops
     from repro_torch.kernels.token_select.ref import token_select_ref
     from repro_torch.models import model as M
     cfg = serve_config(reduced, arch)
+    params = M.init_params(cfg, seed=0, device=device)
     tk_ops.LAUNCHES = 0
     admitted, calls, reqs, wall = run_engine(cfg, params, device)
     launches = tk_ops.LAUNCHES
@@ -2725,9 +3027,11 @@ def flash_at_shape(layer0, phase, tag, *, reps=10):
     rel = (torch.arange(sq, device=q.device)[:, None] + kw["q_offset"]
            - torch.arange(sk, device=q.device)[None, :])
     mask = (rel >= 0) & (rel < kw["window"]) if kw["window"] else rel >= 0
+    scale = kw.get("scale")
     lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask), reps=reps)
-    lib_err = float((F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        qt, kt, vt, attn_mask=mask, scale=scale), reps=reps)
+    lib_err = float((F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                    scale=scale)
                      .transpose(1, 2).float()
                      - fa_ops.flash_attention(q, k, v, **kw).float())
                     .abs().max())
@@ -3212,39 +3516,50 @@ def model_card_vs_cpu(device, cfg, *, phase, seq, steps):
     """``cfg`` (float32) on the card and on the CPU from the same
     parameters: one ``seq``-token prompt and ``steps`` decode steps, logits
     within F32_LOGIT_TOL, greedy tokens equal.  The card's prefill must
-    launch each kernel of ``cfg`` once per block (``launches_per_prefill``).
-    The card's prefill of the prompt plus the first and the last k
-    generated tokens must also agree with its k-th decode step within
-    F32_LOGIT_TOL: in float32 this holds the caches the prefill hands to
-    decode (a scan kernel's final state among them) far more tightly than
-    the bf16 serve phases can.  Returns the largest logit difference."""
+    launch each kernel of ``cfg`` as ``launches_per_prefill`` says.  The
+    card's prefill of the prompt plus the first and the last k generated
+    tokens must also agree with its k-th decode step within F32_LOGIT_TOL:
+    in float32 this holds the caches the prefill hands to decode (a scan
+    kernel's final state, MLA's latent cache among them) far more tightly
+    than the bf16 serve phases can.  An MoE config runs dropless
+    (``dropless``), so only a routing flip at a near tie excuses a row
+    (``moe_excused``), and each k must hold the row.  Cross blocks get
+    tanh(gate) = CROSS_GATE.  Returns the largest logit difference."""
     import copy
-    import numpy as np
     import torch
     from repro_torch.models import model as M
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on; float32 parity needs "
                              "them off")
-    cpu_params = M.init_params(cfg, seed=1, device="cpu")
-    card_params = copy.deepcopy(cpu_params).to(device)
-    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (1, seq))
+    cfg = dropless(cfg)
+    # Drawn on the card (the CPU's generator takes seconds a GB), copied.
+    card_params = M.init_params(cfg, seed=1, device=device)
+    open_gates(card_params, cfg)
+    cpu_params = copy.deepcopy(card_params).to("cpu")
+    key = ids_key(cfg)
+    prompt, extra = serve_prompt(cfg, 1, seq, "cpu", seed=1)
     ops = kernel_ops()
     before = {name: op.LAUNCHES for name, op in ops.items()}
     sides = {}
     for name, dev, params in (("card", device, card_params),
                               ("cpu", "cpu", cpu_params)):
-        sides[name] = M.prefill(params, cfg, {"tokens": torch.as_tensor(
-            prompt, dtype=torch.int32, device=dev)}, max_len=seq + steps)
+        with RouteLog() as log:
+            sides[name] = M.prefill(params, cfg, {
+                key: prompt.to(dev),
+                **{k: v.to(dev) for k, v in extra.items()}},
+                max_len=seq + steps)
+        if name == "card":
+            base_routes = log.calls
     launched = {name: op.LAUNCHES - before[name] for name, op in ops.items()}
-    if device != "cpu" and launched != launches_per_prefill(cfg):
+    if device != "cpu" and launched != launches_per_prefill(cfg, seq):
         raise AssertionError(f"the card's prefill launched {launched}, "
-                             f"expected {launches_per_prefill(cfg)}")
+                             f"expected {launches_per_prefill(cfg, seq)}")
     worst, swapped = 0.0, 0
     gen, card_steps = [], []
     for i in range(steps + 1):
         card_logits, cpu_logits = sides["card"][0], sides["cpu"][0]
         if i:
-            card_steps.append(card_logits)
+            card_steps.append((card_logits, routes.calls))
         err = float((card_logits.cpu() - cpu_logits).abs().max())
         worst = max(worst, err)
         torch.testing.assert_close(card_logits.cpu(), cpu_logits,
@@ -3255,29 +3570,40 @@ def model_card_vs_cpu(device, cfg, *, phase, seq, steps):
                                 F32_LOGIT_TOL["atol"], phase=phase)
         if i == steps:
             break
-        tok = torch.argmax(cpu_logits[..., :cfg.vocab], dim=-1).to(torch.int32)
+        tok = greedy(cfg, cpu_logits)
         gen.append(tok)
         for name, dev, params in (("card", device, card_params),
                                   ("cpu", "cpu", cpu_params)):
             pos = torch.full((1,), seq + i, dtype=torch.int32, device=dev)
-            sides[name] = M.decode_step(params, cfg, sides[name][1],
-                                        {"tokens": tok.to(dev)}, pos)
+            with RouteLog() as log:
+                sides[name] = M.decode_step(params, cfg, sides[name][1],
+                                            {key: tok.to(dev)}, pos)
+            if name == "card":
+                routes = log
     say(phase, f"{cfg.name} at full width, pattern {cfg.pattern}, float32, "
         f"prompt {seq}, {steps} decode steps: logits max abs diff "
         f"{worst:.3g} ({F32_LOGIT_TOL}), greedy tokens equal"
         f"{f' except {swapped} swapped at a gap under tolerance' if swapped else ''}")
     for k in sorted({1, steps}):
-        tokens = torch.cat([torch.as_tensor(prompt, dtype=torch.int32)]
-                           + gen[:k], dim=1).to(device)
-        pf, _ = M.prefill(card_params, cfg, {"tokens": tokens},
-                          max_len=seq + steps)
-        err = float((pf - card_steps[k - 1]).abs().max())
+        tokens = torch.cat([prompt] + gen[:k], dim=1).to(device)
+        with RouteLog() as log:
+            pf, _ = M.prefill(card_params, cfg, {
+                key: tokens, **{n: v.to(device) for n, v in extra.items()}},
+                max_len=seq + steps)
+        want = card_steps[k - 1][0]
+        tag = f"the card's prefill of prompt + {k} token(s) vs its decode " \
+              f"step {k}"
+        held_rows(tag, phase, moe_excused(
+            cfg, base_routes, log.calls, [r for _, r in card_steps[:k]], 1,
+            F32_LOGIT_TOL["atol"]), 1, "the float32 check")
+        if dropped(cfg, log.calls):
+            raise AssertionError(f"{tag}: the dropless prefill dropped "
+                                 f"{dropped(cfg, log.calls)} assignments")
+        err = float((pf - want).abs().max())
         torch.testing.assert_close(
-            pf, card_steps[k - 1], **F32_LOGIT_TOL,
-            msg=lambda m: f"card prefill + {k} vs decode step {k}: {m}")
-        say(phase, f"{cfg.name}: the card's prefill of prompt + {k} token(s) "
-            f"vs its decode step {k}: max abs diff {err:.3g} "
-            f"({F32_LOGIT_TOL})")
+            pf, want, **F32_LOGIT_TOL, msg=lambda m: f"{tag}: {m}")
+        say(phase, f"{cfg.name}: {tag}: max abs diff {err:.3g} "
+            f"({F32_LOGIT_TOL}){'; dropless' if log.calls else ''}")
     return worst
 
 
@@ -3308,6 +3634,266 @@ def phase_ssm_card_vs_cpu(device, *, reduced=False, seq=1100, steps=8):
         for arch, cut in SSM_CUTS.items()}
 
 
+# -- the remaining block kinds (serve_blocks) ------------------------------------
+
+#: The serve_blocks phase's archs at full width, each cut in depth (the
+#: config overrides): gemma3 one 5:1 local:global period, llama-vision one
+#: period (four attn layers and its cross layer), the others 4 layers
+#: (qwen3-moe with all 128 experts, top-8; mixtral's 46.7 B parameters do
+#: not fit one card).
+SERVE_BLOCKS = {
+    "gemma3-4b": dict(n_layers=6, pattern=((1, ("local",) * 5
+                                            + ("global",)),)),
+    "qwen3-32b": dict(n_layers=4, pattern=((4, ("attn",)),)),
+    "qwen3-moe-30b-a3b": dict(n_layers=4, pattern=((4, ("attn_moe",)),)),
+    "mixtral-8x7b": dict(n_layers=4, pattern=((4, ("attn_moe",)),)),
+    "minicpm3-4b": dict(n_layers=4, pattern=((4, ("mla",)),)),
+    "llama-3.2-vision-11b": dict(n_layers=5, pattern=((1, ("attn",) * 4
+                                                       + ("cross",)),)),
+    "musicgen-medium": dict(n_layers=4, pattern=((4, ("attn",)),)),
+}
+#: The archs whose layer-0 flash inputs serve_blocks times: minicpm3's MLA
+#: heads folded into the batch (B*H = 80, Hk = 1, D = 96), mixtral's window
+#: of 4096 at S = 6000, gemma3's head width 256.
+FLASH_SHAPES = ("minicpm3-4b", "mixtral-8x7b", "gemma3-4b")
+
+
+def phase_moe_dispatch(record, phase, tag):
+    """The two MoE dispatches on the input layer 0's MoE block got in a
+    serve phase (its routing): outputs within one bf16 rounding, 2^-7
+    relative (plus 2^-16 of the largest output where terms cancel): both
+    keep the assignments ``moe.kept`` names, feed the experts the same
+    buffers and add the same float32 terms in other orders (a differing
+    kept set would move a whole expert's term).  Returns (dropped
+    assignments, ms of each dispatch)."""
+    import torch
+    from repro_torch.models import moe as MOE
+    p, cfg, x = record["args"]
+    x_flat = x.reshape(-1, x.shape[-1])
+    w, idx, _ = MOE.route(p, cfg, x_flat)
+    dense = MOE.moe_dense_onehot(p, cfg, x_flat, w, idx)
+    ragged = MOE.moe_ragged_sort(p, cfg, x_flat, w, idx)
+    n_drop = int((~MOE.kept(cfg, idx)).sum())
+    scale = float(ragged.float().abs().max())
+    torch.testing.assert_close(dense.float(), ragged.float(), rtol=2 ** -7,
+                               atol=2 ** -16 * scale,
+                               msg=lambda m: f"{tag}: dense vs ragged: {m}")
+    err = float((dense.float() - ragged.float()).abs().max())
+    ms = {name: time_ms(lambda fn=fn: fn(p, cfg, x_flat, w, idx), reps=5)
+          for name, fn in (("dense_onehot", MOE.moe_dense_onehot),
+                           ("ragged_sort", MOE.moe_ragged_sort))}
+    say(phase, f"{tag}: T={x_flat.shape[0]} E={cfg.n_experts} top-"
+        f"{cfg.top_k}, capacity {MOE._capacity(cfg, x_flat.shape[0])}: "
+        f"{n_drop} of {idx.numel()} assignments dropped; outputs max "
+        f"abs diff {err:.3g} (largest output "
+        f"{scale:.3g}); dense_onehot {ms['dense_onehot']:.2f} ms, "
+        f"ragged_sort {ms['ragged_sort']:.2f} ms")
+    return n_drop, ms
+
+
+def phase_serve_blocks(device, *, reduced=False, seq=6000, steps=16):
+    """Every served architecture the earlier phases do not serve, at full
+    width cut in depth (SERVE_BLOCKS), through phase_serve: tokens/s,
+    ms/step and flash launches per arch; for the MoE archs both dispatches
+    on layer 0's MoE input; flash on layer 0's inputs of FLASH_SHAPES.
+    Returns (flash launches, {arch: metrics}, {arch: flash record})."""
+    import torch
+    flash, metrics, shapes = 0, {}, {}
+    for arch in SERVE_BLOCKS:
+        params, served, layer0, m = phase_serve(
+            device, arch, tag="serve_blocks", reduced=reduced, seq=seq,
+            steps=steps, cut=SERVE_BLOCKS[arch])
+        flash += served["flash_attention"]
+        m["flash_launches"] = served["flash_attention"]
+        if "moe_forward" in layer0:
+            m["dropped_layer0"], m["dispatch_ms"] = phase_moe_dispatch(
+                layer0["moe_forward"], "serve_blocks",
+                f"{arch} layer 0 MoE")
+        if arch in FLASH_SHAPES and "flash_attention" in layer0:
+            shapes[arch] = flash_at_shape(layer0["flash_attention"],
+                                          "serve_blocks",
+                                          f"{arch} layer 0 attention")
+        say("serve_blocks", f"{arch} metrics " + json.dumps(m))
+        metrics[arch] = m
+        del params, layer0
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return flash, metrics, shapes
+
+
+#: The depth cuts of the blocks_card_vs_cpu phase (float32, full width):
+#: 2 layers of qwen3-moe under each dispatch, of minicpm3 (its 1100-token
+#: prompt past MLA's dense limit, so the folded flash runs) and of musicgen;
+#: llama-vision's attn layer and a cross layer.
+BLOCK_CUTS = [
+    ("qwen3-moe-30b-a3b", dict(n_layers=2, pattern=((2, ("attn_moe",)),),
+                               moe_dispatch="dense_onehot")),
+    ("qwen3-moe-30b-a3b", dict(n_layers=2, pattern=((2, ("attn_moe",)),),
+                               moe_dispatch="ragged_sort")),
+    ("minicpm3-4b", dict(n_layers=2, pattern=((2, ("mla",)),))),
+    ("llama-3.2-vision-11b", dict(n_layers=2,
+                                  pattern=((1, ("attn", "cross")),))),
+    ("musicgen-medium", dict(n_layers=2, pattern=((2, ("attn",)),))),
+]
+
+
+def phase_blocks_card_vs_cpu(device, *, reduced=False, seq=1100, steps=8):
+    """The new block kinds at full width cut in depth (BLOCK_CUTS), float32,
+    on the card and the CPU."""
+    return {f"{arch} {cut.get('moe_dispatch', '')}".strip(): model_card_vs_cpu(
+        device, serve_config(reduced, arch, dtype="float32",
+                             param_dtype="float32", **cut),
+        phase="blocks_card_vs_cpu", seq=seq, steps=steps)
+        for arch, cut in BLOCK_CUTS}
+
+
+# -- the other processes ---------------------------------------------------------
+
+#: The argument that makes the script one of the other processes:
+#: ``chip_smoke.py --plane NAME OUT`` runs ``PLANES[NAME]`` and writes its
+#: result to OUT.
+PLANE_FLAG = "--plane"
+DRAW_MODES = ("tick_step[themis]", "tick_step[fifo]", "token_select")
+
+
+def timer(seconds: dict):
+    """``timed(name, fn, *args, **kw)``: calls ``fn`` and puts its wall
+    seconds, rounded to 0.1, in ``seconds[name]``."""
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+    return timed
+
+
+def add_launches(total: dict, got: dict) -> None:
+    for mode, n in got.items():
+        total[mode] += n
+
+
+def plane_rows(device, timed) -> dict:
+    """figures, scenarios, batch_plane, calibrate, kern, micro and cli:
+    the benchmark's row tables held to their recorded references.  Returns
+    the draw kernels' launches of their runs."""
+    launches = dict.fromkeys(DRAW_MODES, 0)
+    fig_launches, _ = timed("figures", phase_figures, device)
+    add_launches(launches, fig_launches)
+    scen_launches, scen_ms = timed("scenarios", phase_scenarios, device)
+    say("scenarios", "ms/tick " + json.dumps(scen_ms))
+    add_launches(launches, scen_launches)
+    bp_launches, _ = timed("batch_plane", phase_batch_plane, device)
+    add_launches(launches, bp_launches)
+    say("calibrate", "ms per lane-tick " + json.dumps(
+        timed("calibrate", phase_calibrate, device)))
+    for name, fn in (("kern", phase_kern), ("micro", phase_micro)):
+        got = timed(name, fn, device)
+        launches["token_select"] += got["token_select"]
+        launches["tick_step[themis]"] += got["tick_step"]
+    reset_launches()
+    timed("cli", phase_cli, device)
+    got = read_launches()
+    launches["token_select"] += got["token_select"]
+    launches["tick_step[themis]"] += got["tick_step"]
+    return launches
+
+
+def plane_sections(device, timed) -> dict:
+    """shard, fleet, fig7, fig9, fig13 and fig14: the sharded runs and the
+    paper's sections at the card's depth.  Returns the draw kernels'
+    launches of their runs."""
+    launches = dict.fromkeys(DRAW_MODES, 0)
+    launches["token_select"] += timed("shard", phase_shard, device)
+    fleet_launches = timed("fleet", phase_fleet, device)
+    launches["tick_step[themis]"] += fleet_launches[1]["tick_step"]
+    launches["token_select"] += sum(r["token_select"]
+                                    for k, r in fleet_launches.items() if k > 1)
+    for name in PAPER_SUBSETS:
+        got, ms = timed(name, phase_paper, device, name)
+        say(name, "ms/tick " + json.dumps(ms))
+        add_launches(launches, got)
+    return launches
+
+
+#: The checks that time no kernel and hold the benchmark's rows or the
+#: sharded runs to references, in two processes beside the main one.
+PLANES = {"rows": plane_rows, "sections": plane_sections}
+
+
+def plane_main(name: str, out: str) -> int:
+    """One of the other processes: ``PLANES[name]`` on the card, its
+    launches and phase seconds as JSON in ``out``.  It ends with its
+    parent."""
+    import ctypes
+    import torch
+    ctypes.CDLL(None).prctl(1, int(signal.SIGTERM))  # PR_SET_PDEATHSIG
+    signal.signal(signal.SIGTERM, lambda *_: (kill_tree(os.getpid()),
+                                              os._exit(143)))
+    if os.getppid() == 1 or not torch.cuda.is_available():
+        print("chip_smoke --plane: no parent or no CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    seconds: dict = {}
+    launches = PLANES[name]("cuda", timer(seconds))
+    Path(out).write_text(json.dumps(dict(launches=launches, seconds=seconds)))
+    return 0
+
+
+def start_plane(tmp: Path, name: str) -> subprocess.Popen:
+    """Starts the process of ``PLANES[name]``; its standard output goes to
+    ``tmp/NAME.log``, its standard error to this one's."""
+    with open(tmp / f"{name}.log", "w") as log:
+        return subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                 PLANE_FLAG, name, str(tmp / f"{name}.json")],
+                                stdout=log)
+
+
+def join_plane(proc: subprocess.Popen, tmp: Path,
+               name: str) -> tuple[dict, dict]:
+    """Waits for the process of ``PLANES[name]``, prints its lines and
+    returns its launches and phase seconds; raises if it failed."""
+    rc = proc.wait()
+    sys.stdout.write((tmp / f"{name}.log").read_text())
+    sys.stdout.flush()
+    if rc != 0:
+        raise AssertionError(f"the {name} process exited {rc} (its "
+                             "traceback is on standard error)")
+    doc = json.loads((tmp / f"{name}.json").read_text())
+    return doc["launches"], doc["seconds"]
+
+
+def descendants(pid: int) -> list[int]:
+    """Every process below ``pid``, from /proc's children lists."""
+    out, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        for task in Path(f"/proc/{p}/task").glob("*"):
+            try:
+                kids = [int(c) for c in (task / "children").read_text().split()]
+            except OSError:
+                continue
+            out += kids
+            todo += kids
+    return out
+
+
+def kill_tree(pid: int) -> None:
+    """SIGKILL to every process below ``pid``."""
+    for child in descendants(pid):
+        try:
+            os.kill(child, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def stop_plane(proc: subprocess.Popen) -> None:
+    """The process and everything it started, ended."""
+    kill_tree(proc.pid)
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3319,74 +3905,57 @@ def main() -> int:
               "not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     device = "cuda"
     t_start = time.perf_counter()
     seconds = {}
-
-    def timed(name, fn, *args, **kw):
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        seconds[name] = round(time.perf_counter() - t0, 1)
-        return out
+    timed = timer(seconds)
 
     smi = timed("device", phase_device)
     timed("build", phase_build)
+    # The phases that time a kernel or the engine's tick run alone first.
     records = timed("kernels", phase_kernels, device)
     launches, engine_ms = timed("engine", phase_engine, device)
     say("engine", "ms/tick " + json.dumps(engine_ms))
-    timed("fused_vs_scan", phase_fused_vs_scan, device)
-    timed("card_vs_cpu", phase_card_vs_cpu, device)
-    timed("anchor", phase_anchor, device)
-    sched_ms = timed("schedulers", phase_schedulers, device)
-    say("schedulers", "ms/tick " + json.dumps(sched_ms))
-    timed("schedulers_card_vs_cpu", phase_schedulers_card_vs_cpu, device)
     batch_launches, batch_ms, row_records = timed("batch", phase_batch, device)
     say("batch", "ms " + json.dumps(batch_ms))
-    pois_launches, _ = timed("poisson", phase_poisson, device)
-    fig_launches, _ = timed("figures", phase_figures, device)
-    scen_launches, scen_ms = timed("scenarios", phase_scenarios, device)
-    say("scenarios", "ms/tick " + json.dumps(scen_ms))
     for name in ("tick_step[themis]", "tick_step[fifo]"):
-        launches[name] += (batch_launches[name] + fig_launches[name]
-                           + scen_launches[name])
+        launches[name] += batch_launches[name]
     service_draws, service_record, _ = timed("service", phase_service, device)
     launches["token_select"] += service_draws
     records["token_select"].update(service_record)
-    launches["tick_step[themis]"] += pois_launches
-    plane_launches, _ = timed("batch_plane", phase_batch_plane, device)
-    ws_launches = timed("workspace", phase_workspace, device)
-    launches["tick_step[themis]"] += (plane_launches["tick_step[themis]"]
-                                      + ws_launches["tick_step[themis]"])
-    launches["token_select"] += timed("shard", phase_shard, device)
-    fleet_launches = timed("fleet", phase_fleet, device)
-    launches["tick_step[themis]"] += fleet_launches[1]["tick_step"]
-    launches["token_select"] += sum(r["token_select"]
-                                    for k, r in fleet_launches.items() if k > 1)
-    # The paper's benchmark CLI: its sections at the card's depth, then the
-    # harness itself.
-    for name in PAPER_SUBSETS:
-        got, ms = timed(name, phase_paper, device, name)
-        say(name, "ms/tick " + json.dumps(ms))
-        for mode, n in got.items():
-            launches[mode] += n
-    for name, fn in (("kern", phase_kern), ("micro", phase_micro)):
-        got = timed(name, fn, device)
-        launches["token_select"] += got["token_select"]
-        launches["tick_step[themis]"] += got["tick_step"]
-    say("calibrate", "ms per lane-tick " + json.dumps(
-        timed("calibrate", phase_calibrate, device)))
-    reset_launches()
-    timed("cli", phase_cli, device)
-    got = read_launches()
-    launches["token_select"] += got["token_select"]
-    launches["tick_step[themis]"] += got["tick_step"]
+    # Then the checks, in three processes on the card: the PLANES in two,
+    # the rest here.
+    with tempfile.TemporaryDirectory() as tmp:
+        planes = {}
+        try:
+            for name in PLANES:
+                planes[name] = start_plane(Path(tmp), name)
+            timed("fused_vs_scan", phase_fused_vs_scan, device)
+            timed("card_vs_cpu", phase_card_vs_cpu, device)
+            timed("anchor", phase_anchor, device)
+            sched_ms = timed("schedulers", phase_schedulers, device)
+            say("schedulers", "ms/tick " + json.dumps(sched_ms))
+            timed("schedulers_card_vs_cpu", phase_schedulers_card_vs_cpu,
+                  device)
+            pois_launches, _ = timed("poisson", phase_poisson, device)
+            launches["tick_step[themis]"] += pois_launches
+            ws_launches = timed("workspace", phase_workspace, device)
+            launches["tick_step[themis]"] += ws_launches["tick_step[themis]"]
+            for name, proc in planes.items():
+                got, plane_seconds = timed(f"wait_{name}", join_plane, proc,
+                                           Path(tmp), name)
+                add_launches(launches, got)
+                seconds.update(plane_seconds)
+        finally:
+            for proc in planes.values():
+                stop_plane(proc)
     params, served, layer0, serve = timed("serve", phase_serve, device)
     launches["flash_attention"] = served["flash_attention"]
     say("serve", "metrics " + json.dumps(serve))
-    engine_draws, rps = timed("serve_engine", phase_serve_engine, device,
-                              params)
-    launches["token_select"] += engine_draws
     del params
+    engine_draws, rps = timed("serve_engine", phase_serve_engine, device)
+    launches["token_select"] += engine_draws
     records["flash_attention"] = timed("flash", phase_flash, device,
                                        layer0["flash_attention"])
     del layer0
@@ -3410,7 +3979,7 @@ def main() -> int:
                   phase, f"{arch} layer 0 attention")
         if arch == "zamba2-2.7b":
             engine_draws, _ = timed("serve_engine_zamba2", phase_serve_engine,
-                                    device, params, arch=arch,
+                                    device, arch=arch,
                                     tag="serve_engine_zamba2")
             launches["token_select"] += engine_draws
             # serve_zamba2 zeroed the count; serve_engine_zamba2 adds its own.
@@ -3423,6 +3992,15 @@ def main() -> int:
     records["step_decay"] = timed("step_decay", phase_step_decay, device,
                                   scan_inputs.pop("step_decay"))
     timed("ssm_card_vs_cpu", phase_ssm_card_vs_cpu, device)
+    # The remaining block kinds: seven more archs, each with every counter
+    # zeroed before it.
+    flash, block_metrics, shapes = timed("serve_blocks", phase_serve_blocks,
+                                         device)
+    launches["flash_attention"] += flash
+    records["flash_attention"]["at_shapes"] = {
+        arch: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                 "max_abs_err")} for arch, r in shapes.items()}
+    timed("blocks_card_vs_cpu", phase_blocks_card_vs_cpu, device)
     say("done", f"phase seconds {json.dumps(seconds)}; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -3447,7 +4025,7 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"),
-            **({"pass_ms": r["pass_ms"]} if "pass_ms" in r else {}),
+            **{k: r[k] for k in ("pass_ms", "at_shapes") if k in r},
             **{k: v for k, v in r.items() if k.startswith("service_")},
             **row_records.get(name, {})))
     print(json.dumps({"kernels": kernels}))
@@ -3459,4 +4037,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [PLANE_FLAG]:
+        sys.exit(plane_main(*sys.argv[2:4]))
     sys.exit(main())

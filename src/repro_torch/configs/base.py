@@ -11,10 +11,7 @@ window/full alternation), ``attn_moe`` (self-attn + MoE FFN), ``mamba``
 (Mamba-2 SSD), ``shared_attn`` (zamba2 shared transformer block; parameters
 shared across invocations), ``rwkv`` (RWKV-6 time-mix + channel-mix),
 ``cross`` (cross-attention to stub vision embeddings + MLP).  The port
-runs the dense kinds ``attn``/``local``/``global``, ``mamba`` with
-``shared_attn`` (zamba2) and ``rwkv``, and the architectures built only of
-them (:data:`PORTED`); :func:`get_config` of any other architecture raises
-``NotImplementedError`` naming the slice that will bring it.
+runs every kind and all ten architectures (:data:`PORTED`).
 """
 from __future__ import annotations
 
@@ -141,24 +138,15 @@ PORTED = {
     "gemma3-4b": "gemma3_4b",
     "zamba2-2.7b": "zamba2_2_7b",
     "rwkv6-7b": "rwkv6_7b",
-}
-
-#: The reference's other architectures, with the slice of the port that
-#: brings each (ROADMAP.md section 1).
-NOT_PORTED = {
-    "qwen3-moe-30b-a3b": "the slice of the remaining block kinds (attn_moe)",
-    "mixtral-8x7b": "the slice of the remaining block kinds (attn_moe)",
-    "minicpm3-4b": "the slice of the remaining block kinds (mla)",
-    "llama-3.2-vision-11b": "the slice of the remaining block kinds (cross)",
-    "musicgen-medium": "the slice of the remaining block kinds (codebooks)",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "minicpm3-4b": "minicpm3_4b",
+    "llama-3.2-vision-11b": "llama32_vision_11b",
+    "musicgen-medium": "musicgen_medium",
 }
 
 
 def get_config(name: str, *, reduced: bool = False) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet; it comes with "
-            f"{NOT_PORTED[name]}")
     _ensure_loaded()
     table = _REDUCED if reduced else _REGISTRY
     if name not in table:

@@ -1,11 +1,14 @@
 """Attention: blocked (flash) prefill and cached decode, grouped-query heads.
 
-The port of the GQA part of ``repro.models.attention``: GQA with optional
-qk-norm (qwen3, h2o-danube, gemma3) and sliding windows (h2o-danube, gemma3
-local layers).  Prefill longer than ``block_q`` goes through
-:func:`blocked_attention`, whose forward is the ``flash_attention`` kernel
-on the card and its plain tile loop on the CPU.  MLA and the attention
-backward wait for later slices and raise ``NotImplementedError``.
+The port of ``repro.models.attention``: GQA with optional qk-norm (qwen3,
+qwen3-moe, h2o-danube, gemma3, zamba2, mixtral, musicgen, llama-vision),
+sliding windows (h2o-danube, mixtral, gemma3 local layers), MLA with its
+compressed latent cache and absorbed decode (minicpm3), and cross-attention
+to stub vision embeddings (llama-vision).  Prefill longer than ``block_q``
+(MLA: 512) goes through :func:`blocked_attention`, whose forward is the
+``flash_attention`` kernel on the card and its plain tile loop on the CPU.
+The attention backward waits for the training slice and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,12 +24,15 @@ NEG_INF = -1e30
 
 # -- parameter init -----------------------------------------------------------
 
-def attn_init(cfg) -> dict:
+def attn_init(cfg, *, cross: bool = False, kv_dim: int | None = None) -> dict:
+    """Self-attention projections; a cross block (``cross=True``) reads its
+    keys and values from ``kv_dim``-wide inputs (the vision stub)."""
     d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kv_in = kv_dim if kv_dim is not None else d
     p = {
         "wq": linear_init(d, h * hd),
-        "wk": linear_init(d, hk * hd),
-        "wv": linear_init(d, hk * hd),
+        "wk": linear_init(kv_in, hk * hd),
+        "wv": linear_init(kv_in, hk * hd),
         "wo": linear_init(h * hd, d, scale=(h * hd) ** -0.5
                           / math.sqrt(2 * cfg.n_layers)),
     }
@@ -34,6 +40,23 @@ def attn_init(cfg) -> dict:
         p["qnorm"] = rmsnorm_init(hd)
         p["knorm"] = rmsnorm_init(hd)
     return p
+
+
+def mla_init(cfg) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qd = m["q_lora"]
+    return {
+        "wdq": linear_init(d, qd),
+        "qnorm": rmsnorm_init(qd),
+        "wuq": linear_init(qd, h * (m["nope"] + m["rope"])),
+        "wdkv": linear_init(d, m["kv_lora"]),
+        "kvnorm": rmsnorm_init(m["kv_lora"]),
+        "wukv": linear_init(m["kv_lora"], h * (m["nope"] + m["v"])),
+        "wkr": linear_init(d, m["rope"]),
+        "wo": linear_init(h * m["v"], d, scale=(h * m["v"]) ** -0.5
+                          / math.sqrt(2 * cfg.n_layers)),
+    }
 
 
 def _expand_kv(x, rep: int, axis: int):
@@ -179,13 +202,93 @@ def gqa_decode(params, cfg, x, cache_k, cache_v, pos, *, window=0, theta=1e4):
 
 # -- MLA ------------------------------------------------------------------------
 
-def mla_forward(*args, **kwargs):
-    raise NotImplementedError(
-        "MLA attention (minicpm3) is not ported yet; it comes with the "
-        "slice of the remaining block kinds")
+#: Prompts longer than this take the head-folded flash path in
+#: :func:`mla_forward` (the reference's constant, not ``cfg.block_q``).
+MLA_DENSE_MAX = 512
 
 
-def mla_decode(*args, **kwargs):
-    raise NotImplementedError(
-        "MLA decode (minicpm3) is not ported yet; it comes with the slice "
-        "of the remaining block kinds")
+def mla_forward(params, cfg, x, positions, *, return_cache=False,
+                schedule="masked"):
+    """Prefill MLA: expand the latent, run standard attention.  Past
+    ``MLA_DENSE_MAX`` tokens the heads fold into the batch ([B*H, S, 1,
+    nope + rope], V zero-padded to that width) and go through
+    :func:`blocked_attention` with its default 512 x 512 tiles, as in the
+    reference.  ``return_cache`` adds the latent cache entries (ckv [B, S,
+    kv_lora], the roped shared key [B, S, rope])."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = m["nope"], m["rope"], m["v"]
+    cq = rmsnorm(params["qnorm"], linear(params["wdq"], x))
+    q = linear(params["wuq"], cq).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = rmsnorm(params["kvnorm"], linear(params["wdkv"], x))   # [B,S,kv_lora]
+    kv = linear(params["wukv"], ckv).reshape(b, s, h, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    k_rope = apply_rope(linear(params["wkr"], x).reshape(b, s, 1, dr),
+                        positions, cfg.rope_theta)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(b, s, h, dr)], dim=-1)
+    scale = (dn + dr) ** -0.5
+    vp = _pad_v(v, dn + dr)
+    if s <= MLA_DENSE_MAX:
+        o = dense_attention(q_full, k_full, vp, causal=True, scale=scale)
+    else:
+        def fold(t):   # a copy: the kernel takes contiguous tensors
+            return t.transpose(1, 2).reshape(b * h, s, 1,
+                                             dn + dr).contiguous()
+        of = blocked_attention(fold(q_full), fold(k_full), fold(vp),
+                               causal=True, scale=scale, schedule=schedule)
+        o = of.reshape(b, h, s, dn + dr).transpose(1, 2)
+    o = o[..., :dv]
+    y = linear(params["wo"], o.reshape(b, s, -1))
+    if return_cache:
+        return y, (ckv, k_rope[:, :, 0, :])
+    return y
+
+
+def _pad_v(v, d_target):
+    pad = d_target - v.shape[-1]
+    return torch.nn.functional.pad(v, (0, pad)) if pad > 0 else v
+
+
+def mla_decode(params, cfg, x, cache_ckv, cache_kr, pos):
+    """Absorbed-matmul decode: attention runs in the latent space, so the
+    cache is just (kv_lora + rope) values per position (MLA's point), all of
+    it in float32 as in the reference.  x: [B, 1, d]; cache_ckv [B, L,
+    kv_lora], cache_kr [B, L, rope]; pos: [B].  The new latent row is
+    written into the caches in place; returns (y, cache_ckv, cache_kr)."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.n_heads
+    dn, dr, dv = m["nope"], m["rope"], m["v"]
+    kv_l = m["kv_lora"]
+    cq = rmsnorm(params["qnorm"], linear(params["wdq"], x))
+    q = linear(params["wuq"], cq).reshape(b, 1, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, pos[:, None], cfg.rope_theta)
+    # absorb W_uk into q: q_eff [B, H, kv_lora]
+    wukv = params["wukv"]["w"].reshape(kv_l, h, dn + dv)
+    q_eff = torch.einsum("bhd,lhd->bhl", q_nope[:, 0].float(),
+                         wukv[:, :, :dn].float())
+    ckv_t = rmsnorm(params["kvnorm"], linear(params["wdkv"], x))[:, 0]
+    kr_t = apply_rope(linear(params["wkr"], x).reshape(b, 1, 1, dr),
+                      pos[:, None], cfg.rope_theta)[:, 0, 0]     # [B, rope]
+    bi = torch.arange(b, device=x.device)
+    cache_ckv[bi, pos] = ckv_t.to(cache_ckv.dtype)
+    cache_kr[bi, pos] = kr_t.to(cache_kr.dtype)
+    kpos = torch.arange(cache_ckv.shape[1], device=x.device)[None, :]
+    valid = kpos <= pos[:, None]
+    scale = (dn + dr) ** -0.5
+    ckv32 = cache_ckv.float()
+    s_nope = torch.einsum("bhl,bsl->bhs", q_eff, ckv32)
+    s_rope = torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                          cache_kr.float())
+    s = (s_nope + s_rope) * scale + torch.where(valid, 0.0,
+                                                NEG_INF)[:, None, :]
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsl->bhl", p, ckv32)               # [B,H,kv_l]
+    o = torch.einsum("bhl,lhd->bhd", o_lat, wukv[:, :, dn:].float())
+    y = linear(params["wo"], o.reshape(b, 1, -1).to(x.dtype))
+    return y, cache_ckv, cache_kr

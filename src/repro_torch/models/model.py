@@ -1,16 +1,20 @@
-"""Composable decoder LM: the dense, Mamba-2 hybrid and RWKV-6 blocks.
+"""Composable decoder LM covering all ten architectures.
 
-The port of ``repro.models.model`` for the block kinds ``attn`` /
-``local`` / ``global`` (h2o-danube-1.8b, qwen3-32b, gemma3-4b), ``mamba``
-with ``shared_attn`` (zamba2-2.7b) and ``rwkv`` (rwkv6-7b).  Parameters are
+The port of ``repro.models.model`` for every block kind: ``attn`` /
+``local`` / ``global`` (h2o-danube-1.8b, qwen3-32b, gemma3-4b, musicgen),
+``attn_moe`` (qwen3-moe-30b-a3b, mixtral-8x7b), ``mla`` (minicpm3-4b),
+``cross`` (llama-3.2-vision-11b, beside ``attn``), ``mamba`` with
+``shared_attn`` (zamba2-2.7b) and ``rwkv`` (rwkv6-7b); musicgen's codebook
+inputs and heads, and llama-vision's stub vision inputs.  Parameters are
 a :class:`ModelParams` module whose parameter names are the reference's
 pytree paths (``seg0.blk0.attn.wq.w``), each segment's blocks stacked
 ``[repeat, ...]`` as the reference's ``lax.scan`` carries them; the port
 loops over the repeats in Python (``cfg.remat`` has no effect: the port
 does not train yet).  The shared block's parameters live once in
 ``params["shared"]``; its stacked entry is empty.  Caches are nested dicts
-of the same stacked layout: attention ``k``/``v``, mamba ``h`` (float32)
-and ``conv``, rwkv ``s`` (float32), ``prev`` and ``cm_prev``.
+of the same stacked layout: attention ``k``/``v`` (a cross block's hold the
+projected vision tokens), MLA ``ckv``/``kr``, mamba ``h`` (float32) and
+``conv``, rwkv ``s`` (float32), ``prev`` and ``cm_prev``.
 
 Entry points:
   * ``init_params(cfg, seed, device)``                      — ModelParams
@@ -19,8 +23,9 @@ Entry points:
   * ``prefill(params, cfg, batch, max_len)``                — logits, caches
   * ``decode_step(params, cfg, caches, batch, pos)``        — logits, caches
 
-Other block kinds (``mla``, ``attn_moe``, ``cross``), codebook inputs and
-``loss_fn`` raise ``NotImplementedError``.
+A batch holds ``tokens`` [B, S] (musicgen: ``codes`` [B, S, nq]) and, for
+llama-vision, ``vision`` [B, n_vision_tokens, vision_dim].  ``loss_fn``
+raises ``NotImplementedError``: it comes with the training slice.
 """
 from __future__ import annotations
 
@@ -32,23 +37,17 @@ from torch import nn
 
 from .._device import resolve_device
 from . import attention as A
+from . import moe as MOE
 from . import rwkv as RW
 from . import ssm as SSM
 from .layers import (Init, draw, embed, embedding_init, linear, linear_init,
-                     mlp, mlp_init, norm_apply, norm_init,
+                     mlp, mlp_init, norm_apply, norm_init, rmsnorm,
                      sinusoidal_positions)
 
 NEG_INF = -1e30
 DENSE_KINDS = ("attn", "local", "global")
-KINDS = DENSE_KINDS + ("mamba", "shared_attn", "rwkv")
-
-#: Block kinds of the reference the port does not run yet, with the slice
-#: that brings each.
-_LATER = {
-    "attn_moe": "the slice of the remaining block kinds",
-    "mla": "the slice of the remaining block kinds",
-    "cross": "the slice of the remaining block kinds",
-}
+KINDS = DENSE_KINDS + ("attn_moe", "mla", "cross", "mamba", "shared_attn",
+                       "rwkv")
 
 
 def _dt(cfg, which="param") -> torch.dtype:
@@ -56,23 +55,11 @@ def _dt(cfg, which="param") -> torch.dtype:
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    """Raise ``ValueError`` for a block kind the model does not know."""
     for _, kinds in cfg.pattern:
         for kind in kinds:
-            if kind in _LATER:
-                raise NotImplementedError(
-                    f"block kind {kind!r} is not ported yet; it comes with "
-                    f"{_LATER[kind]}")
             if kind not in KINDS:
                 raise ValueError(f"unknown block kind {kind}")
-    if cfg.n_codebooks:
-        raise NotImplementedError(
-            "codebook inputs (musicgen) are not ported yet; they come with "
-            "the slice of the remaining block kinds")
-    if cfg.n_vision_tokens:
-        raise NotImplementedError(
-            "vision inputs are not ported yet; they come with the slice of "
-            "the remaining block kinds")
 
 
 # ---------------------------------------------------------------------------
@@ -88,11 +75,25 @@ def _block_init(kind: str, cfg) -> dict:
                 "mlp": mlp_init(d, cfg.d_ff, cfg.act,
                                 out_scale=cfg.d_ff ** -0.5
                                 / math.sqrt(2 * cfg.n_layers))}
+    if kind == "attn_moe":
+        return {"ln1": norm_init(cfg.norm, d), "attn": A.attn_init(cfg),
+                "ln2": norm_init(cfg.norm, d), "moe": MOE.moe_init(cfg)}
     if kind == "mamba":
         return {"ln1": norm_init(cfg.norm, d), "mamba": SSM.mamba2_init(cfg)}
     if kind == "rwkv":
         return {"ln1": norm_init("ln", d), "tm": RW.rwkv6_init(cfg),
                 "ln2": norm_init("ln", d), "cm": RW.channelmix_init(cfg)}
+    if kind == "cross":
+        # The gate starts at zero: a fresh cross block adds nothing.
+        return {"ln1": norm_init(cfg.norm, d),
+                "attn": A.attn_init(cfg, cross=True, kv_dim=cfg.vision_dim),
+                "ln2": norm_init(cfg.norm, d),
+                "mlp": mlp_init(d, cfg.d_ff, cfg.act),
+                "gate": Init("zeros", (1,))}
+    if kind == "mla":
+        return {"ln1": norm_init(cfg.norm, d), "attn": A.mla_init(cfg),
+                "ln2": norm_init(cfg.norm, d),
+                "mlp": mlp_init(d, cfg.d_ff, cfg.act)}
     return {}  # shared_attn: parameters live in params["shared"]
 
 
@@ -119,9 +120,15 @@ def param_specs(cfg) -> dict:
     """The parameter tree as :class:`~.layers.Init` leaves (nothing
     allocated), with the reference's paths and shapes."""
     check_supported(cfg)
-    specs = {"embed": embedding_init(cfg.vocab_padded, cfg.d_model)}
+    if cfg.n_codebooks:
+        specs = {"embed": {"codes": Init(
+            "normal", (cfg.n_codebooks, cfg.vocab_padded, cfg.d_model),
+            0.02)}}
+    else:
+        specs = {"embed": embedding_init(cfg.vocab_padded, cfg.d_model)}
     if not cfg.tie_embeddings:
-        specs["head"] = linear_init(cfg.d_model, cfg.vocab_padded)
+        specs["head"] = linear_init(
+            cfg.d_model, cfg.vocab_padded * max(1, cfg.n_codebooks))
     specs["final_norm"] = norm_init(cfg.norm, cfg.d_model)
     if _has_shared(cfg):
         specs["shared"] = _shared_attn_init(cfg)
@@ -172,13 +179,19 @@ def init_params(cfg, seed: int = 0, device="cuda") -> ModelParams:
 
 
 def count_params(cfg, active_only: bool = False) -> int:
-    """Exact parameter count from the port's init shapes (no MoE kinds yet:
-    every parameter is active)."""
+    """Exact parameter count from the port's init shapes; ``active_only``
+    leaves out the experts a token does not reach (all but ``top_k`` of
+    each MoE block), as the reference's ``count_params_analytic``."""
     def total(tree):
         if isinstance(tree, Init):
             return int(np.prod(tree.shape))
         return sum(total(v) for v in tree.values())
-    return total(param_specs(cfg))
+    n = total(param_specs(cfg))
+    if active_only and cfg.n_experts:
+        per_expert = 3 * cfg.d_model * cfg.expert_ff
+        n_moe = sum(rep * kinds.count("attn_moe") for rep, kinds in cfg.pattern)
+        n -= n_moe * per_expert * (cfg.n_experts - cfg.top_k)
+    return n
 
 
 def _layer(tree, li: int) -> dict:
@@ -202,15 +215,15 @@ def _attn_kind_args(cfg, kind):
 
 
 def _apply_block_seq(kind, p, shared, cfg, x, ctx, want_cache):
-    """Returns (x, cache_entry_or_None)."""
+    """Returns (x, cache entry or None, float32 aux loss or None)."""
     if kind == "mamba":
         h = norm_apply(cfg.norm, p["ln1"], x)
         if want_cache:
             y, st = SSM.mamba2_forward(p["mamba"], cfg, h, chunk=cfg.ssm_chunk,
                                        return_state=True)
-            return x + y, st
+            return x + y, st, None
         return x + SSM.mamba2_forward(p["mamba"], cfg, h,
-                                      chunk=cfg.ssm_chunk), None
+                                      chunk=cfg.ssm_chunk), None, None
     if kind == "rwkv":
         h = norm_apply("ln", p["ln1"], x)
         if want_cache:
@@ -221,10 +234,33 @@ def _apply_block_seq(kind, p, shared, cfg, x, ctx, want_cache):
             h2 = norm_apply("ln", p["ln2"], x)
             y2, cm_prev = RW.channelmix(p["cm"], cfg, h2, return_state=True)
             return x + y2, {"s": tm_state["s"], "prev": tm_state["prev"],
-                            "cm_prev": cm_prev}
+                            "cm_prev": cm_prev}, None
         x = x + RW.rwkv6_timemix(p["tm"], cfg, h, chunk=cfg.rwkv_chunk)
         x = x + RW.channelmix(p["cm"], cfg, norm_apply("ln", p["ln2"], x))
-        return x, None
+        return x, None, None
+    if kind == "mla":
+        h = norm_apply(cfg.norm, p["ln1"], x)
+        out = A.mla_forward(p["attn"], cfg, h, ctx["positions"],
+                            return_cache=want_cache,
+                            schedule=cfg.attn_schedule)
+        if want_cache:
+            y, (ckv, kr) = out
+            cache = _mla_pack(ckv, kr, ctx["max_len"])
+        else:
+            y, cache = out, None
+        x = x + y
+        x = x + mlp(p["mlp"], norm_apply(cfg.norm, p["ln2"], x), cfg.act)
+        return x, cache, None
+    if kind == "cross":
+        h = norm_apply(cfg.norm, p["ln1"], x)
+        q, k, v = A.gqa_project(p["attn"], cfg, h, ctx["positions"],
+                                theta=cfg.rope_theta, kv_src=ctx["vision"],
+                                rope=False)
+        o = A.dense_attention(q, k, v, causal=False)
+        y = linear(p["attn"]["wo"], o.reshape(x.shape[0], x.shape[1], -1))
+        x = x + torch.tanh(p["gate"]).to(x.dtype) * y
+        x = x + mlp(p["mlp"], norm_apply(cfg.norm, p["ln2"], x), cfg.act)
+        return x, ({"k": k, "v": v} if want_cache else None), None
     if kind == "shared_attn":
         # The shared block projects [x, x0] (x0: the step's embedded input)
         # and takes the config's window, as the reference's prefill does.
@@ -244,8 +280,11 @@ def _apply_block_seq(kind, p, shared, cfg, x, ctx, want_cache):
     else:
         y, cache = out, None
     x = x + y
-    x = x + mlp(p["mlp"], norm_apply(cfg.norm, p["ln2"], x), cfg.act)
-    return x, cache
+    h2 = norm_apply(cfg.norm, p["ln2"], x)
+    if kind == "attn_moe":
+        ff, aux = MOE.moe_forward(p["moe"], cfg, h2)
+        return x + ff, cache, aux
+    return x + mlp(p["mlp"], h2, cfg.act), cache, None
 
 
 def _ring_pack(k, v, window, max_len):
@@ -264,13 +303,31 @@ def _ring_pack(k, v, window, max_len):
     return {"k": ck, "v": cv}
 
 
+def _mla_pack(ckv, kr, max_len):
+    """The prefill's latent cache entries in ``max_len`` rows."""
+    b, s = ckv.shape[:2]
+    out_c = ckv.new_zeros((b, max_len, ckv.shape[-1]))
+    out_r = kr.new_zeros((b, max_len, kr.shape[-1]))
+    out_c[:, :s] = ckv
+    out_r[:, :s] = kr
+    return {"ckv": out_c, "kr": out_r}
+
+
 # ---------------------------------------------------------------------------
 # forward (sequence)
 # ---------------------------------------------------------------------------
 
 def embed_inputs(params, cfg, batch, *, pos_offset=0):
     adt = _dt(cfg, "act")
-    x = embed(params["embed"], batch["tokens"]).to(adt)
+    if cfg.n_codebooks:
+        # The nq embeddings summed in the parameter dtype from 0, codebook
+        # by codebook, as the reference's Python sum.
+        codes = batch["codes"]                               # [B, S, nq]
+        tables = params["embed"]["codes"]
+        x = sum(tables[q][codes[..., q]] for q in range(cfg.n_codebooks))
+    else:
+        x = embed(params["embed"], batch["tokens"])
+    x = x.to(adt)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     if cfg.pos == "sinusoidal":
@@ -282,16 +339,23 @@ def embed_inputs(params, cfg, batch, *, pos_offset=0):
 
 @torch.no_grad()
 def forward_hidden(params, cfg, batch, *, want_caches=False, max_len=0):
-    """Full-sequence forward. Returns (hidden, caches, aux); ``aux`` is 0
-    (no MoE kinds yet)."""
+    """Full-sequence forward. Returns (hidden, caches, aux): ``aux`` is the
+    float32 sum of the MoE blocks' load-balancing losses (0 without)."""
     check_supported(cfg)
     x = embed_inputs(params, cfg, batch)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
-    ctx = {"positions": positions, "x0": x,
+    vision = batch.get("vision")
+    if vision is not None:
+        vision = vision.to(x.dtype)
+    elif any("cross" in kinds for _, kinds in cfg.pattern):
+        raise ValueError(f"{cfg.name}'s cross blocks need batch['vision'] "
+                         f"[B, {cfg.n_vision_tokens}, {cfg.vision_dim}]")
+    ctx = {"positions": positions, "x0": x, "vision": vision,
            "max_len": max_len if max_len else s}
     shared = params["shared"] if _has_shared(cfg) else None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {}
     for si, (rep, kinds) in enumerate(cfg.pattern):
         seg_params = params[f"seg{si}"]
@@ -299,9 +363,11 @@ def forward_hidden(params, cfg, batch, *, want_caches=False, max_len=0):
         for li in range(rep):
             new_caches = {}
             for j, kind in enumerate(kinds):
-                x, cache = _apply_block_seq(
+                x, cache, aux = _apply_block_seq(
                     kind, _layer(seg_params[f"blk{j}"], li), shared, cfg, x,
                     ctx, want_caches)
+                if aux is not None:
+                    aux_total = aux_total + aux
                 if want_caches:
                     new_caches[f"blk{j}"] = cache
             layer_caches.append(new_caches)
@@ -313,21 +379,26 @@ def forward_hidden(params, cfg, batch, *, want_caches=False, max_len=0):
                             for n in layer_caches[0][f"blk{j}"]}
                 for j in range(len(kinds))}
     x = norm_apply(cfg.norm, params["final_norm"], x)
-    return x, (caches if want_caches else None), torch.zeros(())
+    return x, (caches if want_caches else None), aux_total
 
 
 def head_logits(params, cfg, x):
-    """x: [B, S, d] -> float32 logits [B, S, vocab_padded].  The product
-    runs in full float32: TF32 is switched off around it, as the
-    reference's float32 matmul does not round its operands."""
+    """x: [B, S, d] -> float32 logits [B, S, vocab_padded] (codebooks:
+    [B, S, nq, vocab_padded]).  The product runs in full float32: TF32 is
+    switched off around it, as the reference's float32 matmul does not
+    round its operands."""
     w = params["embed"]["table"].T if cfg.tie_embeddings \
         else params["head"]["w"]
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return x.float() @ w.float()
+        logits = x.float() @ w.float()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+    if cfg.n_codebooks:
+        b, s = x.shape[:2]
+        return logits.reshape(b, s, cfg.n_codebooks, cfg.vocab_padded)
+    return logits
 
 
 def loss_fn(*args, **kwargs):
@@ -342,9 +413,11 @@ def loss_fn(*args, **kwargs):
 def init_caches(cfg, batch_size: int, max_len: int, device="cuda"):
     """Zeroed decode caches ``{"segI": {"blkJ": {...}}}``, each leaf
     ``[repeat, B, ...]``: attention ``k``/``v`` ``[.., C, Hk, D]`` with C the
-    window for windowed layers; mamba ``h`` ``[.., H, P, N]`` (float32) and
-    ``conv`` ``[.., conv - 1, d_inner + 2 N]``; rwkv ``s`` ``[.., H, K, K]``
-    (float32), ``prev`` and ``cm_prev`` ``[.., 1, d]``."""
+    window for windowed layers (a cross block's C is the vision tokens');
+    MLA ``ckv`` ``[.., max_len, kv_lora]`` and ``kr`` ``[.., max_len,
+    rope]``; mamba ``h`` ``[.., H, P, N]`` (float32) and ``conv`` ``[..,
+    conv - 1, d_inner + 2 N]``; rwkv ``s`` ``[.., H, K, K]`` (float32),
+    ``prev`` and ``cm_prev`` ``[.., 1, d]``."""
     check_supported(cfg)
     dev = resolve_device(device)
     adt = _dt(cfg, "act")
@@ -371,11 +444,17 @@ def init_caches(cfg, batch_size: int, max_len: int, device="cuda"):
                                   "prev": zeros((1, cfg.d_model)),
                                   "cm_prev": zeros((1, cfg.d_model))}
                 continue
+            if kind == "mla":
+                seg[f"blk{j}"] = {"ckv": zeros((max_len, cfg.mla.kv_lora)),
+                                  "kr": zeros((max_len, cfg.mla.rope))}
+                continue
             c_full = max_len
-            if kind == "attn" and cfg.window > 0:
+            if kind in ("attn", "attn_moe") and cfg.window > 0:
                 c_full = min(cfg.window, max_len)
             if kind == "local":
                 c_full = min(cfg.local_window, max_len)
+            if kind == "cross":
+                c_full = cfg.n_vision_tokens
             shape = (c_full, cfg.n_kv_heads, cfg.head_dim)
             seg[f"blk{j}"] = {"k": zeros(shape), "v": zeros(shape)}
         caches[f"seg{si}"] = seg
@@ -411,6 +490,23 @@ def _apply_block_decode(kind, p, shared, cfg, x, cache, ctx):
         cache["prev"].copy_(tm["prev"])
         cache["cm_prev"].copy_(cm_prev)
         return x + y2
+    if kind == "mla":
+        h = norm_apply(cfg.norm, p["ln1"], x)
+        y, _, _ = A.mla_decode(p["attn"], cfg, h, cache["ckv"], cache["kr"],
+                               ctx["pos"])
+        x = x + y
+        return x + mlp(p["mlp"], norm_apply(cfg.norm, p["ln2"], x), cfg.act)
+    if kind == "cross":
+        # Against the cached vision K/V (no rope, no mask); the cache stays.
+        h = norm_apply(cfg.norm, p["ln1"], x)
+        q = linear(p["attn"]["wq"], h).reshape(x.shape[0], 1, cfg.n_heads,
+                                                cfg.head_dim)
+        if cfg.qk_norm:
+            q = rmsnorm(p["attn"]["qnorm"], q)
+        o = A.dense_attention(q, cache["k"], cache["v"], causal=False)
+        y = linear(p["attn"]["wo"], o.reshape(x.shape[0], 1, -1))
+        x = x + torch.tanh(p["gate"]).to(x.dtype) * y
+        return x + mlp(p["mlp"], norm_apply(cfg.norm, p["ln2"], x), cfg.act)
     # Decode takes the window of _attn_kind_args (0 for shared_attn), where
     # the shared block's prefill takes cfg.window, as in the reference.
     ka = _attn_kind_args(cfg, kind)
@@ -426,15 +522,19 @@ def _apply_block_decode(kind, p, shared, cfg, x, cache, ctx):
     y, _, _ = A.gqa_decode(p["attn"], cfg, h, cache["k"], cache["v"],
                            ctx["pos"], window=ka["window"], theta=ka["theta"])
     x = x + y
-    return x + mlp(p["mlp"], norm_apply(cfg.norm, p["ln2"], x), cfg.act)
+    h2 = norm_apply(cfg.norm, p["ln2"], x)
+    if kind == "attn_moe":
+        return x + MOE.moe_forward(p["moe"], cfg, h2)[0]
+    return x + mlp(p["mlp"], h2, cfg.act)
 
 
 @torch.no_grad()
 def decode_step(params, cfg, caches, batch, pos):
     """One token for every sequence in the batch.
 
-    batch: {"tokens": [B,1]}; pos: [B] absolute position.  Returns (logits
-    [B,1,vocab_padded], caches).  The caches are updated in place (the
+    batch: {"tokens": [B,1]} or {"codes": [B,1,nq]}; pos: [B] absolute
+    position.  Returns (logits [B,1,vocab_padded] or [B,1,nq,vocab_padded],
+    caches).  The caches are updated in place (the
     reference returns new ones) and returned.
     """
     check_supported(cfg)

@@ -141,6 +141,10 @@ class ServeEngine:
 
     def _step_slots(self, only_slot: Optional[int] = None):
         batch = {"tokens": torch.as_tensor(self.tokens, device=self.device)}
+        if self.cfg.n_codebooks:
+            # Each slot's token fed on every codebook; codebook 0 is read.
+            codes = np.repeat(self.tokens[:, :, None], self.cfg.n_codebooks, 2)
+            batch = {"codes": torch.as_tensor(codes, device=self.device)}
         pos = torch.as_tensor(self.slot_pos, device=self.device)
         logits, self.caches = M.decode_step(self.params, self.cfg,
                                             self.caches, batch, pos)
@@ -153,7 +157,8 @@ class ServeEngine:
                 continue
             self.slot_pos[slot] += 1
             if only_slot is None:  # decode phase: emit a token
-                tok = int(nxt[slot, 0])
+                tok = int(nxt[slot, 0]) if nxt.ndim == 2 \
+                    else int(nxt[slot, 0, 0])
                 req.out_tokens.append(tok)
                 self.tokens[slot, 0] = tok
                 tid = req.tenant.tenant_id

@@ -12,8 +12,9 @@ paths must agree bit for bit in integer state, the engine on the card must
 agree with the engine on the CPU (``chip_smoke.phase_card_vs_cpu``, for the
 interval schedulers ``phase_schedulers_card_vs_cpu``), every lane of a
 batched run must equal its single run, and so
-must the dense and the recurrent models
-(``chip_smoke.phase_serve_card_vs_cpu``, ``phase_ssm_card_vs_cpu``), and
+must the dense, the recurrent and the remaining block kinds' models
+(``chip_smoke.phase_serve_card_vs_cpu``, ``phase_ssm_card_vs_cpu``,
+``phase_blocks_card_vs_cpu``), the two MoE dispatches must agree, and
 the batch plane's list schedule and annealer must give the CPU's bits."""
 import importlib.util
 from pathlib import Path
@@ -413,6 +414,98 @@ def test_recurrent_models_on_card_match_cpu(card):
     kernels and flash) and 3 decode steps, logits within 1e-3 of the
     CPU's."""
     smoke.phase_ssm_card_vs_cpu("cuda", seq=700, steps=3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x7b"])
+def test_moe_dispatches_on_card(card, arch, dtype):
+    """Both MoE dispatches of one full-width block on 1000 random tokens at
+    capacity factor 0.5: some assignments dropped, dense = ragged within
+    one bf16 rounding (float32: 1e-5); in float32 also the same routing and
+    kept assignments as the CPU's and each dispatch within 1e-4 of it."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import draw
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype,
+                              param_dtype=dtype, moe_capacity_factor=0.5)
+    gen = torch.Generator().manual_seed(0)
+    specs = MOE.moe_init(cfg)
+    dt = getattr(torch, dtype)
+    cpu_p = {"router": {"w": draw(specs["router"]["w"], gen, dt)},
+             **{n: draw(specs[n], gen, dt) for n in ("gate", "up", "down")}}
+    x = torch.randn(1000, cfg.d_model, generator=gen).to(dt)
+    tol = dict(rtol=2 ** -7, atol=1e-5) if dtype == "bfloat16" else \
+        dict(rtol=1e-5, atol=1e-5)
+    outs = {}
+    for dev in ("cuda", "cpu")[:2 if dtype == "float32" else 1]:
+        p = {"router": {"w": cpu_p["router"]["w"].to(dev)},
+             **{n: cpu_p[n].to(dev) for n in ("gate", "up", "down")}}
+        xd = x.to(dev)
+        w, idx, _ = MOE.route(p, cfg, xd)
+        dense = MOE.moe_dense_onehot(p, cfg, xd, w, idx)
+        ragged = MOE.moe_ragged_sort(p, cfg, xd, w, idx)
+        kd = MOE.kept(cfg, idx)
+        assert 0 < int((~kd).sum())
+        torch.testing.assert_close(dense.float(), ragged.float(), **tol)
+        outs[dev] = idx.cpu(), kd.cpu(), dense.cpu(), ragged.cpu()
+    if dtype == "float32":
+        for a, b in zip(outs["cuda"][:2], outs["cpu"][:2]):
+            assert torch.equal(a, b)
+        for a, b in zip(outs["cuda"][2:], outs["cpu"][2:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_folded_flash_on_card(card, dtype):
+    """minicpm3's MLA at full width over 1100 tokens: its heads folded into
+    the batch (B*H = 80, Hk = 1, D = 96) through one flash_attention
+    launch; output and latent cache within 1e-3 of the CPU's in float32,
+    2e-2 in bf16."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import attention as TA
+    from repro_torch.models.layers import draw
+    cfg = dataclasses.replace(get_config("minicpm3-4b"), dtype=dtype,
+                              param_dtype=dtype)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(1)
+
+    def leaves(tree):
+        return {k: leaves(v) if isinstance(v, dict) else draw(v, gen, dt)
+                for k, v in tree.items()}
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
+    cpu_p = leaves(TA.mla_init(cfg))
+    x = torch.randn(2, 1100, cfg.d_model, generator=gen).to(dt)
+    pos = torch.arange(1100, dtype=torch.int32)[None].expand(2, -1)
+    tol = 1e-3 if dtype == "float32" else 2e-2
+    before = fa_ops.LAUNCHES
+    card_out = TA.mla_forward(to(cpu_p, "cuda"), cfg, x.cuda(), pos.cuda(),
+                              return_cache=True)
+    assert fa_ops.LAUNCHES == before + 1
+    cpu_out = TA.mla_forward(cpu_p, cfg, x, pos, return_cache=True)
+    for a, b in ((card_out[0], cpu_out[0]), *zip(card_out[1], cpu_out[1])):
+        torch.testing.assert_close(a.float().cpu(), b.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_block_models_on_card_match_cpu(card):
+    """qwen3-moe (both dispatches), minicpm3, llama-vision (attn + cross,
+    gate opened) and musicgen at the reduced width in float32: prefill of
+    700 tokens (through flash; MLA's folded) and 3 decode steps, logits
+    within 1e-3 of the CPU's; then the serve_blocks phase at the reduced
+    width on the card (flash launches per prefill counted, prefill + k vs
+    decode)."""
+    smoke.phase_blocks_card_vs_cpu("cuda", reduced=True, seq=700, steps=3)
+    flash, metrics, _ = smoke.phase_serve_blocks("cuda", reduced=True,
+                                                 seq=700, steps=4)
+    assert set(metrics) == set(smoke.SERVE_BLOCKS)
+    assert flash == sum(m["flash_launches"] for m in metrics.values()) > 0
 
 
 @pytest.mark.parametrize("j", [2, 8, 33])

@@ -26,7 +26,10 @@ for sub in ("workspace.store", "workspace.campaign", "batch.sim",
             "launch.mesh", "bench.fleet", "bench.scaling", "bench.composite",
             "bench.apps", "bench.lambda_sync", "bench.kernels", "bench.tick",
             "bench.run", "bench.trend", "bench.calibrate", "roofline",
-            "roofline.analysis"):
+            "roofline.analysis", "models.moe", "configs.inputs",
+            "configs.qwen3_moe_30b_a3b", "configs.mixtral_8x7b",
+            "configs.minicpm3_4b", "configs.llama32_vision_11b",
+            "configs.musicgen_medium"):
     assert "repro_torch." + sub in names, sub
 print(len(names))
 """

@@ -122,14 +122,14 @@ def test_serve_phases_rehearse_on_the_cpu(monkeypatch):
     version (no launch), the same admissions as the CPU engine, and the
     card-vs-CPU comparison run against itself."""
     monkeypatch.setattr(smoke, "time_ms", lambda fn, reps=1: (fn(), 1.0)[1])
-    params, launches, layer0, metrics = smoke.phase_serve(
+    _, launches, layer0, metrics = smoke.phase_serve(
         "cpu", reduced=True, seq=600, steps=8)
     assert launches == {"flash_attention": 0, "mamba2_ssd": 0, "wkv6": 0,
                         "step_decay": 0}
     assert set(layer0) == {"flash_attention"}
     assert layer0["flash_attention"]["args"][0].shape == (2, 600, 8, 16)
     assert metrics["prefill_vs_decode_max_abs"] < 1e-4
-    draws, rps = smoke.phase_serve_engine("cpu", params, reduced=True)
+    draws, rps = smoke.phase_serve_engine("cpu", reduced=True)
     assert draws == 0 and rps > 0
     record = smoke.phase_flash(
         "cpu", layer0["flash_attention"],
@@ -151,7 +151,7 @@ def test_recurrent_serve_phases_rehearse_on_the_cpu(monkeypatch, arch,
     monkeypatch.setattr(smoke, "MAMBA2_CASES", smoke.MAMBA2_CASES[:1]
                         + smoke.MAMBA2_CASES[-1:])
     monkeypatch.setattr(smoke, "WKV6_CASES", smoke.WKV6_CASES[:1])
-    params, launches, layer0, metrics = smoke.phase_serve(
+    _, launches, layer0, metrics = smoke.phase_serve(
         "cpu", arch, tag=f"serve_{arch}", reduced=True, seq=600, steps=8)
     assert launches == {"flash_attention": 0, "mamba2_ssd": 0, "wkv6": 0,
                         "step_decay": 0}
@@ -160,8 +160,7 @@ def test_recurrent_serve_phases_rehearse_on_the_cpu(monkeypatch, arch,
     assert ("step_and_decay" in layer0) == (arch == "zamba2-2.7b")
     assert metrics["prefill_vs_decode_max_abs"] < 1e-4
     if arch == "zamba2-2.7b":
-        draws, _ = smoke.phase_serve_engine("cpu", params, arch=arch,
-                                            reduced=True)
+        draws, _ = smoke.phase_serve_engine("cpu", arch=arch, reduced=True)
         assert draws == 0
     record = smoke.phase_scan("cpu", kernel, layer0[kernel])
     assert record["max_abs_err"] == 0.0 and record["library_ms"] is None
@@ -182,6 +181,19 @@ def test_scan_bounds_and_counts():
         "flash_attention": 0, "mamba2_ssd": 0, "wkv6": 32}
     assert smoke.launches_per_prefill(get_config("h2o-danube-1.8b")) == {
         "flash_attention": 24, "mamba2_ssd": 0, "wkv6": 0}
+    # attn_moe's attention, MLA's folded heads past 512 tokens, musicgen's
+    # attn; a cross block none (dense over the vision tokens).
+    for arch, n in (("qwen3-moe-30b-a3b", 48), ("mixtral-8x7b", 32),
+                    ("minicpm3-4b", 62), ("llama-3.2-vision-11b", 32),
+                    ("musicgen-medium", 48), ("gemma3-4b", 34)):
+        assert smoke.launches_per_prefill(get_config(arch)) == {
+            "flash_attention": n, "mamba2_ssd": 0, "wkv6": 0}, arch
+    cfg = get_config("minicpm3-4b")
+    assert smoke.launches_per_prefill(cfg, 512)["flash_attention"] == 0
+    assert smoke.launches_per_prefill(cfg, 513)["flash_attention"] == 62
+    cfg = get_config("llama-3.2-vision-11b")
+    assert smoke.launches_per_prefill(cfg, 512)["flash_attention"] == 0
+    assert smoke.launches_per_prefill(cfg, 513)["flash_attention"] == 32
     x = torch.empty(2, 6144, 80, 64, device="meta")
     b = torch.empty(2, 6144, 64, dtype=torch.bfloat16, device="meta")
     nbytes, ops, exps = smoke.mamba2_work(x, b, 128)
@@ -203,6 +215,102 @@ def test_scan_bounds_and_counts():
     assert smoke.prefix_tol(torch.tensor([-1.0, -3.0])) == 2e-5
     assert smoke.prefix_tol(torch.tensor([-2000.0])) == \
         pytest.approx(4 * 2000 * 2.0 ** -24)
+
+
+def test_block_phases_rehearse_on_the_cpu(monkeypatch):
+    """serve_blocks and blocks_card_vs_cpu at the reduced width on the CPU
+    (no launch; 600 tokens, past block_q and MLA's 512): every arch of
+    SERVE_BLOCKS served, both MoE dispatches on layer 0's input, flash at
+    the three timed shapes, and the card-vs-CPU comparison against
+    itself."""
+    monkeypatch.setattr(smoke, "time_ms", lambda fn, reps=1: (fn(), 1.0)[1])
+    flash, metrics, shapes = smoke.phase_serve_blocks(
+        "cpu", reduced=True, seq=600, steps=8)
+    assert flash == 0 and set(metrics) == set(smoke.SERVE_BLOCKS)
+    assert set(shapes) == set(smoke.FLASH_SHAPES)
+    assert all(r["max_abs_err"] == 0.0 for r in shapes.values())
+    for arch in ("qwen3-moe-30b-a3b", "mixtral-8x7b"):
+        assert set(metrics[arch]["dispatch_ms"]) == {"dense_onehot",
+                                                     "ragged_sort"}
+    assert metrics["qwen3-moe-30b-a3b"]["dropped_layer0"] > 0
+    assert all(m["prefill_vs_decode_max_abs"] < 1e-4
+               for m in metrics.values())
+    assert all(v == 0.0 for v in smoke.phase_blocks_card_vs_cpu(
+        "cpu", reduced=True, seq=600, steps=2).values())
+
+
+def test_moe_excused_names_drops_and_flips():
+    """A row is excused where the prefill of the prompt plus k tokens keeps
+    one of its prompt tokens otherwise than the prompt's prefill, drops an
+    assignment of a generated token, or routes one otherwise than its
+    decode step; the other rows are held.  A flip before any such event in
+    its row is excused only at a near tie (top-k margin under twice the
+    router-score gap, the gap within the tolerance), else it raises; a flip
+    after one is its consequence."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    cfg = dataclasses.replace(get_config("mixtral-8x7b", reduced=True),
+                              moe_capacity_factor=0.5)
+    # 2 rows, top-2 of 4 experts, every token to experts 0 and 1, capacity
+    # max(T / 4, 32) = 32 for the prompt's prefill (2 x 20 tokens) and the
+    # prefill + 1 (2 x 21): row 1 keeps 12 prompt tokens in the first, 11
+    # and not its generated token in the second.
+    def routing(rows, scores):
+        z = torch.tensor([scores] * rows)
+        return torch.topk(z, 2).indices.to(torch.int32), z
+
+    plain = [2.0, 1.0, 0.0, -1.0]
+    base = [routing(40, plain)] * 2
+    pf = [routing(42, plain), routing(42, plain)]
+    dec = [[routing(2, plain)] * 2]
+    why = smoke.moe_excused(cfg, base, pf, dec, 2, 0.01)
+    assert list(why) == [1]
+    assert "1 prompt token(s) kept otherwise" in why[1][0]
+    assert "generated token 0 lost 2" in why[1][0]
+    assert smoke.dropped(cfg, pf) == 2 * 2 * (42 - 32)
+    # Row 0's generated token (stream row 20) at layer 0: a near tie of
+    # experts 0 and 3 at a margin of 0.001 and a gap of 0.001.
+    tie = [1.0, 2.0, -1.0, 0.999]
+    dec = [[routing(2, tie), routing(2, plain)]]
+    idx, z = routing(42, plain)
+    idx[20], z[20] = torch.tensor([1, 3]), torch.tensor([0.9995, 2, -1, 1])
+    why = smoke.moe_excused(cfg, base, [(idx, z), pf[1]], dec, 2, 0.01)
+    assert sorted(why) == [0, 1]
+    assert "generated token 0 routed to [1, 3], its decode step to [0, 1]" \
+        in why[0][0]
+    # The same flip beyond the tolerance, or with equal scores, raises.
+    for got in ([-1.0, 2.0, -1.0, 1.5], tie):
+        z[20] = torch.tensor(got)
+        with pytest.raises(AssertionError, match="not a near tie"):
+            smoke.moe_excused(cfg, base, [(idx, z), pf[1]], dec, 2, 0.01)
+    # A wide flip at layer 1 follows row 1's capacity event at layer 0,
+    # but nothing in row 0.
+    dec = [[routing(2, plain)] * 2]
+    idx, z = routing(42, plain)
+    idx[41], z[41] = torch.tensor([2, 3]), torch.tensor([-1.0, 0, 2, 1])
+    why = smoke.moe_excused(cfg, base, [pf[0], (idx, z)], dec, 2, 0.01)
+    assert "layer 1: " in why[1][1] and "routed to [2, 3]" in why[1][1]
+    idx, z = routing(42, plain)
+    idx[20], z[20] = torch.tensor([2, 3]), torch.tensor([-1.0, 0, 2, 1])
+    with pytest.raises(AssertionError, match="row 0 layer 1"):
+        smoke.moe_excused(cfg, base, [pf[0], (idx, z)], dec, 2, 0.01)
+
+
+def test_held_rows_and_dropless():
+    """A check that holds no row raises unless told not to; ``dropless``
+    makes an MoE prefill's capacity its token count."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.moe import _capacity
+    assert smoke.held_rows("t", "p", {0: ["x"]}, 2, "c") == [1]
+    with pytest.raises(AssertionError, match="compares nothing"):
+        smoke.held_rows("t", "p", {0: ["x"], 1: ["y"]}, 2, "c")
+    assert smoke.held_rows("t", "p", {0: ["x"]}, 1, "c", require=False) == []
+    for arch in ("qwen3-moe-30b-a3b", "mixtral-8x7b"):
+        for reduced in (False, True):
+            cfg = smoke.dropless(get_config(arch, reduced=reduced))
+            assert all(_capacity(cfg, t) == t for t in (1, 33, 1101, 12016))
+    cfg = get_config("minicpm3-4b")
+    assert smoke.dropless(cfg) is cfg
 
 
 def test_drift_probe_rehearses_on_the_cpu(monkeypatch, capsys):
@@ -235,3 +343,67 @@ def test_probe_edits_still_apply():
         builds = probe.sources(kernel, None)
         assert set(builds) == {"checkout", *edits}
         assert all(builds[name] != builds["checkout"] for name in edits)
+
+
+@pytest.mark.parametrize("name", ("rows", "sections"))
+def test_plane_process_refuses_without_a_card(tmp_path, name):
+    """``chip_smoke.py --plane NAME OUT`` exits 2 and writes nothing where
+    no CUDA card is visible."""
+    import os
+    import subprocess
+    import sys
+    out = tmp_path / "plane.json"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    done = subprocess.run([sys.executable, smoke.__file__, smoke.PLANE_FLAG,
+                           name, str(out)], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert done.returncode == 2, done.stderr
+    assert not out.exists()
+
+
+def test_join_plane_reads_the_result_or_raises(tmp_path, capsys):
+    """join_plane prints a plane process's lines and returns its launches
+    and seconds; a non-zero exit raises."""
+    import json
+    import subprocess
+    import sys
+    (tmp_path / "sections.log").write_text("[fig7] a line\n")
+    doc = {"launches": {"token_select": 3}, "seconds": {"fig7": 1.5}}
+    (tmp_path / "sections.json").write_text(json.dumps(doc))
+    ok = subprocess.Popen([sys.executable, "-c", "pass"])
+    assert smoke.join_plane(ok, tmp_path, "sections") == (doc["launches"],
+                                                          doc["seconds"])
+    assert capsys.readouterr().out == "[fig7] a line\n"
+    bad = subprocess.Popen([sys.executable, "-c", "raise SystemExit(3)"])
+    with pytest.raises(AssertionError, match="sections process exited 3"):
+        smoke.join_plane(bad, tmp_path, "sections")
+
+
+def test_stop_plane_ends_the_process_tree():
+    """stop_plane kills a plane process and the processes it started (the
+    gloo ranks of the shard and fleet phases)."""
+    import subprocess
+    import sys
+    import time
+    parent = subprocess.Popen([sys.executable, "-c", (
+        "import subprocess, sys, time\n"
+        "subprocess.Popen([sys.executable, '-c', 'import time; "
+        "time.sleep(120)'])\n"
+        "time.sleep(120)")])
+    deadline = time.monotonic() + 60
+    while not smoke.descendants(parent.pid):
+        assert time.monotonic() < deadline, "the child never started"
+        time.sleep(0.05)
+    (child,) = smoke.descendants(parent.pid)
+    smoke.stop_plane(parent)
+    assert parent.returncode is not None
+    deadline = time.monotonic() + 30
+    while True:
+        try:
+            state = Path(f"/proc/{child}/stat").read_text().split()[2]
+        except FileNotFoundError:
+            break
+        if state == "Z":        # killed, waiting for init to reap it
+            break
+        assert time.monotonic() < deadline, "the child outlived stop_plane"
+        time.sleep(0.05)
