@@ -248,6 +248,47 @@ each printing its lines before the last:
                 to 2 layers, float32 (qwen3-moe dropless): one 1100-token
                 prompt and 8 decode steps on the card and on the CPU,
                 logits within rtol 1e-3 (atol 1e-3), tokens equal
+  train         ``repro_torch.launch.train``'s entry point: h2o-danube-1.8b
+                at full width and depth (bf16, remat "block"), 2 x 4096
+                tokens (the reference's train_4k sequence; its global batch
+                of 256 cut to 2), 5 AdamW steps on the port's DataLoader:
+                every loss finite, the step-0 cross-entropy within 35 % of
+                ln(32000) (the reference's smoke test), 48 flash forward
+                and 24 backward launches per step (each layer's forward
+                again in the recompute); ms/step, tokens/s, peak memory
+  flash_bwd     the flash backward kernel against its plain version on the
+                card: float32 over a case list (GQA, a window shorter than
+                S, ragged S, causal and not, D 16-256, 1e-4 of each
+                gradient's max), and bf16 on the inputs layer 0 of the
+                train phase gave it against the plain chain in float32
+                (2e-2); then its time there beside its bound (tensor
+                cores, exponentials or bytes), the plain version's and
+                scaled_dot_product_attention's backward (forward and
+                backward minus forward)
+  train_card_vs_cpu  danube at full width cut to 2 layers, float32, 512
+                tokens (tiles of 256, so through the flash kernels): one
+                train step on the card and on the CPU from the same
+                weights and batch; loss to rel 1e-5, every gradient,
+                updated parameter and moment within 1e-4 of its leaf's max
+  train_blocks  two train steps at full width, bf16, B = 2 of gemma3-4b (6
+                layers, one 5:1 period, D = 256, window 1024; S = 4096),
+                minicpm3-4b (2 layers, MLA's folded flash; 4096),
+                qwen3-moe-30b-a3b (2 layers; 2048), llama-3.2-vision-11b (4
+                attn + cross, gate tanh = 0.5; 4096) and musicgen-medium (2
+                layers, codebooks; 4096): finite losses, step-0
+                cross-entropy within 35 % of initial_ce (ln(vocab); for
+                gemma3's tied, sqrt(d)-scaled embedding 0.02 d_model,
+                the logit a random model gives its input token), a
+                finite grad norm
+                above 0, flash launches per step; zamba2 and rwkv6 refuse a
+                train step on the card, naming the next slice
+  train_restart the reference's examples/quickstart.py on the card: danube
+                reduced (tiles of 32, through the flash kernels), its data
+                shards and checkpoints through a size-fair 2-server burst
+                buffer (Experiment.serve), 12 steps, a checkpoint every 4,
+                a failure injected at step 6 under run_with_restarts: every
+                loss after the restart equals an uninterrupted run's bit
+                for bit; the BB servers' processed requests
 
 The phases run in this order: device, build, kernels, engine, batch and
 service alone, since each times a kernel or the engine's tick; then three
@@ -258,7 +299,7 @@ each ended with this one) run figures, scenarios, batch_plane,
 calibrate, kern, micro and cli, and shard, fleet, fig7, fig9, fig13 and
 fig14, and hand back their draws' launch counts and their lines.  The
 host times these phases print are taken while the other processes run.
-The serving phases follow, alone again.
+The serving phases follow, alone again, and the training phases last.
 
 The script ends with one JSON line describing every kernel, the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -2390,12 +2431,14 @@ def open_gates(params, cfg) -> int:
     """Set every cross block's gate to atanh(CROSS_GATE), in place; returns
     the number of cross layers."""
     import math
+    import torch
     n = 0
     for si, (rep, kinds) in enumerate(cfg.pattern):
         for j, kind in enumerate(kinds):
             if kind == "cross":
-                params[f"seg{si}"][f"blk{j}"]["gate"].fill_(
-                    math.atanh(CROSS_GATE))
+                with torch.no_grad():    # the leaves may train
+                    params[f"seg{si}"][f"blk{j}"]["gate"].fill_(
+                        math.atanh(CROSS_GATE))
                 n += rep
     return n
 
@@ -3053,6 +3096,158 @@ def flash_at_shape(layer0, phase, tag, *, reps=10):
         f"scaled_dot_product_attention {ms / lib:.2f}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                 bound_pipe=pipe, library_ms=lib, max_abs_err=err)
+
+
+
+# -- the flash backward ----------------------------------------------------------
+
+#: (B, Sq, Sk, H, Hk, D, window, causal): MHA and GQA, a window shorter than
+#: S, ragged S (not a multiple of the 64-row or 32-row tiles), causal and
+#: not, D = 16, 18 (staged by element), 64, 80, 96, 128 (qwen3, qwen3-moe,
+#: mixtral and llama-vision; the 64-row tiles) and 256 (32-row tiles).
+#: Every row has a live key, as in training.
+FLASH_BWD_CASES = [
+    (1, 200, 200, 4, 4, 16, 0, True),
+    (2, 200, 200, 8, 2, 80, 64, True),
+    (1, 130, 130, 4, 2, 96, 0, True),
+    (1, 200, 200, 8, 2, 128, 0, True),
+    (1, 170, 170, 8, 1, 128, 48, True),
+    (1, 140, 140, 4, 4, 128, 0, False),
+    (1, 200, 200, 4, 1, 256, 64, True),
+    (1, 150, 150, 4, 2, 80, 0, False),
+    (1, 100, 100, 4, 2, 16, 32, False),
+    (2, 256, 256, 8, 2, 64, 0, True),
+    (1, 200, 200, 8, 2, 18, 64, True),
+    (1, 333, 333, 4, 2, 96, 100, True),
+]
+#: Each gradient's max abs error over its own max abs value.  float32: the
+#: kernel against the plain version on the same inputs (the kernel's own
+#: out, m and l), the two summing keys, queries and heads in other orders.
+#: bf16: the kernel chain (forward with statistics, then backward) on bf16
+#: inputs against the plain chain in float32 on the same values: out and
+#: the gradients are rounded to bf16 (2^-9 relative) and p is recomputed
+#: from the bf16 forward's m and l.
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def flash_bwd_inputs(case, dtype, device, seed):
+    """q, k, v and dout of a FLASH_BWD_CASES entry, normal from ``seed``."""
+    import numpy as np
+    import torch
+    b, sq, sk, h, hk, d = case[:6]
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device=device).to(dtype)
+            for shape in ((b, sq, h, d), (b, sk, hk, d), (b, sk, hk, d),
+                          (b, sq, h, d))]
+
+
+def flash_bwd_check(q, k, v, dout, kw, tag):
+    """The backward kernel (after the forward with statistics) against the
+    plain version; returns the worst of dq/dk/dv's max abs error over
+    their max abs value."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    out, m, l = fa_ops.flash_attention(q, k, v, return_stats=True, **kw)
+    got = fa_ops.flash_attention_bwd(q, k, v, out, m, l, dout, **kw)
+    if q.is_cuda:
+        torch.cuda.synchronize()
+    dtype = str(q.dtype).split(".")[-1]
+    if q.dtype == torch.float32:
+        want = flash_attention_bwd_ref(q, k, v, out, m, l, dout, **kw)
+        o32, m32, l32 = flash_attention_ref(q, k, v, return_stats=True, **kw)
+        for name, a, b in (("m", m, m32), ("l", l, l32)):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
+                                       msg=lambda e: f"flash {tag} {name}: {e}")
+    else:
+        f32 = [t.float() for t in (q, k, v, dout)]
+        o32, m32, l32 = flash_attention_ref(*f32[:3], return_stats=True, **kw)
+        want = flash_attention_bwd_ref(*f32[:3], o32, m32, l32, f32[3], **kw)
+    worst = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp_min(1e-30))
+        if not err <= FLASH_BWD_TOL[dtype]:
+            raise AssertionError(f"flash backward {tag}: {name} max abs err "
+                                 f"{err:.3g} of its max, over "
+                                 f"{FLASH_BWD_TOL[dtype]}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_flash_bwd(device, layer0, *, cases=FLASH_BWD_CASES, reps=5):
+    """The backward kernel against its plain version on FLASH_BWD_CASES in
+    float32 and on the inputs layer 0 of the train phase gave it (bf16);
+    then its time there beside its bound, the plain version's and
+    scaled_dot_product_attention's backward (forward and backward minus
+    forward).  Returns the record for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    worst = 0.0
+    for n, case in enumerate(cases):
+        b, sq, sk, h, hk, d, win, causal = case
+        q, k, v, dout = flash_bwd_inputs(case, torch.float32, device, seed=n)
+        kw = dict(causal=causal, window=win)
+        tag = (f"float32 B={b} Sq={sq} Sk={sk} H={h} Hk={hk} D={d} "
+               f"window={win} causal={causal}")
+        err = flash_bwd_check(q, k, v, dout, kw, tag)
+        worst = max(worst, err)
+        say("flash_bwd", f"{tag}: max abs err / max {err:.3g}")
+    (q, k, v, out, m, l, dout), kw = layer0["args"], layer0["kw"]
+    tag = "train layer 0"
+    err = flash_bwd_check(q, k, v, dout, kw, tag)
+    worst = max(worst, err)
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    say("flash_bwd", f"{tag} inputs {tuple(q.shape)} / {tuple(k.shape)} "
+        f"{q.dtype} {kw}: max abs err / max {err:.3g}")
+    ms = time_ms(lambda: fa_ops.flash_attention_bwd(q, k, v, out, m, l, dout,
+                                                    **kw), reps=reps)
+    plain = time_ms(lambda: flash_attention_bwd_ref(q, k, v, out, m, l, dout,
+                                                    **kw), reps=2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    gt = dout.transpose(1, 2).contiguous()
+    mask = {"is_causal": True}
+    if kw["window"] and kw["window"] < sk:     # a window inside S: a mask
+        rel = (torch.arange(sq, device=q.device)[:, None]
+               - torch.arange(sk, device=q.device)[None, :])
+        mask = {"attn_mask": (rel >= 0) & (rel < kw["window"])}
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, **mask,
+                                              scale=kw.get("scale"),
+                                              enable_gqa=True)
+
+    def sdpa_both():
+        sdpa().backward(gt)
+
+    with torch.no_grad():
+        fwd = time_ms(sdpa, reps=reps)
+    both = time_ms(sdpa_both, reps=reps)
+    lib = both - fwd
+    pairs = live_pairs(sq, sk, kw["causal"], kw["window"], 0)
+    es = q.element_size()
+    nbytes = ((4 * q.numel() + 4 * k.numel()) * es + 2 * m.numel() * 4)
+    ops, exps = 10 * d * pairs * b * h, pairs * b * h
+    bound, by, pipe = pipe_bound(nbytes, ops, exps, BF16_OPS_PER_S
+                                 if q.dtype == torch.bfloat16
+                                 else FP32_OPS_PER_S,
+                                 "tensor cores" if q.dtype == torch.bfloat16
+                                 else "FMA")
+    say("flash_bwd", f"B={b} S={sq} H={h} Hk={hk} D={d} {q.dtype}: kernel "
+        f"{ms:.3f} ms, bound {bound:.4f} ms ({by}, {pipe}: "
+        f"{ops / 1e9:.1f} GFLOP, {exps / 1e9:.3f} G exponentials over "
+        f"{pairs} live pairs per head, {nbytes / 1e6:.1f} MB), plain "
+        f"{plain:.3f} ms, scaled_dot_product_attention backward {lib:.3f} "
+        f"ms (forward and backward {both:.3f}, forward {fwd:.3f}); kernel / "
+        f"bound {ms / bound:.1f}, kernel / library {ms / lib:.2f}")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                bound_pipe=pipe, library_ms=lib, max_abs_err=worst)
 
 
 # -- the recurrent scans (mamba2_ssd, wkv6) ---------------------------------------
@@ -3747,6 +3942,392 @@ def phase_blocks_card_vs_cpu(device, *, reduced=False, seq=1100, steps=8):
         for arch, cut in BLOCK_CUTS}
 
 
+
+# -- training ---------------------------------------------------------------------
+
+#: The train phase: h2o-danube-1.8b at full width and depth (bf16, remat
+#: "block"), the reference's train_4k sequence (configs/base.py:182), its
+#: global batch of 256 cut to 2, 5 AdamW steps.
+TRAIN_ARGS = dict(seq=4096, batch=2, steps=5)
+#: The reference smoke test's bound (tests/test_models_smoke.py:30-33): a
+#: random model's first cross-entropy within 35 % of ln(vocab).
+CE_SPREAD = 0.35
+#: The init scale of the embedding table (``layers.embedding_init``).
+EMBED_STD = 0.02
+
+
+def initial_ce(cfg) -> float:
+    """A random model's expected first cross-entropy on random labels:
+    ln(vocab), unless the embeddings are tied and scaled by sqrt(d_model)
+    (gemma3-4b).  Then the final hidden state of position t is nearly its
+    own embedding e_t normalised to RMS 1, e_t / EMBED_STD, so the model
+    gives its input token the logit |e_t|^2 / EMBED_STD = EMBED_STD *
+    d_model (51.2 for gemma3-4b; the reference's loss_fn gives 45.5 at
+    full width and one layer) and the cross-entropy of a random label is
+    about that.  The reference's smoke test runs the reduced configs,
+    where EMBED_STD * d_model (2.6) is below ln(vocab)."""
+    import math
+    if cfg.tie_embeddings and cfg.embed_scale:
+        return max(math.log(cfg.vocab), EMBED_STD * cfg.d_model)
+    return math.log(cfg.vocab)
+
+
+def flash_counts() -> tuple[int, int]:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    return fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES
+
+
+def zero_flash_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
+
+
+def train_launches(cfg, seq) -> tuple[int, int]:
+    """(forward, backward) flash launches of one train step: every blocked
+    attention call runs its forward twice under remat "block" (forward and
+    recompute) and its backward once."""
+    n = launches_per_prefill(cfg, seq)["flash_attention"]
+    return n * (2 if cfg.remat == "block" else 1), n
+
+
+def check_ce(tag, phase, ce, cfg) -> None:
+    import math
+    want = initial_ce(cfg)
+    if not (math.isfinite(ce) and abs(ce - want) <= CE_SPREAD * want):
+        raise AssertionError(f"{phase} {tag}: step-0 cross-entropy {ce} is "
+                             f"not within {CE_SPREAD:.0%} of {want:.3f} "
+                             f"(initial_ce; ln(vocab) = "
+                             f"{math.log(cfg.vocab):.3f})")
+
+
+def capture_flash_bwd(store):
+    """Patch the model's flash backward so that ``store`` holds the inputs of
+    its latest call (the last layer a backward reaches is layer 0); returns
+    the undo."""
+    from repro_torch.models import attention
+    real = attention.flash_attention_bwd
+
+    def wrapper(*args, **kw):
+        store.update(args=[a.clone() for a in args], kw=dict(kw))
+        return real(*args, **kw)
+
+    attention.flash_attention_bwd = wrapper
+    return lambda: setattr(attention, "flash_attention_bwd", real)
+
+
+def phase_train(device, *, arch=SERVE_ARCH, full=True, **args):
+    """``repro_torch.launch.train``'s entry point at TRAIN_ARGS: every loss
+    finite, the step-0 cross-entropy within CE_SPREAD of initial_ce, the
+    flash kernels launched as train_launches says.  Then one more step with
+    the backward's inputs captured (layer 0's, for flash_bwd).  Returns
+    (forward launches, backward launches, layer-0 backward inputs,
+    metrics)."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.launch import train
+    args = {**TRAIN_ARGS, **args}
+    cuda = torch.device(device).type == "cuda"
+    argv = ["--arch", arch, "--seq", str(args["seq"]), "--batch",
+            str(args["batch"]), "--steps", str(args["steps"]), "--device",
+            device] + (["--full"] if full else [])
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts()
+    t0 = synced(device)
+    trainer = train.main(argv)
+    wall = synced(device) - t0
+    fwd, bwd = flash_counts()
+    cfg = trainer.cfg
+    hist = trainer.history
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    check_ce("step 0", "train", losses[0], cfg)
+    per_step = train_launches(cfg, args["seq"])
+    steps = len(hist)
+    expect_launches("train", device, (fwd, bwd),
+                    (per_step[0] * steps, per_step[1] * steps))
+    if cuda and per_step[1] == 0:
+        raise AssertionError("train: no flash backward on the main path")
+    ms = [1e3 * h["dt"] for h in hist]
+    steady = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    tokens = args["batch"] * args["seq"]
+    metrics = dict(
+        arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+        dtype=cfg.param_dtype, remat=cfg.remat, seq=args["seq"],
+        batch=args["batch"], steps=steps, losses=losses,
+        ms_per_step=steady, first_step_ms=ms[0], tokens_per_s=tokens
+        / (steady / 1e3), wall_s=wall,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+        flash_fwd_per_step=fwd / steps, flash_bwd_per_step=bwd / steps)
+    say("train", f"{arch} {'full' if full else 'reduced'} "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.param_dtype}, "
+        f"remat {cfg.remat}), {args['batch']} x {args['seq']} tokens: "
+        f"losses {[round(x, 4) for x in losses]}, {steady:.1f} ms/step "
+        f"(first {ms[0]:.1f}), {metrics['tokens_per_s']:.0f} tokens/s, "
+        f"peak {metrics['peak_gb']} GB, flash forward {fwd / steps:g} and "
+        f"backward {bwd / steps:g} launches per step")
+    layer0 = {}
+    undo = capture_flash_bwd(layer0)
+    try:
+        trainer.step_fn(trainer.state, trainer.loader.next_batch())
+    finally:
+        undo()
+    del trainer
+    if cuda:
+        torch.cuda.empty_cache()
+    return fwd, bwd, layer0, metrics
+
+
+#: train_card_vs_cpu: float32 on both sides.  The loss to rel 1e-5; each
+#: gradient leaf and each updated parameter and moment within 1e-4 of its
+#: leaf's max (sums in other orders over 512 tokens and 2 layers).  AdamW's
+#: eps is 1e-5 there: at the default 1e-8 a gradient at float32 noise level
+#: takes a whole +-lr step whose sign is the noise's, on either side.
+TRAIN_F32_TOL = dict(loss=1e-5, leaf=1e-4)
+
+
+def phase_train_card_vs_cpu(device, *, reduced=False, n_layers=2, seq=512):
+    """danube at full width cut to ``n_layers``, float32, tiles of 256 (so
+    the 512 tokens go through the flash kernels): one train step's loss,
+    gradients and AdamW update on the card and on the CPU from the same
+    weights and batch."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as T
+    cut = {} if reduced else dict(n_layers=n_layers,
+                                  pattern=((n_layers, ("attn",)),))
+    cfg = serve_config(reduced, SERVE_ARCH, dtype="float32",
+                       param_dtype="float32", block_q=256, block_k=256,
+                       loss_chunk=256, **cut)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; float32 parity needs "
+                             "them off")
+    card = M.init_params(cfg, seed=2, device=device).requires_grad_(True)
+    cpu = copy.deepcopy(card).to("cpu")
+    ids = np.random.default_rng(2).integers(0, cfg.vocab, (1, seq + 1))
+    ocfg = O.OptConfig(lr=1e-3, warmup_steps=1, eps=1e-5)
+    zero_flash_counts()
+    out = {}
+    for name, params in (("card", card), ("cpu", cpu)):
+        dev = O.leaves(params)[0][1].device
+        batch = T.to_device({"tokens": ids[:, :-1], "labels": ids[:, 1:]},
+                            dev)
+        loss, _, grads = T._grads(params, cfg, batch)
+        params, opt, om = O.apply(ocfg, params, grads, O.init(params))
+        out[name] = (loss, grads, params, opt)
+    fwd, bwd = flash_counts()
+    expect_launches("train_card_vs_cpu", device, (fwd, bwd),
+                    train_launches(cfg, seq))
+    (l_card, g_card, p_card, o_card), (l_cpu, g_cpu, p_cpu, o_cpu) = \
+        out["card"], out["cpu"]
+    loss_err = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    worst = {}
+    for what, a, b in (("grad", g_card, g_cpu), ("param", p_card, p_cpu),
+                       ("mu", o_card.mu, o_cpu.mu),
+                       ("nu", o_card.nu, o_cpu.nu)):
+        for path, x in O.leaves(a):
+            y = O.get_path(b, path)
+            err = float((x.detach().cpu().double() - y.detach().double())
+                        .abs().max() / y.detach().double().abs().max()
+                        .clamp_min(1e-30))
+            key = f"{what} {'.'.join(path)}"
+            worst[key] = err
+    bad = {k: v for k, v in worst.items() if not v <= TRAIN_F32_TOL["leaf"]}
+    if not loss_err <= TRAIN_F32_TOL["loss"] or bad:
+        raise AssertionError(f"train_card_vs_cpu: loss rel err {loss_err:.3g}"
+                             f", leaves over {TRAIN_F32_TOL['leaf']}: {bad}")
+    top = max(worst, key=worst.get)
+    say("train_card_vs_cpu", f"danube {cfg.n_layers} layers float32, "
+        f"{seq} tokens: loss {float(l_card):.6f} (card) vs "
+        f"{float(l_cpu):.6f} (cpu), rel err {loss_err:.3g}; worst leaf "
+        f"{top} {worst[top]:.3g} of its max over {len(worst)} leaves; "
+        f"flash forward {fwd}, backward {bwd}")
+    return dict(loss_rel_err=loss_err, worst_leaf=worst[top])
+
+
+#: The train_blocks phase: each arch at full width cut in depth, bf16,
+#: B = 2, with its sequence (the MoE case at T = 4096 tokens: dense_onehot
+#: saves float32 [T, E, C] tensors for the backward).
+TRAIN_BLOCKS = {
+    "gemma3-4b": (dict(n_layers=6, pattern=((1, ("local",) * 5
+                                            + ("global",)),)), 4096),
+    "minicpm3-4b": (dict(n_layers=2, pattern=((2, ("mla",)),)), 4096),
+    "qwen3-moe-30b-a3b": (dict(n_layers=2, pattern=((2, ("attn_moe",)),)),
+                          2048),
+    "llama-3.2-vision-11b": (dict(n_layers=5, pattern=((1, ("attn",) * 4
+                                                        + ("cross",)),)),
+                             4096),
+    "musicgen-medium": (dict(n_layers=2, pattern=((2, ("attn",)),)), 4096),
+}
+#: Trained on the CPU only: their scan kernels have no backward yet.
+SCAN_ARCHS = ("zamba2-2.7b", "rwkv6-7b")
+
+
+def phase_train_blocks(device, *, reduced=False, steps=2, seq=None,
+                       batch=2):
+    """Two train steps of each TRAIN_BLOCKS arch (cross gates at
+    tanh = CROSS_GATE): finite losses, the step-0 cross-entropy within
+    CE_SPREAD of initial_ce, a finite gradient norm above 0, the flash
+    kernels launched as train_launches says; then the flash backward of
+    the last step's layer 0, on the inputs it was given (bf16), against
+    the plain version (flash_bwd_check), outside the counts.  zamba2 and
+    rwkv6 must refuse a train step on the card, naming the next slice.
+    Returns (forward, backward launches, {arch: metrics}, the worst
+    backward error)."""
+    import math
+    import torch
+    from repro_torch.configs.inputs import random_batch
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as T
+    cuda = torch.device(device).type == "cuda"
+    total_fwd = total_bwd = 0
+    worst = 0.0
+    metrics = {}
+    for arch, (cut, arch_seq) in TRAIN_BLOCKS.items():
+        s = seq or arch_seq
+        cfg = serve_config(reduced, arch, **({} if reduced else cut))
+        state = T.init_state(cfg, seed=3, device=device)
+        open_gates(state.params, cfg)
+        step = T.make_train_step(cfg, O.OptConfig(lr=1e-4, warmup_steps=1))
+        gen = torch.Generator().manual_seed(3)
+        zero_flash_counts()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        layer0 = {}
+        undo = capture_flash_bwd(layer0)
+        try:
+            rows, t0 = [], synced(device)
+            for _ in range(steps):
+                state, m = step(state, random_batch(gen, cfg, s, batch))
+                rows.append({k: float(v) for k, v in m.items()})
+            wall = synced(device) - t0
+        finally:
+            undo()
+        fwd, bwd = flash_counts()
+        per = train_launches(cfg, s)
+        expect_launches(f"train_blocks {arch}", device, (fwd, bwd),
+                        (per[0] * steps, per[1] * steps))
+        total_fwd, total_bwd = total_fwd + fwd, total_bwd + bwd
+        if not all(math.isfinite(r["loss"]) for r in rows):
+            raise AssertionError(f"train_blocks {arch}: losses {rows}")
+        check_ce(arch, "train_blocks", rows[0]["ce"], cfg)
+        if not all(math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
+                   for r in rows):
+            raise AssertionError(f"train_blocks {arch}: grad norms {rows}")
+        if "args" not in layer0:
+            raise AssertionError(f"train_blocks {arch}: no flash backward "
+                                 "ran")
+        (q, k, v, _, _, _, dout), kw = layer0["args"], layer0["kw"]
+        q_shape, kv_shape, q_dtype = q.shape, k.shape, str(q.dtype)[6:]
+        err = flash_bwd_check(q, k, v, dout, kw, f"train_blocks {arch} "
+                              f"layer 0")
+        worst = max(worst, err)
+        del layer0, q, k, v, dout
+        metrics[arch] = dict(
+            layers=cfg.n_layers, seq=s, batch=batch,
+            losses=[r["loss"] for r in rows], ce0=rows[0]["ce"],
+            grad_norms=[r["grad_norm"] for r in rows],
+            ms_per_step=1e3 * wall / steps, flash_fwd=fwd, flash_bwd=bwd,
+            flash_bwd_layer0=dict(q=list(q_shape), kv=list(kv_shape),
+                                  dtype=q_dtype, **kw, max_abs_err=err),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda
+            else None)
+        say("train_blocks", f"{arch} metrics " + json.dumps(metrics[arch]))
+        del state, step
+        if cuda:
+            torch.cuda.empty_cache()
+    for arch in SCAN_ARCHS:
+        cfg = serve_config(True, arch)
+        state = T.init_state(cfg, seed=3, device=device)
+        step = T.make_train_step(cfg, O.OptConfig())
+        batch_ = random_batch(torch.Generator().manual_seed(3), cfg, 64, 1)
+        if not cuda:
+            step(state, batch_)
+            continue
+        try:
+            step(state, batch_)
+        except NotImplementedError as e:
+            if "next slice" not in str(e):
+                raise
+            say("train_blocks", f"{arch} refuses a train step on the card: "
+                f"{e}")
+        else:
+            raise AssertionError(f"{arch} trained on the card; its scan "
+                                 "kernel has no backward")
+    return total_fwd, total_bwd, metrics, worst
+
+
+def phase_train_restart(device, *, steps=12, ckpt_every=4, die_at=6):
+    """The reference's examples/quickstart.py on the port: danube reduced
+    (tiles of 32, so its 64-token sequences run the flash kernels) trains
+    with its data shards and checkpoints going through a size-fair 2-server
+    burst buffer (Experiment.serve), a checkpoint every ``ckpt_every``
+    steps; under run_with_restarts a failure at ``die_at`` restarts from
+    the last checkpoint, and every loss from there equals an uninterrupted
+    run's bit for bit.  Returns the BB servers' processed requests."""
+    import dataclasses
+    import math
+    from repro_torch.api import Experiment
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, DataLoader, ShardWriter
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.trainer import (Trainer, TrainerConfig,
+                                           run_with_restarts)
+    cfg = serve_config(True, SERVE_ARCH, block_q=32, block_k=32)
+    exp = (Experiment(policy="size-fair", n_servers=2, device=device)
+           .add_job(user=0, size=4, req_mb=8)
+           .bursts(period_s=5.0, duty=0.2, n=6))
+    svc = exp.serve()
+    client = svc.client(0)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, batch_size=4,
+                      shard_tokens=1 << 15, n_shards=2)
+    ShardWriter(dcfg, client=client).write_epoch(0)
+
+    def make(root):
+        return Trainer(cfg, O.OptConfig(lr=1e-3, warmup_steps=steps // 2,
+                                        total_steps=steps),
+                       TrainerConfig(total_steps=steps,
+                                     ckpt_every=ckpt_every),
+                       DataLoader(dcfg, client=client),
+                       ckpt=CheckpointManager(root, client=client),
+                       bb_client=client, device=device)
+
+    zero_flash_counts()
+    whole = make("/ckpt_whole")
+    whole.init_or_restore()
+    want = whole.run()
+    got = run_with_restarts(lambda: make("/ckpt_restart"), die_at=die_at)
+    fwd, bwd = flash_counts()
+    resumed = (die_at // ckpt_every) * ckpt_every
+    if [h["step"] for h in got] != list(range(resumed, steps)):
+        raise AssertionError(f"train_restart: resumed steps "
+                             f"{[h['step'] for h in got]}")
+    lost = [(a["step"], a["loss"], b["loss"]) for a, b in
+            zip(got, want[resumed:]) if a["loss"] != b["loss"]]
+    if lost or not all(math.isfinite(h["loss"]) for h in want):
+        raise AssertionError(f"train_restart: losses after the restart "
+                             f"differ from the uninterrupted run's: {lost}")
+    if want[-1]["loss"] >= want[0]["loss"]:
+        raise AssertionError(f"train_restart: loss {want[0]['loss']} -> "
+                             f"{want[-1]['loss']} did not fall")
+    processed = [len(srv.processed) for srv in svc.cluster.servers]
+    written = sum(st.bytes_written for st in svc.cluster.fs.stores)
+    say("train_restart", f"{steps} steps, checkpoint every {ckpt_every}, "
+        f"failure at {die_at}: resumed from {resumed}, losses "
+        f"{[round(h['loss'], 4) for h in got]} equal the uninterrupted "
+        f"run's bit for bit ({want[0]['loss']:.4f} -> {want[-1]['loss']:.4f})"
+        f"; BB servers processed {processed} requests, "
+        f"{written / 1e6:.1f} MB written; flash forward {fwd}, backward "
+        f"{bwd}")
+    return processed
+
+
 # -- the other processes ---------------------------------------------------------
 
 #: The argument that makes the script one of the other processes:
@@ -4001,6 +4582,23 @@ def main() -> int:
         arch: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                                  "max_abs_err")} for arch, r in shapes.items()}
     timed("blocks_card_vs_cpu", phase_blocks_card_vs_cpu, device)
+    # Training, alone too: danube at full width and depth through the train
+    # CLI, with every counter zeroed before it; then the backward kernel,
+    # the card against the CPU, the other block kinds and a restart.
+    fwd, bwd, layer0, train_metrics = timed("train", phase_train, device)
+    say("train", "metrics " + json.dumps(train_metrics))
+    launches["flash_attention"] += fwd
+    launches["flash_attention_bwd"] = bwd
+    records["flash_attention_bwd"] = timed("flash_bwd", phase_flash_bwd,
+                                           device, layer0)
+    del layer0
+    timed("train_card_vs_cpu", phase_train_card_vs_cpu, device)
+    fwd, bwd, _, bwd_err = timed("train_blocks", phase_train_blocks, device)
+    launches["flash_attention"] += fwd
+    launches["flash_attention_bwd"] += bwd
+    record = records["flash_attention_bwd"]
+    record["max_abs_err"] = max(record["max_abs_err"], bwd_err)
+    timed("train_restart", phase_train_restart, device)
     say("done", f"phase seconds {json.dumps(seconds)}; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -4011,13 +4609,17 @@ def main() -> int:
                 "mamba2_ssd": "src/repro/kernels/mamba2/kernel.py:54",
                 "wkv6": "src/repro/kernels/rwkv6/kernel.py:67",
                 # Not a Pallas kernel: the XLA fusion of softplus and exp.
-                "step_decay": "src/repro/models/ssm.py:131"}
+                "step_decay": "src/repro/models/ssm.py:131",
+                # Not a Pallas kernel: plain JAX under a custom_vjp.
+                "flash_attention_bwd": "src/repro/models/attention.py:241"}
     kernels = []
     for name in ("tick_step[themis]", "tick_step[fifo]", "token_select",
-                 "flash_attention", "mamba2_ssd", "wkv6", "step_decay"):
+                 "flash_attention", "mamba2_ssd", "wkv6", "step_decay",
+                 "flash_attention_bwd"):
         r = records[name]
         base = name.split("[")[0]
-        source = "mamba2_ssd" if base == "step_decay" else base
+        source = {"step_decay": "mamba2_ssd",
+                  "flash_attention_bwd": "flash_attention"}.get(base, base)
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{source}.cu",

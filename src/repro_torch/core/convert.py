@@ -3,10 +3,12 @@
 The reference's ``Workload``, ``JobTable`` and ``EngineState`` with numpy
 leaves (the PRNG key as its two uint32 words) become the port's tensors on
 a given device, and back.  This is how both engines start from the same
-mid-run state.  Model parameters and decode caches cross the same way:
-the reference's pytrees (numpy leaves, stacked ``[repeat, ...]`` per
-segment) become the port's ``ModelParams`` and cache dicts.  Leaves are
-copied, never shared.
+mid-run state.  Model parameters, decode caches and a training state
+(parameters, step, AdamW's ``mu``/``nu``) cross the same way: the
+reference's pytrees (numpy leaves, stacked ``[repeat, ...]`` per segment)
+become the port's ``ModelParams``, cache dicts and ``TrainState``, and
+gradients and optimizer trees come back as numpy.  Leaves are copied,
+never shared.
 """
 from __future__ import annotations
 
@@ -136,3 +138,27 @@ def caches_to_numpy(caches) -> dict:
     """The port's decode caches with numpy leaves, as the reference holds
     them."""
     return _map_tree(caches, tensor_to_numpy)
+
+
+def tree_to_numpy(tree) -> dict:
+    """A parameter-shaped tree of the port (``ModelParams``, a gradient or
+    optimizer tree) as nested dicts of numpy arrays, as the reference holds
+    them (bfloat16 as ``ml_dtypes.bfloat16``)."""
+    if isinstance(tree, torch.Tensor):
+        return tensor_to_numpy(tree)
+    return {k: tree_to_numpy(tree[k]) for k in tree.keys()}
+
+
+def train_state_from_numpy(jax_state, cfg, device="cpu"):
+    """The reference's ``TrainState`` (numpy or JAX leaves) as the port's:
+    parameters that require grad (``params_from_numpy``), the int32 step,
+    and ``mu``/``nu`` float32 trees."""
+    from ..train.optimizer import OptState
+    from ..train.train_step import TrainState
+    params = params_from_numpy(jax_state.params, cfg, device)
+    opt = jax_state.opt
+    return TrainState(params=params.requires_grad_(True), opt=OptState(
+        step=torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                          device=device),
+        mu=_map_tree(opt.mu, lambda x: tensor_from_numpy(x, device)),
+        nu=_map_tree(opt.nu, lambda x: tensor_from_numpy(x, device))))

@@ -150,9 +150,10 @@ __device__ __forceinline__ void stage(const T* a, const T* b, float* sa,
 template <typename T, int DPT4>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int Hk, int D, int causal, int window, int q_offset,
-                 float scale, int vec) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out, int Sq,
+                 int Sk, int H, int Hk, int D, int causal, int window,
+                 int q_offset, float scale, int vec) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D4 = (D + 3) / 4;
@@ -296,6 +297,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + rg + 16 * i;
     if (row >= Sq) continue;
+    if (m_out && cg == 0) {
+      m_out[(long long)bh * Sq + row] = m[i];
+      l_out[(long long)bh * Sq + row] = l[i];
+    }
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int e = 0; e < DPT4; ++e)
@@ -309,8 +314,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DPT4>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int Hk, int D, int causal,
-                   int window, int q_offset, float scale,
+                   float* m, float* l, int B, int Sq, int Sk, int H, int Hk,
+                   int D, int causal, int window, int q_offset, float scale,
                    cudaStream_t stream) {
   const int dq = 8 * ((D + 7) / 8) + 4;
   const size_t smem = sizeof(float) * ((size_t)(kBQ + 2 * kBK) * dq
@@ -324,21 +329,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, Hk, D, causal,
-      window, q_offset, scale, vec);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, m, l, Sq, Sk, H, Hk, D,
+      causal, window, q_offset, scale, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int H, int Hk, int D, int causal,
-                     int window, int q_offset, float scale,
+                     float* m, float* l, int B, int Sq, int Sk, int H, int Hk,
+                     int D, int causal, int window, int q_offset, float scale,
                      cudaStream_t stream) {
   const int need = (D + 31) / 32;
 #define FLASH_CASE(W)                                                        \
   if (need <= W)                                                             \
-    return launch<T, W>(q, k, v, o, B, Sq, Sk, H, Hk, D, causal, window,    \
-                        q_offset, scale, stream);
+    return launch<T, W>(q, k, v, o, m, l, B, Sq, Sk, H, Hk, D, causal,      \
+                        window, q_offset, scale, stream);
   FLASH_CASE(1)
   FLASH_CASE(2)
   FLASH_CASE(3)
@@ -449,8 +454,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP))
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
-                  int Hk, int D, int causal, int window, int q_offset,
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ m_out,
+                  float* __restrict__ l_out, int Sq, int Sk, int H, int Hk,
+                  int D, int causal, int window, int q_offset, float scale,
                   float scale_log2, int async) {
   constexpr int kLd = DP + 8;          // shared row stride, elements
   constexpr int kSteps = DP / 16;      // k-steps of Q K^T
@@ -633,8 +639,13 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = row_lo + 8 * hr;
-    const float denom = fmaxf(quad_sum(l[hr]), 1e-30f);
+    const float lsum = quad_sum(l[hr]);
+    const float denom = fmaxf(lsum, 1e-30f);
     if (row >= Sq) continue;
+    if (m_out && t == 0) {  // m in units of the scaled score
+      m_out[(long long)bh * Sq + row] = m[hr] * scale;
+      l_out[(long long)bh * Sq + row] = lsum;
+    }
     __nv_bfloat16* orow = ob + row * q_row;
 #pragma unroll
     for (int n = 0; n < kOut; ++n) {
@@ -648,8 +659,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int Hk, int D, int causal,
-                   int window, int q_offset, float scale,
+                   float* m, float* l, int B, int Sq, int Sk, int H, int Hk,
+                   int D, int causal, int window, int q_offset, float scale,
                    cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * 5 * kRows * (DP + 8);
   const int async = D % 8 == 0 && (size_t)q % 16 == 0 && (size_t)k % 16 == 0
@@ -661,20 +672,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Sq, Sk, H, Hk, D, causal,
-      window, q_offset, scale * kLog2e, async);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, m, l, Sq, Sk, H, Hk, D,
+      causal, window, q_offset, scale, scale * kLog2e, async);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int H, int Hk, int D, int causal,
-                     int window, int q_offset, float scale,
+                     float* m, float* l, int B, int Sq, int Sk, int H, int Hk,
+                     int D, int causal, int window, int q_offset, float scale,
                      cudaStream_t stream) {
   if ((Sq + kRows - 1) / kRows > 65535) return cudaErrorInvalidValue;
 #define FLASH_BF16_CASE(DP)                                                  \
   if (D <= DP)                                                               \
-    return launch<DP>(q, k, v, o, B, Sq, Sk, H, Hk, D, causal, window,      \
-                      q_offset, scale, stream);
+    return launch<DP>(q, k, v, o, m, l, B, Sq, Sk, H, Hk, D, causal,        \
+                      window, q_offset, scale, stream);
   FLASH_BF16_CASE(16)
   FLASH_BF16_CASE(32)
   FLASH_BF16_CASE(48)
@@ -730,25 +741,471 @@ __global__ void dead_rows_kernel(const T* __restrict__ v, T* __restrict__ o,
   }
 }
 
+
+// ---- backward ----------------------------------------------------------
+//
+// Replaces no Pallas kernel: the reference's backward is plain JAX under a
+// custom_vjp (repro/models/attention.py:_flash_bwd, :241).  Given q, k, v,
+// the forward's output o, its row statistics m (running max of the scaled
+// score) and l (sum of exp(s - m)), and dO, it recomputes each live tile's
+// probabilities p = exp(s - m) / max(l, 1e-30) and, with
+// delta = rowsum(dO o) and ds = p (dO V^T - delta),
+//   dQ = scale * ds K,   dK = scale * ds^T Q,   dV = p^T dO,
+// without storing any Sq x Sk tile in device memory.  Two kernels on the
+// FMA pipes, float32 throughout, inputs staged in shared memory as float32
+// whatever their dtype (float32 or bf16), outputs written in it:
+//
+//  * dq_kernel: one block per (b, h, query tile of 16 R rows).  It first
+//    forms delta for its rows (written out for the second kernel), then
+//    walks the live 64-key tiles: S = Q K^T and dP = dO V^T for R x 8 of
+//    the tile per thread, ds into shared memory, dQ += ds K.
+//  * dkv_kernel: one block per (b, KV head, key tile of 16 R keys).  It
+//    walks the H / Hk query heads of its group in order and, for each,
+//    only the live 64-query tiles (causal, window); it accumulates
+//    dV += p^T dO and dK += ds^T Q for its keys in registers.  The GQA
+//    heads are summed inside the block, so no atomics: two runs give the
+//    same bits.
+//
+// R is 4 (tiles of 64) up to D = 128 and 2 (tiles of 32) above
+// (kRowGroups), so the per-thread accumulators (R rows x 4 DPT4 columns,
+// two of them in dkv_kernel) stay in registers up to D = 256 and shared
+// memory stays under 227 KB (dkv at D = 128: 173 KB, at D = 256: 219 KB).
+// Rows with no live key (a window that ends before the first key) are not
+// taken: the wrapper refuses them.
+//
+// Bound at danube's training shape (B = 2, S = 4096, H = 32, Hk = 8,
+// D = 80, causal): 537 M live (q, k) pairs, each 10 D operations
+// (recompute S, dP, dV, dQ, dK) ~ 430 GFLOP: 0.43 ms at the bf16
+// tensor-core peak; these kernels do 7 D FMAs a pair (S and dP are
+// computed in both) on the float32 pipes.
+namespace bwd {
+
+constexpr int kThreads = 128;  // 16 row groups x 8 column groups
+constexpr int kCols = 64;      // the other side's tile: keys in dq, queries in dkv
+constexpr int kPStride = kCols + 8;
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
+  return make_float4(fa.x, fa.y, fb.x, fb.y);
+}
+
+// Stage rows [row0, row0 + rows) of a [*, D] operand (row stride ``stride``
+// elements) into shared float32 rows of ``ld`` floats; rows at or past
+// ``nrows`` and columns [D, 4 D4) are zero.  ``vec``: D is a multiple of 4
+// and the operand aligned to 4 elements.
+template <typename T>
+__device__ __forceinline__ void stage(const T* src, float* dst,
+                                      long long stride, int row0, int rows,
+                                      int nrows, int D, int D4, int ld,
+                                      bool vec) {
+  if (vec) {
+    for (int idx = threadIdx.x; idx < rows * D4; idx += kThreads) {
+      const int r = idx / D4, c = 4 * (idx - r * D4);
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row0 + r < nrows) x = load4(src + (row0 + r) * stride + c);
+      *reinterpret_cast<float4*>(dst + r * ld + c) = x;
+    }
+    return;
+  }
+  const int w = 4 * D4;
+  for (int idx = threadIdx.x; idx < rows * w; idx += kThreads) {
+    const int r = idx / w, c = idx - r * w;
+    dst[r * ld + c] = row0 + r < nrows && c < D
+                          ? widen(src[(row0 + r) * stride + c]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ bool live(int qrow, int kpos, int Sq, int Sk,
+                                     int causal, int window, int q_offset) {
+  const int rel = qrow + q_offset - kpos;
+  return qrow < Sq && kpos < Sk && (!causal || rel >= 0)
+         && (window <= 0 || rel < window);
+}
+
+// acc[i][e][t] += sum_{c < 64} a[row i][c] * b[c][4 chunk_e + t] for the
+// thread's rows rg + 16 i and column chunks cg + 8 e (chunk < D4).
+template <int R, int DPT4>
+__device__ __forceinline__ void accumulate(float (&acc)[R][DPT4][4],
+                                           const float* a, const float* b,
+                                           int rg, int cg, int D4, int ld) {
+  for (int c = 0; c < kCols; c += 4) {
+    float av[R][4];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const float4 x = load4(a + (rg + 16 * i) * kPStride + c);
+      av[i][0] = x.x; av[i][1] = x.y; av[i][2] = x.z; av[i][3] = x.w;
+    }
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const float* brow = b + (c + cc) * ld;
+#pragma unroll
+      for (int e = 0; e < DPT4; ++e) {
+        const int chunk = cg + 8 * e;
+        if (chunk < D4) {
+          const float4 bv = load4(brow + 4 * chunk);
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            acc[i][e][0] = __fmaf_rn(av[i][cc], bv.x, acc[i][e][0]);
+            acc[i][e][1] = __fmaf_rn(av[i][cc], bv.y, acc[i][e][1]);
+            acc[i][e][2] = __fmaf_rn(av[i][cc], bv.z, acc[i][e][2]);
+            acc[i][e][3] = __fmaf_rn(av[i][cc], bv.w, acc[i][e][3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// out[i][j] = sum_d a[row rg + 16 i][d] * b[row cg + 8 j][d], d ascending.
+template <int R>
+__device__ __forceinline__ void products(float (&out)[R][8], const float* a,
+                                         const float* b, int rg, int cg,
+                                         int D4, int ld) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[i][j] = 0.f;
+  for (int c = 0; c < 4 * D4; c += 4) {
+    float4 av[R], bv[8];
+#pragma unroll
+    for (int i = 0; i < R; ++i) av[i] = load4(a + (rg + 16 * i) * ld + c);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bv[j] = load4(b + (cg + 8 * j) * ld + c);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float x = __fmaf_rn(av[i].x, bv[j].x, out[i][j]);
+        x = __fmaf_rn(av[i].y, bv[j].y, x);
+        x = __fmaf_rn(av[i].z, bv[j].z, x);
+        out[i][j] = __fmaf_rn(av[i].w, bv[j].w, x);
+      }
+  }
+}
+
+template <typename T, int R, int DPT4>
+__device__ __forceinline__ void store_rows(T* base, long long stride,
+                                           const float (&acc)[R][DPT4][4],
+                                           int row0, int nrows, int rg,
+                                           int cg, int D, float mul) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = row0 + rg + 16 * i;
+    if (row >= nrows) continue;
+#pragma unroll
+    for (int e = 0; e < DPT4; ++e)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int col = 4 * (cg + 8 * e) + t;
+        if (col < D) narrow(base + row * stride + col, acc[i][e][t] * mul);
+      }
+  }
+}
+
+template <typename T, int R, int DPT4>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ o,
+          const T* __restrict__ dout, const float* __restrict__ m,
+          const float* __restrict__ l, float* __restrict__ delta,
+          T* __restrict__ dq, int Sq, int Sk, int H, int Hk, int D,
+          int causal, int window, int q_offset, float scale, int vec) {
+  constexpr int QT = 16 * R;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int D4 = (D + 3) / 4;
+  const int ld = 8 * ((D + 7) / 8) + 4;
+  float* qs = smem;                 // [QT][ld]
+  float* dos = qs + QT * ld;        // [QT][ld]
+  float* ks = dos + QT * ld;        // [64][ld]; o first, for delta
+  float* vs = ks + kCols * ld;      // [64][ld]
+  float* dss = vs + kCols * ld;     // [QT][kPStride]
+
+  const int tid = threadIdx.x, rg = tid >> 3, cg = tid & 7;
+  const int bh = blockIdx.y;
+  const int bi = bh / H, hi = bh - bi * H;
+  const int kvh = hi / (H / Hk);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * QT;  // heaviest first
+
+  const long long q_row = (long long)H * D, kv_row = (long long)Hk * D;
+  const long long q_base = (long long)bi * Sq * q_row + (long long)hi * D;
+  const T* kb = k + (long long)bi * Sk * kv_row + (long long)kvh * D;
+  const T* vb = v + (long long)bi * Sk * kv_row + (long long)kvh * D;
+
+  stage<T>(q + q_base, qs, q_row, q0, QT, Sq, D, D4, ld, vec);
+  stage<T>(dout + q_base, dos, q_row, q0, QT, Sq, D, D4, ld, vec);
+  stage<T>(o + q_base, ks, q_row, q0, QT, Sq, D, D4, ld, vec);
+  __syncthreads();
+
+  // delta, m and 1 / max(l, 1e-30) of the thread's rows.
+  float dl[R], mr[R], il[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = rg + 16 * i, row = q0 + r;
+    float part = 0.f;
+    for (int chunk = cg; chunk < D4; chunk += 8) {
+      const float4 a = load4(dos + r * ld + 4 * chunk);
+      const float4 b = load4(ks + r * ld + 4 * chunk);
+      part = __fmaf_rn(a.x, b.x, part);
+      part = __fmaf_rn(a.y, b.y, part);
+      part = __fmaf_rn(a.z, b.z, part);
+      part = __fmaf_rn(a.w, b.w, part);
+    }
+    dl[i] = group8_sum(part);
+    const bool in = row < Sq;
+    mr[i] = in ? m[(long long)bh * Sq + row] : 0.f;
+    il[i] = 1.f / fmaxf(in ? l[(long long)bh * Sq + row] : 1.f, 1e-30f);
+    if (in && cg == 0) delta[(long long)bh * Sq + row] = dl[i];
+  }
+
+  const int qa0 = q0 + q_offset;
+  const int qa1 = min(q0 + QT, Sq) - 1 + q_offset;
+  int kt_end = (Sk + kCols - 1) / kCols;
+  if (causal) kt_end = min(kt_end, qa1 / kCols + 1);
+  int kt_begin = 0;
+  if (window > 0 && qa0 - window + 1 > 0) kt_begin = (qa0 - window + 1) / kCols;
+
+  float acc[R][DPT4][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < DPT4; ++e)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc[i][e][t] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kCols;
+    __syncthreads();  // the previous tile's reads (and o's) are done
+    stage<T>(kb, ks, kv_row, k0, kCols, Sk, D, D4, ld, vec);
+    stage<T>(vb, vs, kv_row, k0, kCols, Sk, D, D4, ld, vec);
+    __syncthreads();
+    float s[R][8], dp[R][8];
+    products<R>(s, qs, ks, rg, cg, D4, ld);
+    products<R>(dp, dos, vs, rg, cg, D4, ld);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int row = q0 + rg + 16 * i, kpos = k0 + cg + 8 * j;
+        float ds = 0.f;
+        if (live(row, kpos, Sq, Sk, causal, window, q_offset)) {
+          const float p = expf(s[i][j] * scale - mr[i]) * il[i];
+          ds = p * (dp[i][j] - dl[i]);
+        }
+        dss[(rg + 16 * i) * kPStride + cg + 8 * j] = ds;
+      }
+    __syncthreads();
+    accumulate<R, DPT4>(acc, dss, ks, rg, cg, D4, ld);
+  }
+  store_rows<T, R, DPT4>(dq + q_base, q_row, acc, q0, Sq, rg, cg, D, scale);
+}
+
+template <typename T, int R, int DPT4>
+__global__ void __launch_bounds__(kThreads)
+dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, const T* __restrict__ dout,
+           const float* __restrict__ m, const float* __restrict__ l,
+           const float* __restrict__ delta, T* __restrict__ dk,
+           T* __restrict__ dv, int Sq, int Sk, int H, int Hk, int D,
+           int causal, int window, int q_offset, float scale, int vec) {
+  constexpr int KT = 16 * R;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int D4 = (D + 3) / 4;
+  const int ld = 8 * ((D + 7) / 8) + 4;
+  float* ks = smem;                 // [KT][ld]
+  float* vs = ks + KT * ld;         // [KT][ld]
+  float* qs = vs + KT * ld;         // [64][ld]
+  float* dos = qs + kCols * ld;     // [64][ld]
+  float* ps = dos + kCols * ld;     // [KT][kPStride]
+  float* dss = ps + KT * kPStride;  // [KT][kPStride]
+  float* ms = dss + KT * kPStride;  // [64]
+  float* ils = ms + kCols;          // [64]
+  float* dls = ils + kCols;         // [64]
+
+  const int tid = threadIdx.x, rg = tid >> 3, cg = tid & 7;
+  const int bk = blockIdx.y;
+  const int bi = bk / Hk, kvh = bk - bi * Hk;
+  const int rep = H / Hk;
+  const int k0 = blockIdx.x * KT;  // the first key tiles have the most work
+
+  const long long q_row = (long long)H * D, kv_row = (long long)Hk * D;
+  const long long kv_base = (long long)bi * Sk * kv_row + (long long)kvh * D;
+  stage<T>(k + kv_base, ks, kv_row, k0, KT, Sk, D, D4, ld, vec);
+  stage<T>(v + kv_base, vs, kv_row, k0, KT, Sk, D, D4, ld, vec);
+
+  // Live query tiles of this key tile: [qt_begin, qt_end).
+  const int k1 = min(k0 + KT, Sk) - 1;
+  const int nqt = (Sq + kCols - 1) / kCols;
+  int qt_begin = 0, qt_end = nqt;
+  if (causal) qt_begin = max(0, k0 - q_offset) / kCols;
+  if (window > 0) {
+    const long long last = (long long)k1 + window - 1 - q_offset;
+    qt_end = last < 0 ? 0 : (int)min((long long)nqt, last / kCols + 1);
+  }
+
+  float adk[R][DPT4][4], adv[R][DPT4][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < DPT4; ++e)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) adk[i][e][t] = adv[i][e][t] = 0.f;
+
+  for (int g = 0; g < rep; ++g) {
+    const int hi = kvh * rep + g;
+    const long long q_base = (long long)bi * Sq * q_row + (long long)hi * D;
+    const long long stat = ((long long)bi * H + hi) * Sq;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * kCols;
+      __syncthreads();  // the previous tile's reads are done
+      stage<T>(q + q_base, qs, q_row, q0, kCols, Sq, D, D4, ld, vec);
+      stage<T>(dout + q_base, dos, q_row, q0, kCols, Sq, D, D4, ld, vec);
+      if (tid < kCols) {
+        const int row = q0 + tid;
+        const bool in = row < Sq;
+        ms[tid] = in ? m[stat + row] : 0.f;
+        ils[tid] = 1.f / fmaxf(in ? l[stat + row] : 1.f, 1e-30f);
+        dls[tid] = in ? delta[stat + row] : 0.f;
+      }
+      __syncthreads();
+      float s[R][8], dp[R][8];
+      products<R>(s, ks, qs, rg, cg, D4, ld);
+      products<R>(dp, vs, dos, rg, cg, D4, ld);
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = cg + 8 * j, kpos = k0 + rg + 16 * i;
+          float p = 0.f, ds = 0.f;
+          if (live(q0 + c, kpos, Sq, Sk, causal, window, q_offset)) {
+            p = expf(s[i][j] * scale - ms[c]) * ils[c];
+            ds = p * (dp[i][j] - dls[c]);
+          }
+          ps[(rg + 16 * i) * kPStride + c] = p;
+          dss[(rg + 16 * i) * kPStride + c] = ds;
+        }
+      __syncthreads();
+      accumulate<R, DPT4>(adv, ps, dos, rg, cg, D4, ld);
+      accumulate<R, DPT4>(adk, dss, qs, rg, cg, D4, ld);
+    }
+  }
+  store_rows<T, R, DPT4>(dk + kv_base, kv_row, adk, k0, Sk, rg, cg, D, scale);
+  store_rows<T, R, DPT4>(dv + kv_base, kv_row, adv, k0, Sk, rg, cg, D, 1.f);
+}
+
+template <int R>
+constexpr size_t dq_smem(int ld) {
+  return sizeof(float) * ((size_t)(2 * 16 * R + 2 * kCols) * ld
+                          + (size_t)16 * R * kPStride);
+}
+template <int R>
+constexpr size_t dkv_smem(int ld) {
+  return sizeof(float) * ((size_t)(2 * 16 * R + 2 * kCols) * ld
+                          + (size_t)2 * 16 * R * kPStride + 3 * kCols);
+}
+
+// R of a head width of 4 DPT4 floats a column group.  At D = 80 and 128
+// the 64-row tiles hold one dkv block an SM against two of 32 rows, yet
+// take 6-13 % less time: each staged Q and dO tile serves twice the keys,
+// and the shared loads per FMA fall from ~0.6 to ~0.35.
+template <int DPT4>
+constexpr int kRowGroups = DPT4 <= 4 ? 4 : 2;
+
+template <typename T, int DPT4>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* m,
+                   const float* l, float* delta, void* dq, void* dk, void* dv,
+                   int B, int Sq, int Sk, int H, int Hk, int D, int causal,
+                   int window, int q_offset, float scale,
+                   cudaStream_t stream) {
+  constexpr int R = kRowGroups<DPT4>;
+  const int ld = 8 * ((D + 7) / 8) + 4;
+  const size_t align = 4 * sizeof(T);
+  const int vec = D % 4 == 0;
+  const bool aligned = (size_t)q % align == 0 && (size_t)k % align == 0
+                       && (size_t)v % align == 0 && (size_t)o % align == 0
+                       && (size_t)dout % align == 0;
+  const int vq = vec && aligned;
+  auto kq = dq_kernel<T, R, DPT4>;
+  auto kkv = dkv_kernel<T, R, DPT4>;
+  const size_t sq_bytes = dq_smem<R>(ld), skv_bytes = dkv_smem<R>(ld);
+  cudaError_t e = cudaFuncSetAttribute(
+      kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sq_bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)skv_bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 gq((Sq + 16 * R - 1) / (16 * R), B * H);
+  kq<<<gq, kThreads, sq_bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, m,
+      l, delta, (T*)dq, Sq, Sk, H, Hk, D, causal, window, q_offset, scale,
+      vq);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 gkv((Sk + 16 * R - 1) / (16 * R), B * Hk);
+  kkv<<<gkv, kThreads, skv_bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, m, l, delta,
+      (T*)dk, (T*)dv, Sq, Sk, H, Hk, D, causal, window, q_offset, scale, vq);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* m,
+                     const float* l, float* delta, void* dq, void* dk,
+                     void* dv, int B, int Sq, int Sk, int H, int Hk, int D,
+                     int causal, int window, int q_offset, float scale,
+                     cudaStream_t stream) {
+  const int need = (D + 31) / 32;
+#define FLASH_BWD_CASE(W)                                                    \
+  if (need <= W)                                                             \
+    return launch<T, W>(q, k, v, o, dout, m, l, delta, dq, dk, dv, B, Sq,   \
+                        Sk, H, Hk, D, causal, window, q_offset, scale,       \
+                        stream);
+  FLASH_BWD_CASE(1)
+  FLASH_BWD_CASE(2)
+  FLASH_BWD_CASE(3)
+  FLASH_BWD_CASE(4)
+  FLASH_BWD_CASE(6)
+  FLASH_BWD_CASE(8)
+#undef FLASH_BWD_CASE
+  return cudaErrorInvalidValue;  // D > 256
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // dtype: 0 float32 (flash_fwd_kernel), 1 bfloat16 (tc::flash_bf16_kernel).
-// Returns a cudaError_t (0 on success).
+// m and l (float32 [B, H, Sq], or both null): each row's running max, in
+// units of the scaled score, and its sum of exp(s - m), as the backward
+// reads them.  Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
-                                      int Sk, int H, int Hk, int D, int causal,
-                                      int window, int q_offset, int dtype,
-                                      float scale, void* stream) {
+                                      const void* v, void* o, void* m,
+                                      void* l, int B, int Sq, int Sk, int H,
+                                      int Hk, int D, int causal, int window,
+                                      int q_offset, int dtype, float scale,
+                                      void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hk < 1 || H % Hk != 0 || D < 1 || D > 256
       || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  if ((m == nullptr) != (l == nullptr)) return (int)cudaErrorInvalidValue;
+  float* mf = (float*)m;
+  float* lf = (float*)l;
   if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, o, B, Sq, Sk, H, Hk, D, causal,
-                                window, q_offset, scale, st);
+    return (int)dispatch<float>(q, k, v, o, mf, lf, B, Sq, Sk, H, Hk, D,
+                                causal, window, q_offset, scale, st);
   if (dtype == 1)
-    return (int)tc::dispatch(q, k, v, o, B, Sq, Sk, H, Hk, D, causal, window,
-                             q_offset, scale, st);
+    return (int)tc::dispatch(q, k, v, o, mf, lf, B, Sq, Sk, H, Hk, D, causal,
+                             window, q_offset, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -778,4 +1235,32 @@ extern "C" int flash_attention_dead_rows_launch(const void* v, void* o, int B,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// The backward of flash_attention_launch's function: dq [B, Sq, H, D] and
+// dk, dv [B, Sk, Hk, D] in the inputs' dtype (0 float32, 1 bfloat16) from
+// q, k, v, the forward's o, its row statistics m and l (float32 [B, H, Sq])
+// and dout.  ``delta`` is float32 scratch [B, H, Sq].  Two launches on
+// ``stream``: bwd::dq_kernel (which writes delta), then bwd::dkv_kernel.
+// Rows with no live key are not taken (the caller refuses them).  Returns a
+// cudaError_t (0 on success).
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* m, const void* l, void* delta, void* dq,
+    void* dk, void* dv, int B, int Sq, int Sk, int H, int Hk, int D,
+    int causal, int window, int q_offset, int dtype, float scale,
+    void* stream) {
+  if (B < 1 || Sq < 1 || Sk < 1 || Hk < 1 || H % Hk != 0 || D < 1 || D > 256
+      || B * H > 65535 || window < 0 || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)bwd::dispatch<float>(
+        q, k, v, o, dout, (const float*)m, (const float*)l, (float*)delta, dq,
+        dk, dv, B, Sq, Sk, H, Hk, D, causal, window, q_offset, scale, st);
+  if (dtype == 1)
+    return (int)bwd::dispatch<__nv_bfloat16>(
+        q, k, v, o, dout, (const float*)m, (const float*)l, (float*)delta, dq,
+        dk, dv, B, Sq, Sk, H, Hk, D, causal, window, q_offset, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

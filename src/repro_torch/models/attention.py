@@ -4,11 +4,12 @@ The port of ``repro.models.attention``: GQA with optional qk-norm (qwen3,
 qwen3-moe, h2o-danube, gemma3, zamba2, mixtral, musicgen, llama-vision),
 sliding windows (h2o-danube, mixtral, gemma3 local layers), MLA with its
 compressed latent cache and absorbed decode (minicpm3), and cross-attention
-to stub vision embeddings (llama-vision).  Prefill longer than ``block_q``
-(MLA: 512) goes through :func:`blocked_attention`, whose forward is the
-``flash_attention`` kernel on the card and its plain tile loop on the CPU.
-The attention backward waits for the training slice and raises
-``NotImplementedError``.
+to stub vision embeddings (llama-vision).  Prefill and training sequences longer
+than ``block_q`` (MLA: 512) go through :func:`blocked_attention`, whose
+forward is the ``flash_attention`` kernel on the card and its plain tile
+loop on the CPU, and whose backward (a ``torch.autograd.Function``, the
+reference's ``custom_vjp``) is the ``flash_attention_bwd`` kernel on the
+card and the reference's tile-recompute backward on the CPU.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import math
 
 import torch
 
-from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ops import flash_attention, flash_attention_bwd
 from .layers import apply_rope, linear, linear_init, rmsnorm, rmsnorm_init
 
 NEG_INF = -1e30
@@ -67,25 +68,41 @@ def _expand_kv(x, rep: int, axis: int):
 
 # -- core blocked attention ----------------------------------------------------
 
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the forward keeps (q, k, v, out, m,
+    l), nothing of size Sq x Sk, and the backward recomputes the tiles."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out, m, l = flash_attention(q, k, v, return_stats=True, **kw)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = flash_attention_bwd(*ctx.saved_tensors,
+                                         dout.contiguous(), **ctx.kw)
+        return dq, dk, dv, None
+
+
 def blocked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
                       block_q=512, block_k=512, schedule="masked", scale=None):
-    """Flash attention forward: q [B, Sq, H, D], k/v [B, Sk, Hk, D].
+    """Flash attention: q [B, Sq, H, D], k/v [B, Sk, Hk, D].
 
-    The ``flash_attention`` kernel for a CUDA tensor (it skips dead tiles
-    whatever the schedule), the reference's tile loop with ``block_q`` x
+    The ``flash_attention`` kernels for a CUDA tensor (they skip dead tiles
+    whatever the schedule), the reference's tile loops with ``block_q`` x
     ``block_k`` tiles for a CPU tensor.  The two schedules (``masked``,
-    ``tri``) give the same output on every row with a live key: a dead tile
-    contributes exactly nothing to the online softmax.  No backward: that
-    comes with the training slice."""
+    ``tri``) give the same output and gradients on every row with a live
+    key: a dead tile contributes exactly nothing.  When no gradient is
+    wanted the forward writes no row statistics."""
     if schedule not in ("masked", "tri"):
         raise ValueError(f"unknown attention schedule {schedule!r}")
+    kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale,
+              block_q=block_q, block_k=block_k)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "blocked_attention has no backward yet (the training slice "
-            "ports the reference's _flash_bwd)")
-    return flash_attention(q, k, v, causal=causal, window=window,
-                           q_offset=q_offset, scale=scale, block_q=block_q,
-                           block_k=block_k)
+        return _FlashAttention.apply(q, k, v, kw)
+    return flash_attention(q, k, v, **kw)
 
 
 def dense_attention(q, k, v, *, causal=True, window=0, q_offset=0, scale=None,

@@ -161,7 +161,11 @@ def embedding_init(vocab: int, d: int) -> dict:
 
 
 def embed(params, ids):
-    return params["table"][ids]
+    """Rows ``ids`` of the table.  ``F.embedding``, whose backward sums a
+    row's gradients in a fixed order on the CPU and the card, where the
+    backward of ``table[ids]`` adds them in whatever order the CPU's
+    threads reach them."""
+    return F.embedding(ids, params["table"])
 
 
 def unembed(params, x):

@@ -9,8 +9,11 @@ inputs and heads, and llama-vision's stub vision inputs.  Parameters are
 a :class:`ModelParams` module whose parameter names are the reference's
 pytree paths (``seg0.blk0.attn.wq.w``), each segment's blocks stacked
 ``[repeat, ...]`` as the reference's ``lax.scan`` carries them; the port
-loops over the repeats in Python (``cfg.remat`` has no effect: the port
-does not train yet).  The shared block's parameters live once in
+loops over the repeats in Python over views of one ``unbind`` of each
+leaf, so a gradient comes back as one stack per leaf, not a zeroed stack
+per layer.  ``cfg.remat == "block"`` checkpoints each repeat's blocks
+under a gradient, as the reference's ``jax.checkpoint`` does, and the loss
+checkpoints each of its chunks.  The shared block's parameters live once in
 ``params["shared"]``; its stacked entry is empty.  Caches are nested dicts
 of the same stacked layout: attention ``k``/``v`` (a cross block's hold the
 projected vision tokens), MLA ``ckv``/``kr``, mamba ``h`` (float32) and
@@ -19,13 +22,14 @@ projected vision tokens), MLA ``ckv``/``kr``, mamba ``h`` (float32) and
 Entry points:
   * ``init_params(cfg, seed, device)``                      — ModelParams
   * ``forward_hidden(params, cfg, batch)``                  — [B,S,d]
+  * ``loss_fn(params, cfg, batch)``                         — loss, metrics
   * ``init_caches(cfg, batch, max_len)``                    — decode state
   * ``prefill(params, cfg, batch, max_len)``                — logits, caches
   * ``decode_step(params, cfg, caches, batch, pos)``        — logits, caches
 
 A batch holds ``tokens`` [B, S] (musicgen: ``codes`` [B, S, nq]) and, for
-llama-vision, ``vision`` [B, n_vision_tokens, vision_dim].  ``loss_fn``
-raises ``NotImplementedError``: it comes with the training slice.
+llama-vision, ``vision`` [B, n_vision_tokens, vision_dim]; the loss also
+reads ``labels`` [B, S] (musicgen: [B, S, nq]).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from . import attention as A
@@ -140,8 +145,9 @@ def param_specs(cfg) -> dict:
 
 class ModelParams(nn.Module):
     """A node of the parameter tree.  ``node["wq"]`` reads like the
-    reference's dicts; leaves are ``nn.Parameter``s that need no gradient
-    (the port serves, it does not train yet)."""
+    reference's dicts; leaves are ``nn.Parameter``s created frozen, as
+    serving wants them.  ``params.requires_grad_(True)`` makes them train
+    (``repro_torch.train.train_step.init_state`` does)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -194,11 +200,13 @@ def count_params(cfg, active_only: bool = False) -> int:
     return n
 
 
-def _layer(tree, li: int) -> dict:
-    """Repeat ``li`` of a stacked block: a dict of views, no copy."""
+def _layers(tree, rep: int) -> list:
+    """Every repeat of a stacked block, from one ``unbind`` per leaf: views,
+    no copy, whose gradients autograd stacks once into the leaf's."""
     if isinstance(tree, torch.Tensor):
-        return tree[li]
-    return {k: _layer(tree[k], li) for k in tree.keys()}
+        return list(tree.unbind(0))
+    subs = {k: _layers(tree[k], rep) for k in tree.keys()}
+    return [{k: v[li] for k, v in subs.items()} for li in range(rep)]
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +332,8 @@ def embed_inputs(params, cfg, batch, *, pos_offset=0):
         # by codebook, as the reference's Python sum.
         codes = batch["codes"]                               # [B, S, nq]
         tables = params["embed"]["codes"]
-        x = sum(tables[q][codes[..., q]] for q in range(cfg.n_codebooks))
+        x = sum(embed({"table": tables[q]}, codes[..., q])
+                for q in range(cfg.n_codebooks))
     else:
         x = embed(params["embed"], batch["tokens"])
     x = x.to(adt)
@@ -337,10 +346,11 @@ def embed_inputs(params, cfg, batch, *, pos_offset=0):
     return x
 
 
-@torch.no_grad()
 def forward_hidden(params, cfg, batch, *, want_caches=False, max_len=0):
     """Full-sequence forward. Returns (hidden, caches, aux): ``aux`` is the
-    float32 sum of the MoE blocks' load-balancing losses (0 without)."""
+    float32 sum of the MoE blocks' load-balancing losses (0 without).
+    Under a gradient with ``cfg.remat == "block"`` each repeat's blocks are
+    recomputed in the backward (``torch.utils.checkpoint``)."""
     check_supported(cfg)
     x = embed_inputs(params, cfg, batch)
     b, s = x.shape[:2]
@@ -357,19 +367,30 @@ def forward_hidden(params, cfg, batch, *, want_caches=False, max_len=0):
     shared = params["shared"] if _has_shared(cfg) else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = {}
+    remat = (cfg.remat == "block" and torch.is_grad_enabled()
+             and not want_caches)
     for si, (rep, kinds) in enumerate(cfg.pattern):
-        seg_params = params[f"seg{si}"]
+        layers = _layers(params[f"seg{si}"], rep)
         layer_caches = []
         for li in range(rep):
             new_caches = {}
-            for j, kind in enumerate(kinds):
-                x, cache, aux = _apply_block_seq(
-                    kind, _layer(seg_params[f"blk{j}"], li), shared, cfg, x,
-                    ctx, want_caches)
-                if aux is not None:
-                    aux_total = aux_total + aux
-                if want_caches:
-                    new_caches[f"blk{j}"] = cache
+
+            def body(x, aux_total, p_g=layers[li], kinds=kinds):
+                for j, kind in enumerate(kinds):
+                    x, cache, aux = _apply_block_seq(
+                        kind, p_g[f"blk{j}"], shared, cfg, x, ctx,
+                        want_caches)
+                    if aux is not None:
+                        aux_total = aux_total + aux
+                    if want_caches:
+                        new_caches[f"blk{j}"] = cache
+                return x, aux_total
+
+            if remat:
+                x, aux_total = checkpoint(body, x, aux_total,
+                                          use_reentrant=False)
+            else:
+                x, aux_total = body(x, aux_total)
             layer_caches.append(new_caches)
         if want_caches:
             # Each leaf stacked per repeat, as the reference's scan does.
@@ -401,9 +422,49 @@ def head_logits(params, cfg, x):
     return logits
 
 
-def loss_fn(*args, **kwargs):
-    raise NotImplementedError(
-        "loss_fn is not ported yet; it comes with the training slice")
+def _vocab_mask(cfg, device=None) -> torch.Tensor:
+    cols = torch.arange(cfg.vocab_padded, device=device)
+    return torch.where(cols < cfg.vocab, 0.0, NEG_INF)
+
+
+def _ce(cfg, logits, labels):
+    """Cross-entropy over the (padded, masked) vocab; logits float32."""
+    logits = logits + _vocab_mask(cfg, logits.device)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(),
+                                dim=-1)[..., 0]
+    return lse - gold
+
+
+def loss_fn(params, cfg, batch):
+    """Chunked-over-sequence LM loss; returns (loss, {"ce", "aux"}).
+
+    The float32 logits of one ``cfg.loss_chunk`` of the sequence at a time
+    go through the head and the cross-entropy; under a gradient each chunk
+    is checkpointed, so its logits are recomputed in the backward and
+    ``loss_chunk`` bounds their memory, as the reference's scan does.  The
+    loss is ``ce + moe_aux_coef * aux / layer_count``."""
+    x, _, aux = forward_hidden(params, cfg, batch)
+    labels = batch["labels"]
+    b, s = x.shape[:2]
+    chunk = min(cfg.loss_chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} % loss_chunk {chunk} != 0")
+
+    def chunk_ce(xc, lc):
+        return _ce(cfg, head_logits(params, cfg, xc), lc).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(s // chunk):
+        xc, lc = x[:, c * chunk:(c + 1) * chunk], labels[:, c * chunk:
+                                                          (c + 1) * chunk]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(chunk_ce, xc, lc, use_reentrant=False)
+        else:
+            total = total + chunk_ce(xc, lc)
+    denom = b * s * max(1, cfg.n_codebooks)
+    loss = total / denom + cfg.moe_aux_coef * aux / max(1, cfg.layer_count())
+    return loss, {"ce": total / denom, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -542,12 +603,12 @@ def decode_step(params, cfg, caches, batch, pos):
     ctx = {"pos": pos, "x0": x}
     shared = params["shared"] if _has_shared(cfg) else None
     for si, (rep, kinds) in enumerate(cfg.pattern):
-        seg_params = params[f"seg{si}"]
-        seg_cache = caches[f"seg{si}"]
+        layers = _layers(params[f"seg{si}"], rep)
+        layer_caches = _layers(caches[f"seg{si}"], rep)
         for li in range(rep):
             for j, kind in enumerate(kinds):
                 x = _apply_block_decode(
-                    kind, _layer(seg_params[f"blk{j}"], li), shared, cfg, x,
-                    _layer(seg_cache[f"blk{j}"], li), ctx)
+                    kind, layers[li][f"blk{j}"], shared, cfg, x,
+                    layer_caches[li][f"blk{j}"], ctx)
     x = norm_apply(cfg.norm, params["final_norm"], x)
     return head_logits(params, cfg, x), caches

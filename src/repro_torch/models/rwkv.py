@@ -68,8 +68,9 @@ def wkv6_chunked(r, k, v, lw, u, *, chunk: int, s0=None):
             t is not None and t.is_cuda and t.requires_grad
             for t in (r, k, v, lw, u, s0)):
         raise NotImplementedError(
-            "wkv6_chunked has no backward on the card yet (the training slice "
-            "ports the scan's backward)")
+            "wkv6_chunked has no backward on the card yet: the WKV backward "
+            "kernel comes with the next slice of the port (rwkv6 training "
+            "on the card); train on the CPU meanwhile")
     return wkv6(r, k, v, lw, u, chunk=chunk, s0=s0)
 
 

@@ -73,6 +73,37 @@ def _causal_conv(w, b, xbc, conv_state=None):
     return out, new_state
 
 
+class _StepDecay(torch.autograd.Function):
+    """``step_and_decay`` under a gradient: the forward is the kernel or
+    its plain version (the reference's roundings, which read float32 bits
+    and so have no autograd of their own), the backward the exact
+    derivatives dt' = sigmoid(dt_raw + dt_bias), da/ddt = -e a and
+    da/da_log = -dt e a with e = exp(a_log)."""
+
+    @staticmethod
+    def forward(ctx, dt_raw, dt_bias, a_log):
+        dt, a = step_and_decay(dt_raw, dt_bias, a_log)
+        ctx.save_for_backward(dt_raw, dt_bias, a_log, dt, a)
+        return dt, a
+
+    @staticmethod
+    def backward(ctx, g_dt, g_a):
+        dt_raw, dt_bias, a_log, dt, a = ctx.saved_tensors
+        e = torch.exp(a_log)
+        g_step = g_a * a * -e                   # d loss / d dt through a
+        g_z = (g_dt + g_step) * torch.sigmoid(dt_raw.float() + dt_bias)
+        lead = tuple(range(g_z.dim() - 1))
+        return (g_z.to(dt_raw.dtype), g_z.sum(dim=lead),
+                (g_step * dt).sum(dim=lead))
+
+
+def _step_and_decay(dt_raw, dt_bias, a_log):
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (dt_raw, dt_bias, a_log)):
+        return _StepDecay.apply(dt_raw, dt_bias, a_log)
+    return step_and_decay(dt_raw, dt_bias, a_log)
+
+
 def ssd_chunked(x, a, b, c, dt=None, *, chunk: int, h0=None):
     """Chunked SSD scan.
 
@@ -86,8 +117,9 @@ def ssd_chunked(x, a, b, c, dt=None, *, chunk: int, h0=None):
             t is not None and t.is_cuda and t.requires_grad
             for t in (x, a, b, c, h0)):
         raise NotImplementedError(
-            "ssd_chunked has no backward on the card yet (the training slice "
-            "ports the scan's backward)")
+            "ssd_chunked has no backward on the card yet: the SSD backward "
+            "kernel comes with the next slice of the port (zamba2 training "
+            "on the card); train on the CPU meanwhile")
     return mamba2_ssd(x, a, b, c, chunk=chunk, h0=h0)
 
 
@@ -102,8 +134,8 @@ def mamba2_forward(params, cfg, x, *, chunk: int = 128, return_state=False):
     xi = xbc[..., :di].reshape(bsz, s, heads, hd)
     b = xbc[..., di:di + n]
     c = xbc[..., di + n:]
-    dt, a = step_and_decay(dt_raw, params["dt_bias"],
-                           params["a_log"])                       # [B,S,H]
+    dt, a = _step_and_decay(dt_raw, params["dt_bias"],
+                            params["a_log"])                      # [B,S,H]
     xin = xi.float() * dt[..., None]
     pad = (-s) % chunk
     if pad:

@@ -119,8 +119,9 @@ def test_fused_tick_equals_scan_at_fleet_shape(card, dtype):
 
 
 def test_scans_refuse_grad_on_the_card(card):
-    """The scan kernels have no backward: a CUDA input that requires grad
-    is refused, and the same call without grad runs the kernel."""
+    """The scan kernels have no backward yet: a CUDA input that requires
+    grad is refused, naming the next slice (the SSD and WKV backward
+    kernels), and the same call without grad runs the kernel."""
     from repro_torch.kernels.mamba2 import ops as ssd_ops
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.models import rwkv, ssm
@@ -128,9 +129,11 @@ def test_scans_refuse_grad_on_the_card(card):
     r, k, v, lw, u, _ = smoke.wkv6_inputs(smoke.WKV6_CASES[0], card, seed=0)
     x.requires_grad_()
     lw.requires_grad_()
-    with pytest.raises(NotImplementedError, match="ssd_chunked"):
+    with pytest.raises(NotImplementedError,
+                       match="ssd_chunked.*SSD backward kernel"):
         ssm.ssd_chunked(x, a, b, c, chunk=32)
-    with pytest.raises(NotImplementedError, match="wkv6_chunked"):
+    with pytest.raises(NotImplementedError,
+                       match="wkv6_chunked.*WKV backward kernel"):
         rwkv.wkv6_chunked(r, k, v, lw, u, chunk=32)
     before = ssd_ops.LAUNCHES, wkv_ops.LAUNCHES
     with torch.no_grad():
@@ -317,6 +320,89 @@ def test_flash_rows_without_a_live_key(card, dtype):
     want = (v.float().sum(1, keepdim=True) / 1024).repeat_interleave(4, 2)
     torch.testing.assert_close(got, want.expand_as(got), rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.parametrize("case", smoke.FLASH_BWD_CASES,
+                         ids=lambda c: str(c).replace(" ", ""))
+def test_flash_bwd_kernel_matches_plain_version(card, case):
+    """The backward kernel against its plain version in float32 (each
+    gradient within 1e-4 of its max), over chip_smoke's case list; one
+    counted launch per call."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q, k, v, dout = smoke.flash_bwd_inputs(case, torch.float32, card,
+                                           seed=len(case))
+    before = fa_ops.BWD_LAUNCHES
+    smoke.flash_bwd_check(q, k, v, dout, dict(causal=case[7],
+                                              window=case[6]), str(case))
+    assert fa_ops.BWD_LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("case", [(2, 700, 700, 32, 8, 80, 0, True),
+                                  (2, 600, 600, 32, 4, 128, 0, True),
+                                  (1, 500, 500, 8, 4, 256, 128, True)],
+                         ids=["danube-D80", "qwen3-moe-D128",
+                              "gemma3-local-D256"])
+def test_flash_bwd_kernel_bf16(card, case):
+    """bf16 inputs at the head widths that train on the card (GQA): the
+    kernel chain against the plain chain in float32 on the same values
+    (2e-2 of each gradient's max); two runs give the same bits."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q, k, v, dout = smoke.flash_bwd_inputs(case, torch.bfloat16, card,
+                                           seed=3)
+    kw = dict(causal=True, window=case[6])
+    smoke.flash_bwd_check(q, k, v, dout, kw, str(case))
+    out, m, l = fa_ops.flash_attention(q, k, v, return_stats=True, **kw)
+    first = fa_ops.flash_attention_bwd(q, k, v, out, m, l, dout, **kw)
+    again = fa_ops.flash_attention_bwd(q, k, v, out, m, l, dout, **kw)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_flash_bwd_kernel_refuses_rows_without_a_live_key(card):
+    """Rows with no live key never occur in training; the backward kernel
+    refuses them by name (the plain version computes them)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q, k, v, dout = smoke.flash_bwd_inputs((1, 300, 700, 8, 2, 80),
+                                           torch.float32, card, seed=1)
+    kw = dict(causal=True, window=128, q_offset=600)
+    out, m, l = fa_ops.flash_attention(q, k, v, return_stats=True, **kw)
+    with pytest.raises(NotImplementedError, match="no live key"):
+        fa_ops.flash_attention_bwd(q, k, v, out, m, l, dout, **kw)
+
+
+def test_remat_block_gradients_equal_no_remat(card):
+    """h2o-danube-1.8b reduced, float32, 600 tokens (past block_q, through
+    the flash kernels): the loss and every gradient leaf with remat
+    "block" equal those without, bit for bit (the recompute runs the same
+    kernels on the same inputs); the forward kernel runs twice a layer
+    under remat, the backward once."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import model as M
+    base = dataclasses.replace(get_config("h2o-danube-1.8b", reduced=True),
+                               block_q=256, block_k=256, loss_chunk=200)
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, base.vocab, (2, 601)), device=card)
+    batch = {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+    results = []
+    for remat in ("none", "block"):
+        cfg = dataclasses.replace(base, remat=remat)
+        params = M.init_params(cfg, seed=0, device=card).requires_grad_(True)
+        launches = fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES
+        loss, _ = M.loss_fn(params, cfg, batch)
+        loss.backward()
+        n = cfg.n_layers
+        assert (fa_ops.LAUNCHES - launches[0],
+                fa_ops.BWD_LAUNCHES - launches[1]) == (
+                    n * (2 if remat == "block" else 1), n)
+        results.append((loss.detach(), {name: p.grad.clone() for name, p
+                                        in params.named_parameters()}))
+    (l0, g0), (l1, g1) = results
+    assert torch.equal(l0, l1)
+    assert g0.keys() == g1.keys()
+    for name in g0:
+        assert torch.equal(g0[name], g1[name]), name
 
 
 def test_dense_model_on_card_matches_cpu(card):

@@ -29,7 +29,8 @@ for sub in ("workspace.store", "workspace.campaign", "batch.sim",
             "roofline.analysis", "models.moe", "configs.inputs",
             "configs.qwen3_moe_30b_a3b", "configs.mixtral_8x7b",
             "configs.minicpm3_4b", "configs.llama32_vision_11b",
-            "configs.musicgen_medium"):
+            "configs.musicgen_medium", "train.optimizer", "train.train_step",
+            "train.trainer", "data.pipeline", "ckpt.manager", "launch.train"):
     assert "repro_torch." + sub in names, sub
 print(len(names))
 """
@@ -107,6 +108,19 @@ def test_cuda_without_a_card_raises(no_card, tmp_path):
                     lambda: calibrate.calibrate_plan(0.01, (0,))):
         with pytest.raises(RuntimeError, match="cuda"):
             section()
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import DataConfig, DataLoader
+    from repro_torch.launch import train
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config("h2o-danube-1.8b", reduced=True)
+    for entry in (lambda: init_state(cfg),
+                  lambda: Trainer(cfg, OptConfig(), TrainerConfig(),
+                                  DataLoader(DataConfig(cfg.vocab, 8, 1))),
+                  lambda: train.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            entry()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -411,12 +411,35 @@ def test_params_from_numpy_round_trip_with_bf16():
 
 
 def test_unported_entry_points_raise():
+    """What the training slice ported runs (loss_fn, blocked_attention's
+    backward); what it left (the scans' backward on the card) raises,
+    naming the next slice.  A tensor that reports itself on the card
+    stands in for a CUDA input."""
+    from repro_torch.models import rwkv as TR
+    from repro_torch.models import ssm as TS
     cfg = tcfg.get_config("qwen3-32b", reduced=True)
-    with pytest.raises(NotImplementedError, match="training"):
-        TM.loss_fn(None, cfg, {})
+    params = TM.init_params(cfg, 0, device="cpu")
+    ids = torch.zeros(1, 8, dtype=torch.int32)
+    loss, _ = TM.loss_fn(params, cfg, {"tokens": ids, "labels": ids})
+    assert torch.isfinite(loss)
     q = torch.zeros(1, 8, 2, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        TA.blocked_attention(q, q, q)
+    TA.blocked_attention(q, q, q).sum().backward()
+    assert q.grad is not None
+
+    class OnCard(torch.Tensor):
+        is_cuda = property(lambda self: True)
+
+    def card(*shape):
+        return torch.zeros(shape).as_subclass(OnCard).requires_grad_()
+
+    with pytest.raises(NotImplementedError,
+                       match="SSD backward kernel comes with the next slice"):
+        TS.ssd_chunked(card(1, 8, 2, 4), card(1, 8, 2), card(1, 8, 4),
+                       card(1, 8, 4), chunk=4)
+    with pytest.raises(NotImplementedError,
+                       match="WKV backward kernel comes with the next slice"):
+        TR.wkv6_chunked(*(card(1, 8, 2, 4) for _ in range(4)), card(2, 4),
+                        chunk=4)
 
 
 @pytest.fixture

@@ -18,7 +18,9 @@ Each build's output is first held to the checkout's plain version (flash:
 ``chip_smoke.FLASH_TOL``; the scans: ``chip_smoke.prefix_tol``, output and
 final state; the draws: ``repro_torch.kernels.parity``, picks exact up to
 the float32 edge band), then timed at the shapes of ``chip_smoke.py``
-(flash: danube's GQA and zamba2's MHA shape, bf16; mamba2_ssd: zamba2's
+(flash: danube's GQA and zamba2's MHA shape, bf16, then the backward at
+danube's and qwen3-moe's training shapes, with each build's backward
+occupancy read from the CUDA runtime; mamba2_ssd: zamba2's
 layer, bf16 b/c; wkv6: rwkv6's layer, bf16 r/k/v; token_select and
 tick_step: the fleet's S=128, J=1024, W=4, token_select at the scan path's
 W=1, float32 shares, then bf16 shares for the builds that take them), the
@@ -58,6 +60,10 @@ EDITS = {
         "q_in_registers": [
             ("return dp <= 80 ? 4 : 1;", "return 1;"),
             ("kQInRegs = DP > 80 && DP <= 128;", "kQInRegs = DP <= 128;")],
+        # The backward's 32-row tiles (R = 2) past D = 64, in place of
+        # 64-row tiles up to D = 128.
+        "bwd_rows_32": [("kRowGroups = DPT4 <= 4 ? 4 : 2;",
+                         "kRowGroups = DPT4 <= 2 ? 4 : 2;")],
     },
     "mamba2_ssd": {
         # The gating with one whole 4 x 4 tile per thread, element by
@@ -133,6 +139,54 @@ void cwe_buffer(size_t n) {
     },
 }
 
+#: Appended to every build of flash_attention.cu that has the backward:
+#: registers, local (spilled) bytes, dynamic shared memory and resident
+#: blocks an SM of the backward's dq_kernel and dkv_kernel at head width D,
+#: read from the CUDA runtime (ncu cannot run on the card's machine).
+BWD_OCCUPANCY_SRC = r"""
+namespace {
+template <typename T, int DPT4>
+int bwd_occupancy(int D, int* out) {
+  constexpr int R = bwd::kRowGroups<DPT4>;
+  const int ld = 8 * ((D + 7) / 8) + 4;
+  const void* fns[2] = {(const void*)bwd::dq_kernel<T, R, DPT4>,
+                        (const void*)bwd::dkv_kernel<T, R, DPT4>};
+  const size_t smem[2] = {bwd::dq_smem<R>(ld), bwd::dkv_smem<R>(ld)};
+  for (int i = 0; i < 2; ++i) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem[i]);
+    if (e != cudaSuccess) return (int)e;
+    cudaFuncAttributes a;
+    e = cudaFuncGetAttributes(&a, fns[i]);
+    if (e != cudaSuccess) return (int)e;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fns[i], bwd::kThreads, smem[i]);
+    if (e != cudaSuccess) return (int)e;
+    out[5 * i] = 16 * R;
+    out[5 * i + 1] = a.numRegs;
+    out[5 * i + 2] = (int)a.localSizeBytes;
+    out[5 * i + 3] = (int)smem[i];
+    out[5 * i + 4] = blocks;
+  }
+  return 0;
+}
+}  // namespace
+
+extern "C" int flash_bwd_occupancy(int D, int dtype, int* out) {
+  const int need = (D + 31) / 32;
+#define OCC_CASE(W)                                                        if (need <= W)                                                             return dtype ? bwd_occupancy<__nv_bfloat16, W>(D, out)                                : bwd_occupancy<float, W>(D, out);
+  OCC_CASE(1) OCC_CASE(2) OCC_CASE(3) OCC_CASE(4) OCC_CASE(6) OCC_CASE(8)
+#undef OCC_CASE
+  return (int)cudaErrorInvalidValue;
+}
+"""
+#: (B, S, H, Hk, D) of the flash backward at layer 0 of chip_smoke's train
+#: phase (danube) and of its qwen3-moe train_blocks case; causal.
+FLASH_BWD_SHAPES = [(2, 4096, 32, 8, 80), (2, 2048, 32, 4, 128)]
+#: Head widths whose backward occupancy is printed.
+FLASH_BWD_WIDTHS = (64, 80, 96, 128, 256)
+
 #: (B, S, H, Hk, D, window) of the serve phases' first flash call.
 FLASH_SHAPES = [(2, 6000, 32, 8, 80, 4096), (2, 6000, 32, 32, 80, 0)]
 #: A chip_smoke.MAMBA2_CASES entry at zamba2's layer shape.
@@ -156,13 +210,18 @@ def sources(kernel, other):
     if other is not None:
         out["other"] = (other / "src" / "repro_torch" / "kernels" / "csrc"
                         / f"{kernel}.cu").read_text()
+    if kernel == "flash_attention":
+        out = {name: t + BWD_OCCUPANCY_SRC if "kRowGroups" in t else t
+               for name, t in out.items()}
     return out
 
 
 def build_all(kernels, other, tmp: Path) -> dict:
     """{(kernel, build name): ctypes library}; the builds run together.  A
     draw kernel's library carries ``takes_share_dtype``: whether its
-    launcher takes the share dtype (builds before bf16 shares do not)."""
+    launcher takes the share dtype (builds before bf16 shares do not); a
+    flash build's ``takes_stats``: whether its forward launcher takes the
+    row statistics' pointers (builds before the backward do not)."""
     from repro_torch.kernels import _build
     procs = {}
     for kernel in kernels:
@@ -184,18 +243,21 @@ def build_all(kernels, other, tmp: Path) -> dict:
             raise SystemExit(f"nvcc failed for {key}:\n{log}")
         libs[key] = ctypes.CDLL(str(so))
         libs[key].takes_share_dtype = "int dtype" in text
+        # A flash build whose forward launcher takes the row statistics.
+        libs[key].takes_stats = "(m == nullptr) != (l == nullptr)" in text
     return libs
 
 
 def flash_call(lib, q, k, v, window):
     import torch
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-                   + [ctypes.c_float, ctypes.c_void_p])
+    stats = [None, None] if lib.takes_stats else []
+    fn.argtypes = ([ctypes.c_void_p] * (4 + len(stats))
+                   + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            k.shape[1], h, k.shape[2], d, 1, window, 0, 1, d ** -0.5,
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *stats,
+            b, sq, k.shape[1], h, k.shape[2], d, 1, window, 0, 1, d ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"flash launch failed: CUDA error {rc}")
@@ -387,6 +449,76 @@ def probe_flash(libs, cs) -> None:
                   f"{n} {t:.3f} ms" for n, t in best.items()), flush=True)
 
 
+def flash_bwd_call(lib, q, k, v, out, m, l, dout):
+    """dq, dk, dv of one causal backward launch of a build."""
+    import torch
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+                   + [ctypes.c_float, ctypes.c_void_p])
+    b, sq, h, d = q.shape
+    grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    delta = torch.empty_like(m)
+    rc = fn(*(t.data_ptr() for t in (q, k, v, out, dout, m, l, delta,
+                                      *grads)),
+            b, sq, k.shape[1], h, k.shape[2], d, 1, 0, 0,
+            int(q.dtype == torch.bfloat16), d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"flash backward launch failed: CUDA error {rc}")
+    return grads
+
+
+def probe_flash_bwd(libs, cs) -> None:
+    """Each flash build's backward at FLASH_BWD_SHAPES (bf16, causal), held
+    to the checkout's plain chain in float32 (chip_smoke.flash_bwd_check's
+    tolerance) and timed in turns; then each build's occupancy readout at
+    FLASH_BWD_WIDTHS."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    builds = {name: lib for (kernel, name), lib in libs.items()
+              if kernel == "flash_attention"
+              and hasattr(lib, "flash_bwd_occupancy")}
+    tol = cs.FLASH_BWD_TOL["bfloat16"]
+    for b, s, h, hk, d in FLASH_BWD_SHAPES:
+        case = (b, s, s, h, hk, d, 0, True)
+        q, k, v, dout = cs.flash_bwd_inputs(case, torch.bfloat16, "cuda",
+                                            seed=1)
+        out, m, l = fa_ops.flash_attention(q, k, v, return_stats=True)
+        f32 = [t.float() for t in (q, k, v, dout)]
+        o32, m32, l32 = flash_attention_ref(*f32[:3], return_stats=True)
+        want = flash_attention_bwd_ref(*f32[:3], o32, m32, l32, f32[3])
+        calls = {}
+        for name, lib in builds.items():
+            got = flash_bwd_call(lib, q, k, v, out, m, l, dout)
+            for g, w in zip(got, want):
+                err = float((g.float() - w).abs().max() / w.abs().max())
+                if not err <= tol:
+                    raise SystemExit(f"{name} build's flash backward at "
+                                     f"{case}: error {err:.3g} over {tol}")
+            calls[name] = lambda lib=lib: flash_bwd_call(lib, q, k, v, out,
+                                                         m, l, dout)
+        best = timed_in_turns(calls)
+        print(f"flash_attention_bwd B={b} S={s} H={h} Hk={hk} D={d} causal "
+              f"bf16: " + ", ".join(f"{n} {t:.3f} ms"
+                                    for n, t in best.items()), flush=True)
+    for name, lib in builds.items():
+        fn = lib.flash_bwd_occupancy
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        for d in FLASH_BWD_WIDTHS:
+            got = (ctypes.c_int * 10)()
+            rc = fn(d, 1, got)
+            if rc:
+                raise SystemExit(f"{name} build's occupancy readout at D={d}:"
+                                 f" CUDA error {rc}")
+            print(f"flash_attention_bwd {name} D={d} bf16: " + "; ".join(
+                f"{kname} {got[5 * i]}-row tiles, {got[5 * i + 1]} "
+                f"registers, {got[5 * i + 2]} spilled bytes, "
+                f"{got[5 * i + 3]} B shared, {got[5 * i + 4]} blocks an SM"
+                for i, kname in enumerate(("dq", "dkv"))), flush=True)
+
+
 def probe_mamba2(libs, cs) -> None:
     import torch
     from repro_torch.kernels.mamba2.ref import mamba2_ssd_ref
@@ -428,7 +560,9 @@ def probe_wkv6(libs, cs) -> None:
 PROBES = {"token_select": lambda libs, cs: probe_draws(libs, cs,
                                                       "token_select"),
           "tick_step": lambda libs, cs: probe_draws(libs, cs, "tick_step"),
-          "flash_attention": probe_flash, "mamba2_ssd": probe_mamba2,
+          "flash_attention": lambda libs, cs: (probe_flash(libs, cs),
+                                               probe_flash_bwd(libs, cs)),
+          "mamba2_ssd": probe_mamba2,
           "wkv6": probe_wkv6}
 
 
