@@ -3104,8 +3104,9 @@ def flash_at_shape(layer0, phase, tag, *, reps=10):
 #: (B, Sq, Sk, H, Hk, D, window, causal): MHA and GQA, a window shorter than
 #: S, ragged S (not a multiple of the 64-row or 32-row tiles), causal and
 #: not, D = 16, 18 (staged by element), 64, 80, 96, 128 (qwen3, qwen3-moe,
-#: mixtral and llama-vision; the 64-row tiles) and 256 (32-row tiles).
-#: Every row has a live key, as in training.
+#: mixtral and llama-vision; float32's 64-row tiles, bf16's 64-wide ones)
+#: and 256 (float32's 32-row tiles; bf16's 32-wide tiles and two dK/dV
+#: launches).  Every row has a live key, as in training.
 FLASH_BWD_CASES = [
     (1, 200, 200, 4, 4, 16, 0, True),
     (2, 200, 200, 8, 2, 80, 64, True),
@@ -3178,25 +3179,27 @@ def flash_bwd_check(q, k, v, dout, kw, tag):
 
 
 def phase_flash_bwd(device, layer0, *, cases=FLASH_BWD_CASES, reps=5):
-    """The backward kernel against its plain version on FLASH_BWD_CASES in
-    float32 and on the inputs layer 0 of the train phase gave it (bf16);
-    then its time there beside its bound, the plain version's and
-    scaled_dot_product_attention's backward (forward and backward minus
-    forward).  Returns the record for the kernels line."""
+    """The backward kernels against their plain version on FLASH_BWD_CASES,
+    in float32 (the FMA kernels) and in bf16 (the tensor-core kernels,
+    every staging path), and on the inputs layer 0 of the train phase gave
+    them (bf16); then the time there beside the bound, the plain version's
+    and scaled_dot_product_attention's backward (forward and backward
+    minus forward).  Returns the record for the kernels line."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
     worst = 0.0
-    for n, case in enumerate(cases):
-        b, sq, sk, h, hk, d, win, causal = case
-        q, k, v, dout = flash_bwd_inputs(case, torch.float32, device, seed=n)
-        kw = dict(causal=causal, window=win)
-        tag = (f"float32 B={b} Sq={sq} Sk={sk} H={h} Hk={hk} D={d} "
-               f"window={win} causal={causal}")
-        err = flash_bwd_check(q, k, v, dout, kw, tag)
-        worst = max(worst, err)
-        say("flash_bwd", f"{tag}: max abs err / max {err:.3g}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, case in enumerate(cases):
+            b, sq, sk, h, hk, d, win, causal = case
+            q, k, v, dout = flash_bwd_inputs(case, dtype, device, seed=n)
+            kw = dict(causal=causal, window=win)
+            tag = (f"{str(dtype)[6:]} B={b} Sq={sq} Sk={sk} H={h} Hk={hk} "
+                   f"D={d} window={win} causal={causal}")
+            err = flash_bwd_check(q, k, v, dout, kw, tag)
+            worst = max(worst, err)
+            say("flash_bwd", f"{tag}: max abs err / max {err:.3g}")
     (q, k, v, out, m, l, dout), kw = layer0["args"], layer0["kw"]
     tag = "train layer 0"
     err = flash_bwd_check(q, k, v, dout, kw, tag)

@@ -414,20 +414,20 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Stage rows [row0, row0 + 64) of a [rows, D] bf16 operand (row stride
+// Stage rows [row0, row0 + ROWS) of a [rows, D] bf16 operand (row stride
 // ``stride`` elements) into shared rows of ``ld`` elements.  ``async``: D
 // is a multiple of 8 and the operand 16-byte aligned; 16-byte cp.async
 // copies, rows at or past ``nrows`` zero-filled, columns [D, DP) left as
 // they are (zeroed once at the start).  Otherwise element by element, with
 // zeros past ``nrows`` and in columns [D, DP).
-template <int DP>
+template <int DP, int ROWS = kRows>
 __device__ __forceinline__ void stage(const __nv_bfloat16* src,
                                       __nv_bfloat16* dst, long long stride,
                                       int row0, int nrows, int D, int ld,
                                       bool async) {
   if (async) {
     const int chunks = D / 8;
-    for (int idx = threadIdx.x; idx < kRows * chunks; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < ROWS * chunks; idx += kThreads) {
       const int r = idx / chunks, c = 8 * (idx - r * chunks);
       const bool live = row0 + r < nrows;
       const __nv_bfloat16* g = live ? src + (row0 + r) * stride + c : src;
@@ -436,7 +436,7 @@ __device__ __forceinline__ void stage(const __nv_bfloat16* src,
     return;
   }
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  for (int idx = threadIdx.x; idx < kRows * DP; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * DP; idx += kThreads) {
     const int r = idx / DP, c = idx - r * DP;
     dst[r * ld + c] = row0 + r < nrows && c < D
                           ? src[(row0 + r) * stride + c] : zero;
@@ -751,56 +751,82 @@ __global__ void dead_rows_kernel(const T* __restrict__ v, T* __restrict__ o,
 // probabilities p = exp(s - m) / max(l, 1e-30) and, with
 // delta = rowsum(dO o) and ds = p (dO V^T - delta),
 //   dQ = scale * ds K,   dK = scale * ds^T Q,   dV = p^T dO,
-// without storing any Sq x Sk tile in device memory.  Two kernels on the
-// FMA pipes, float32 throughout, inputs staged in shared memory as float32
-// whatever their dtype (float32 or bf16), outputs written in it:
-//
-//  * dq_kernel: one block per (b, h, query tile of 16 R rows).  It first
-//    forms delta for its rows (written out for the second kernel), then
-//    walks the live 64-key tiles: S = Q K^T and dP = dO V^T for R x 8 of
-//    the tile per thread, ds into shared memory, dQ += ds K.
-//  * dkv_kernel: one block per (b, KV head, key tile of 16 R keys).  It
-//    walks the H / Hk query heads of its group in order and, for each,
-//    only the live 64-query tiles (causal, window); it accumulates
-//    dV += p^T dO and dK += ds^T Q for its keys in registers.  The GQA
-//    heads are summed inside the block, so no atomics: two runs give the
-//    same bits.
-//
-// R is 4 (tiles of 64) up to D = 128 and 2 (tiles of 32) above
-// (kRowGroups), so the per-thread accumulators (R rows x 4 DPT4 columns,
-// two of them in dkv_kernel) stay in registers up to D = 256 and shared
-// memory stays under 227 KB (dkv at D = 128: 173 KB, at D = 256: 219 KB).
-// Rows with no live key (a window that ends before the first key) are not
-// taken: the wrapper refuses them.
+// without storing any Sq x Sk tile in device memory.  Rows with no live
+// key (a window that ends before the first key) are not taken: the wrapper
+// refuses them.
 //
 // Bound at danube's training shape (B = 2, S = 4096, H = 32, Hk = 8,
-// D = 80, causal): 537 M live (q, k) pairs, each 10 D operations
-// (recompute S, dP, dV, dQ, dK) ~ 430 GFLOP: 0.43 ms at the bf16
-// tensor-core peak; these kernels do 7 D FMAs a pair (S and dP are
-// computed in both) on the float32 pipes.
+// D = 80, causal, bf16): 537 M live (q, k) pairs, each 10 D operations
+// (S, dP, dV, dK, dQ) ~ 430 GFLOP: 0.43 ms at the bf16 tensor-core peak,
+// against 0.13 ms for the 537 M exponentials on the special-function units
+// and 0.06 ms for the 210 MB of operands at 3.35 TB/s, so the tensor cores
+// bound the function.
+//
+// bfloat16 (every training step): bwd_tc::dq_kernel, then
+// bwd_tc::dkv_kernel, on mma.sync.m16n8k16 (bf16 in, float32 accumulate),
+// 128 threads a block, each warp owning 16 of the block's 64 rows:
+//
+//  * dq_kernel: one block per (b, h, 64-query tile).  It first forms delta
+//    for its rows in float32 FMAs (written out for dkv_kernel), then walks
+//    the live key tiles: S = Q K^T and dP = dO V^T, p and dS in registers,
+//    dQ += dS K.
+//  * dkv_kernel: one block per (b, KV head, 64-key tile).  It walks the
+//    H / Hk query heads of its group in order and, for each, only the live
+//    query tiles (causal, window): S^T = K Q^T and dP^T = V dO^T, then
+//    dV += p^T dO and dK += dS^T Q.  The GQA heads are summed inside the
+//    block, so no atomics: two runs give the same bits.
+//
+// S and dP are computed in both kernels: 14 D operations a live pair
+// against the function's 10 D.  What the design does about what held the
+// FMA kernels below (float32 only now) back:
+//  - products on the FMA pipes: all five run on the tensor cores;
+//  - operands widened to float32 in shared memory (one 4-warp block an
+//    SM): the tiles stay bf16, half the footprint, rows padded by 8
+//    elements so the ldmatrix reads of 8 rows fall in 8 distinct bank
+//    groups;
+//  - synchronous staging: the other side's tiles (K and V in dq_kernel; Q
+//    and dO in dkv_kernel, with their rows' m log2(e), 1 / max(l, 1e-30)
+//    and delta) come through a ring of two stages filled by 16-byte
+//    cp.async copies (the row statistics by loads into registers, stored
+//    after the products) while the current tile's products run;
+//  - intermediates through shared memory: p and dS are formed in
+//    registers in the accumulator layout of S and dP and, rounded to bf16,
+//    are the A operand of the next product as they stand (the m16n8
+//    accumulator layout is the m16n8k16 A layout), as the forward uses P.
+//    Nothing of size tile x tile goes through shared memory; the dQ, dK
+//    and dV accumulators stay in float32 registers.
+// p = 2^(s c - m log2(e)) / max(l, 1e-30) with c = scale * log2(e), one
+// FFMA and one ex2.approx.ftz a score.  Rounding p and dS to bf16 costs
+// ~2^-9 relative each, as the forward's P does; Q, K, V and dO are bf16
+// already, so S and dP lose only summation order.  The head width is
+// padded with zeros to a multiple of 16 (an instantiated DP).  Up to
+// DP = 128 the other side's tile is 64 wide and one dkv launch keeps both
+// accumulators (DP floats a thread); wider heads take 32-wide tiles and
+// two dkv launches, dV's then dK's (S^T computed in each: 16 D a pair in
+// all), since two 16 x DP float32 accumulators do not fit a thread's 255
+// registers.  Heads of a width that is not a multiple of 8, or operands
+// not 16-byte aligned, are staged element by element.  On an H100 up to
+// DP = 128 dkv_kernel holds 234-255 registers (2 blocks an SM) and
+// dq_kernel 141-168 (2-3), with no spill; at danube's training shape the
+// pair took 2.72 ms against 45.65 for the FMA kernels' bf16 build and
+// 3.04 with 32-wide tiles everywhere (tools/probe_kernel_builds.py, edit
+// bwd_tile_32).
+//
+// float32 (the card-vs-CPU parity checks): bwd::dq_kernel and
+// bwd::dkv_kernel, on the FMA pipes, float32 throughout: each thread owns
+// R x 8 of a tile (R = 4, 64-row tiles, up to D = 128; R = 2 above), and
+// ds and p go through shared memory.
 namespace bwd {
 
 constexpr int kThreads = 128;  // 16 row groups x 8 column groups
 constexpr int kCols = 64;      // the other side's tile: keys in dq, queries in dkv
 constexpr int kPStride = kCols + 8;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
-  return make_float4(fa.x, fa.y, fb.x, fb.y);
-}
-
 // Stage rows [row0, row0 + rows) of a [*, D] operand (row stride ``stride``
-// elements) into shared float32 rows of ``ld`` floats; rows at or past
-// ``nrows`` and columns [D, 4 D4) are zero.  ``vec``: D is a multiple of 4
-// and the operand aligned to 4 elements.
-template <typename T>
-__device__ __forceinline__ void stage(const T* src, float* dst,
+// elements) into shared rows of ``ld`` floats; rows at or past ``nrows``
+// and columns [D, 4 D4) are zero.  ``vec``: D is a multiple of 4 and the
+// operand aligned to 4 elements.
+__device__ __forceinline__ void stage(const float* src, float* dst,
                                       long long stride, int row0, int rows,
                                       int nrows, int D, int D4, int ld,
                                       bool vec) {
@@ -817,7 +843,7 @@ __device__ __forceinline__ void stage(const T* src, float* dst,
   for (int idx = threadIdx.x; idx < rows * w; idx += kThreads) {
     const int r = idx / w, c = idx - r * w;
     dst[r * ld + c] = row0 + r < nrows && c < D
-                          ? widen(src[(row0 + r) * stride + c]) : 0.f;
+                          ? src[(row0 + r) * stride + c] : 0.f;
   }
 }
 
@@ -889,8 +915,8 @@ __device__ __forceinline__ void products(float (&out)[R][8], const float* a,
   }
 }
 
-template <typename T, int R, int DPT4>
-__device__ __forceinline__ void store_rows(T* base, long long stride,
+template <int R, int DPT4>
+__device__ __forceinline__ void store_rows(float* base, long long stride,
                                            const float (&acc)[R][DPT4][4],
                                            int row0, int nrows, int rg,
                                            int cg, int D, float mul) {
@@ -903,18 +929,18 @@ __device__ __forceinline__ void store_rows(T* base, long long stride,
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         const int col = 4 * (cg + 8 * e) + t;
-        if (col < D) narrow(base + row * stride + col, acc[i][e][t] * mul);
+        if (col < D) base[row * stride + col] = acc[i][e][t] * mul;
       }
   }
 }
 
-template <typename T, int R, int DPT4>
+template <int R, int DPT4>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ o,
-          const T* __restrict__ dout, const float* __restrict__ m,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ o,
+          const float* __restrict__ dout, const float* __restrict__ m,
           const float* __restrict__ l, float* __restrict__ delta,
-          T* __restrict__ dq, int Sq, int Sk, int H, int Hk, int D,
+          float* __restrict__ dq, int Sq, int Sk, int H, int Hk, int D,
           int causal, int window, int q_offset, float scale, int vec) {
   constexpr int QT = 16 * R;
   extern __shared__ float4 smem4[];
@@ -935,12 +961,12 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long q_row = (long long)H * D, kv_row = (long long)Hk * D;
   const long long q_base = (long long)bi * Sq * q_row + (long long)hi * D;
-  const T* kb = k + (long long)bi * Sk * kv_row + (long long)kvh * D;
-  const T* vb = v + (long long)bi * Sk * kv_row + (long long)kvh * D;
+  const float* kb = k + (long long)bi * Sk * kv_row + (long long)kvh * D;
+  const float* vb = v + (long long)bi * Sk * kv_row + (long long)kvh * D;
 
-  stage<T>(q + q_base, qs, q_row, q0, QT, Sq, D, D4, ld, vec);
-  stage<T>(dout + q_base, dos, q_row, q0, QT, Sq, D, D4, ld, vec);
-  stage<T>(o + q_base, ks, q_row, q0, QT, Sq, D, D4, ld, vec);
+  stage(q + q_base, qs, q_row, q0, QT, Sq, D, D4, ld, vec);
+  stage(dout + q_base, dos, q_row, q0, QT, Sq, D, D4, ld, vec);
+  stage(o + q_base, ks, q_row, q0, QT, Sq, D, D4, ld, vec);
   __syncthreads();
 
   // delta, m and 1 / max(l, 1e-30) of the thread's rows.
@@ -982,8 +1008,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kCols;
     __syncthreads();  // the previous tile's reads (and o's) are done
-    stage<T>(kb, ks, kv_row, k0, kCols, Sk, D, D4, ld, vec);
-    stage<T>(vb, vs, kv_row, k0, kCols, Sk, D, D4, ld, vec);
+    stage(kb, ks, kv_row, k0, kCols, Sk, D, D4, ld, vec);
+    stage(vb, vs, kv_row, k0, kCols, Sk, D, D4, ld, vec);
     __syncthreads();
     float s[R][8], dp[R][8];
     products<R>(s, qs, ks, rg, cg, D4, ld);
@@ -1003,16 +1029,16 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     accumulate<R, DPT4>(acc, dss, ks, rg, cg, D4, ld);
   }
-  store_rows<T, R, DPT4>(dq + q_base, q_row, acc, q0, Sq, rg, cg, D, scale);
+  store_rows<R, DPT4>(dq + q_base, q_row, acc, q0, Sq, rg, cg, D, scale);
 }
 
-template <typename T, int R, int DPT4>
+template <int R, int DPT4>
 __global__ void __launch_bounds__(kThreads)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ m, const float* __restrict__ l,
-           const float* __restrict__ delta, T* __restrict__ dk,
-           T* __restrict__ dv, int Sq, int Sk, int H, int Hk, int D,
+           const float* __restrict__ delta, float* __restrict__ dk,
+           float* __restrict__ dv, int Sq, int Sk, int H, int Hk, int D,
            int causal, int window, int q_offset, float scale, int vec) {
   constexpr int KT = 16 * R;
   extern __shared__ float4 smem4[];
@@ -1037,8 +1063,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long q_row = (long long)H * D, kv_row = (long long)Hk * D;
   const long long kv_base = (long long)bi * Sk * kv_row + (long long)kvh * D;
-  stage<T>(k + kv_base, ks, kv_row, k0, KT, Sk, D, D4, ld, vec);
-  stage<T>(v + kv_base, vs, kv_row, k0, KT, Sk, D, D4, ld, vec);
+  stage(k + kv_base, ks, kv_row, k0, KT, Sk, D, D4, ld, vec);
+  stage(v + kv_base, vs, kv_row, k0, KT, Sk, D, D4, ld, vec);
 
   // Live query tiles of this key tile: [qt_begin, qt_end).
   const int k1 = min(k0 + KT, Sk) - 1;
@@ -1065,8 +1091,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * kCols;
       __syncthreads();  // the previous tile's reads are done
-      stage<T>(q + q_base, qs, q_row, q0, kCols, Sq, D, D4, ld, vec);
-      stage<T>(dout + q_base, dos, q_row, q0, kCols, Sq, D, D4, ld, vec);
+      stage(q + q_base, qs, q_row, q0, kCols, Sq, D, D4, ld, vec);
+      stage(dout + q_base, dos, q_row, q0, kCols, Sq, D, D4, ld, vec);
       if (tid < kCols) {
         const int row = q0 + tid;
         const bool in = row < Sq;
@@ -1096,8 +1122,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       accumulate<R, DPT4>(adk, dss, qs, rg, cg, D4, ld);
     }
   }
-  store_rows<T, R, DPT4>(dk + kv_base, kv_row, adk, k0, Sk, rg, cg, D, scale);
-  store_rows<T, R, DPT4>(dv + kv_base, kv_row, adv, k0, Sk, rg, cg, D, 1.f);
+  store_rows<R, DPT4>(dk + kv_base, kv_row, adk, k0, Sk, rg, cg, D, scale);
+  store_rows<R, DPT4>(dv + kv_base, kv_row, adv, k0, Sk, rg, cg, D, 1.f);
 }
 
 template <int R>
@@ -1118,7 +1144,7 @@ constexpr size_t dkv_smem(int ld) {
 template <int DPT4>
 constexpr int kRowGroups = DPT4 <= 4 ? 4 : 2;
 
-template <typename T, int DPT4>
+template <int DPT4>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* m,
                    const float* l, float* delta, void* dq, void* dk, void* dv,
@@ -1127,14 +1153,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    cudaStream_t stream) {
   constexpr int R = kRowGroups<DPT4>;
   const int ld = 8 * ((D + 7) / 8) + 4;
-  const size_t align = 4 * sizeof(T);
+  const size_t align = 4 * sizeof(float);
   const int vec = D % 4 == 0;
   const bool aligned = (size_t)q % align == 0 && (size_t)k % align == 0
                        && (size_t)v % align == 0 && (size_t)o % align == 0
                        && (size_t)dout % align == 0;
   const int vq = vec && aligned;
-  auto kq = dq_kernel<T, R, DPT4>;
-  auto kkv = dkv_kernel<T, R, DPT4>;
+  auto kq = dq_kernel<R, DPT4>;
+  auto kkv = dkv_kernel<R, DPT4>;
   const size_t sq_bytes = dq_smem<R>(ld), skv_bytes = dkv_smem<R>(ld);
   cudaError_t e = cudaFuncSetAttribute(
       kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sq_bytes);
@@ -1144,19 +1170,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return e;
   const dim3 gq((Sq + 16 * R - 1) / (16 * R), B * H);
   kq<<<gq, kThreads, sq_bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, m,
-      l, delta, (T*)dq, Sq, Sk, H, Hk, D, causal, window, q_offset, scale,
-      vq);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)o,
+      (const float*)dout, m, l, delta, (float*)dq, Sq, Sk, H, Hk, D, causal,
+      window, q_offset, scale, vq);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 gkv((Sk + 16 * R - 1) / (16 * R), B * Hk);
   kkv<<<gkv, kThreads, skv_bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, m, l, delta,
-      (T*)dk, (T*)dv, Sq, Sk, H, Hk, D, causal, window, q_offset, scale, vq);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      m, l, delta, (float*)dk, (float*)dv, Sq, Sk, H, Hk, D, causal, window,
+      q_offset, scale, vq);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const float* m,
                      const float* l, float* delta, void* dq, void* dk,
@@ -1166,9 +1192,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   const int need = (D + 31) / 32;
 #define FLASH_BWD_CASE(W)                                                    \
   if (need <= W)                                                             \
-    return launch<T, W>(q, k, v, o, dout, m, l, delta, dq, dk, dv, B, Sq,   \
-                        Sk, H, Hk, D, causal, window, q_offset, scale,       \
-                        stream);
+    return launch<W>(q, k, v, o, dout, m, l, delta, dq, dk, dv, B, Sq, Sk,  \
+                     H, Hk, D, causal, window, q_offset, scale, stream);
   FLASH_BWD_CASE(1)
   FLASH_BWD_CASE(2)
   FLASH_BWD_CASE(3)
@@ -1180,6 +1205,498 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 }
 
 }  // namespace bwd
+
+// ---- backward, bfloat16 on the tensor cores --------------------------------
+
+namespace bwd_tc {
+
+using tc::kRows;     // rows of the block's own side, 16 a warp
+using tc::kThreads;  // 4 warps
+using tc::kLog2e;
+using async_copy::smem_addr;
+
+// Width of the other side's tile (keys in dq_kernel, queries in
+// dkv_kernel): 64 up to DP = 128, 32 above, where the 16 x DP float32
+// accumulator takes most of a thread's registers.
+__host__ __device__ constexpr int tile_cols(int dp) {
+  return dp <= 128 ? 64 : 32;
+}
+
+// Elements of the staged bf16 tiles of either kernel: two of 64 rows (Q
+// and dO, or K and V) and a ring of two stages of two tiles of
+// tile_cols(DP) rows, each row DP + 8 wide.
+__host__ __device__ constexpr size_t tile_elems(int dp) {
+  return (size_t)(2 * kRows + 4 * tile_cols(dp)) * (dp + 8);
+}
+// Dynamic shared memory of each kernel: the tiles, and for dkv_kernel the
+// two stages' row statistics.
+constexpr size_t dq_smem(int dp) { return 2 * tile_elems(dp); }
+constexpr size_t dkv_smem(int dp) {
+  return 2 * tile_elems(dp) + sizeof(float) * 6 * tile_cols(dp);
+}
+
+// ldmatrix lane offsets, in elements, into a tile of row stride ld: the A
+// operand of the warp's 16 rows (k halves by lane >> 4); the B operand
+// of a row-major [n][k] tile (two n-tiles of 8 rows); the B operand of a
+// row-major [k][n] tile, read transposed.
+__device__ __forceinline__ int a_off(int lane, int ld) {
+  return (lane & 15) * ld + 8 * (lane >> 4);
+}
+__device__ __forceinline__ int b_off(int lane, int ld) {
+  return ((lane & 7) + 8 * (lane >> 4)) * ld + 8 * ((lane >> 3) & 1);
+}
+__device__ __forceinline__ int bt_off(int lane, int ld) {
+  return ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 8 * (lane >> 4);
+}
+
+// c = A B^T for the warp's 16 rows and NT n-tiles of 8 columns, over DP /
+// 16 k-steps: A's fragments at a_addr (32 bytes a k-step), B a row-major
+// [n][k] tile at b_addr (b_off lanes).
+template <int DP, int NT>
+__device__ __forceinline__ void products(float (&c)[NT][4], uint32_t a_addr,
+                                         uint32_t b_addr, int ld) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+#pragma unroll
+  for (int s = 0; s < DP / 16; ++s) {
+    uint32_t a[4];
+    tc::ldmatrix_x4(a, a_addr + 32 * s);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      tc::ldmatrix_x4(b, b_addr + 2 * (16 * np * ld + 16 * s));
+      tc::mma(c[2 * np], a, b[0], b[1]);
+      tc::mma(c[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc += P B for the warp's 16 rows: P (16 x 8 NT, p or dS in the
+// accumulator layout of ``products``) rounded to bf16 as the A operand,
+// B a row-major [k][n] tile of DP columns at bt_addr (bt_off lanes).
+template <int DP, int NT>
+__device__ __forceinline__ void accumulate(float (&acc)[DP / 8][4],
+                                           const float (&p)[NT][4],
+                                           uint32_t bt_addr, int ld) {
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    const uint32_t a[4] = {tc::pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                           tc::pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                           tc::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           tc::pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int np = 0; np < DP / 16; ++np) {
+      uint32_t b[4];
+      tc::ldmatrix_x4_trans(b, bt_addr + 2 * (16 * kk * ld + 16 * np));
+      tc::mma(acc[2 * np], a, b[0], b[1]);
+      tc::mma(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ void zero(float (&acc)[DP / 8][4]) {
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+}
+
+// Rows row_lo and row_lo + 8 (those below ``nrows``) of a [*, D] bf16
+// operand of row stride ``stride``: acc * mul, columns below D.
+template <int DP>
+__device__ __forceinline__ void store(__nv_bfloat16* base, long long stride,
+                                      const float (&acc)[DP / 8][4],
+                                      int row_lo, int nrows, int t, int D,
+                                      float mul) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row_lo + 8 * hr;
+    if (row >= nrows) continue;
+    __nv_bfloat16* out = base + row * stride;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (col < D) out[col] = __float2bfloat16_rn(acc[n][2 * hr] * mul);
+      if (col + 1 < D)
+        out[col + 1] = __float2bfloat16_rn(acc[n][2 * hr + 1] * mul);
+    }
+  }
+}
+
+// Zeroes the staged tiles when they are filled by cp.async, which leaves
+// the pad columns [D, DP) as they are.
+template <int DP>
+__device__ __forceinline__ void zero_tiles(uint4* smem, bool async) {
+  if (!async) return;
+  for (int i = threadIdx.x; i < (int)(tile_elems(DP) / 8); i += kThreads)
+    smem[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+}
+
+// One block per (b * H + h, 64-query tile), heaviest tile first.
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel(const __nv_bfloat16* __restrict__ q,
+          const __nv_bfloat16* __restrict__ k,
+          const __nv_bfloat16* __restrict__ v,
+          const __nv_bfloat16* __restrict__ o,
+          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ m,
+          const float* __restrict__ l, float* __restrict__ delta,
+          __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H, int Hk,
+          int D, int causal, int window, int q_offset, float scale,
+          float scale_log2, int async) {
+  constexpr int kN = tile_cols(DP);    // keys a tile
+  constexpr int kNT = kN / 8;          // n-tiles of S and dP
+  constexpr int kLd = DP + 8;          // shared row stride, elements
+  constexpr int kTile = kN * kLd;      // one staged K or V tile
+  extern __shared__ uint4 smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dos = qs + kRows * kLd;
+  // [2 stages][K, V][kN][kLd]; stage 1 holds o first, for delta.
+  __nv_bfloat16* kvs = dos + kRows * kLd;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int bi = bh / H, hi = bh - bi * H;
+  const int kvh = hi / (H / Hk);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+
+  const long long q_row = (long long)H * D, kv_row = (long long)Hk * D;
+  const long long q_base = (long long)bi * Sq * q_row + (long long)hi * D;
+  const __nv_bfloat16* kb =
+      k + (long long)bi * Sk * kv_row + (long long)kvh * D;
+  const __nv_bfloat16* vb =
+      v + (long long)bi * Sk * kv_row + (long long)kvh * D;
+
+  // Live key tiles of this block: [kt_begin, kt_end).
+  const int qa0 = q0 + q_offset;
+  const int qa1 = min(q0 + kRows, Sq) - 1 + q_offset;
+  int kt_end = (Sk + kN - 1) / kN;
+  if (causal) kt_end = min(kt_end, qa1 / kN + 1);
+  int kt_begin = 0;
+  if (window > 0 && qa0 - window + 1 > 0) kt_begin = (qa0 - window + 1) / kN;
+
+  zero_tiles<DP>(smem_raw, async);
+  tc::stage<DP>(q + q_base, qs, q_row, q0, Sq, D, kLd, async);
+  tc::stage<DP>(dout + q_base, dos, q_row, q0, Sq, D, kLd, async);
+  tc::stage<DP>(o + q_base, kvs + 2 * kTile, q_row, q0, Sq, D, kLd, async);
+  async_copy::commit();
+  if (kt_begin < kt_end) {
+    tc::stage<DP, kN>(kb, kvs, kv_row, kt_begin * kN, Sk, D, kLd, async);
+    tc::stage<DP, kN>(vb, kvs + kTile, kv_row, kt_begin * kN, Sk, D, kLd,
+                      async);
+  }
+  async_copy::commit();
+  async_copy::wait<1>();
+  __syncthreads();
+
+  // delta = rowsum(dO o) in float32: lanes 2 r and 2 r + 1 of a warp sum
+  // every other column pair of its row r; the thread's rows (g and g + 8
+  // of its warp) come from lanes 2 g and 2 g + 16.
+  float dl[2];
+  {
+    const int r = warp * 16 + (lane >> 1);
+    const __nv_bfloat16* a = dos + r * kLd;
+    const __nv_bfloat16* b = kvs + 2 * kTile + r * kLd;
+    float part = 0.f;
+    for (int c = 2 * (lane & 1); c < DP; c += 4) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(a + c));
+      const float2 y = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(b + c));
+      part = __fmaf_rn(x.x, y.x, part);
+      part = __fmaf_rn(x.y, y.y, part);
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if ((lane & 1) == 0 && q0 + r < Sq)
+      delta[(long long)bh * Sq + q0 + r] = part;
+    dl[0] = __shfl_sync(0xffffffffu, part, 2 * g);
+    dl[1] = __shfl_sync(0xffffffffu, part, 2 * g + 16);
+  }
+  // m in base-2 units and 1 / max(l, 1e-30) of the thread's rows.
+  const int row_lo = q0 + warp * 16 + g;
+  float mc[2], il[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row_lo + 8 * hr;
+    const bool in = row < Sq;
+    mc[hr] = in ? m[(long long)bh * Sq + row] * kLog2e : 0.f;
+    il[hr] = 1.f / fmaxf(in ? l[(long long)bh * Sq + row] : 1.f, 1e-30f);
+  }
+  __syncthreads();  // o's reads are done before stage 1 is refilled
+
+  float acc[DP / 8][4];
+  zero<DP>(acc);
+  const uint32_t q_addr = smem_addr(qs + warp * 16 * kLd + a_off(lane, kLd));
+  const uint32_t do_addr =
+      smem_addr(dos + warp * 16 * kLd + a_off(lane, kLd));
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
+    const int k0 = kt * kN;
+    const __nv_bfloat16* ks = kvs + st * 2 * kTile;
+    const __nv_bfloat16* vs = ks + kTile;
+    if (kt + 1 < kt_end) {
+      __nv_bfloat16* next = kvs + (st ^ 1) * 2 * kTile;
+      tc::stage<DP, kN>(kb, next, kv_row, k0 + kN, Sk, D, kLd, async);
+      tc::stage<DP, kN>(vb, next + kTile, kv_row, k0 + kN, Sk, D, kLd,
+                        async);
+      async_copy::commit();
+      async_copy::wait<1>();
+    } else {
+      async_copy::wait<0>();
+    }
+    __syncthreads();
+
+    float s[kNT][4], dp[kNT][4];
+    products<DP, kNT>(s, q_addr, smem_addr(ks + b_off(lane, kLd)), kLd);
+    products<DP, kNT>(dp, do_addr, smem_addr(vs + b_off(lane, kLd)), kLd);
+    const bool edge = k0 + kN > Sk || q0 + kRows > Sq
+                      || (causal && k0 + kN - 1 > qa0)
+                      || (window > 0 && q0 + kRows - 1 + q_offset - k0
+                                            >= window);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1;
+        float p = tc::ex2(__fmaf_rn(s[j][e], scale_log2, -mc[hr])) * il[hr];
+        if (edge && !bwd::live(row_lo + 8 * hr, k0 + 8 * j + 2 * t + (e & 1),
+                               Sq, Sk, causal, window, q_offset))
+          p = 0.f;
+        s[j][e] = p * (dp[j][e] - dl[hr]);  // dS
+      }
+    accumulate<DP, kNT>(acc, s, smem_addr(ks + bt_off(lane, kLd)), kLd);
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+  async_copy::wait<0>();  // no copy outlives the block
+  store<DP>(dq + q_base, q_row, acc, row_lo, Sq, t, D, scale);
+}
+
+// One block per (b * Hk + KV head, 64-key tile), the first key tiles (the
+// most live query tiles) first.  kGrads: 3 for dK and dV in one launch
+// (DP <= 128), 1 for dV alone, 2 for dK alone (the two launches of a
+// wider head).
+template <int DP, int kGrads>
+__global__ void __launch_bounds__(kThreads)
+dkv_kernel(const __nv_bfloat16* __restrict__ q,
+           const __nv_bfloat16* __restrict__ k,
+           const __nv_bfloat16* __restrict__ v,
+           const __nv_bfloat16* __restrict__ dout,
+           const float* __restrict__ m, const float* __restrict__ l,
+           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+           __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H, int Hk,
+           int D, int causal, int window, int q_offset, float scale,
+           float scale_log2, int async) {
+  constexpr bool kDV = kGrads & 1, kDK = kGrads & 2;
+  constexpr int kN = tile_cols(DP);    // queries a tile
+  constexpr int kNT = kN / 8;          // n-tiles of S^T and dP^T
+  constexpr int kLd = DP + 8;
+  constexpr int kTile = kN * kLd;      // one staged Q or dO tile
+  extern __shared__ uint4 smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + kRows * kLd;
+  __nv_bfloat16* qds = vs + kRows * kLd;  // [2 stages][Q, dO][kN][kLd]
+  // [2 stages][m log2(e), 1 / max(l, 1e-30), delta][kN]
+  float* stats = reinterpret_cast<float*>(qds + 4 * kTile);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bk = blockIdx.x;
+  const int bi = bk / Hk, kvh = bk - bi * Hk;
+  const int rep = H / Hk;
+  const int k0 = blockIdx.y * kRows;
+
+  const long long q_row = (long long)H * D, kv_row = (long long)Hk * D;
+  const long long kv_base = (long long)bi * Sk * kv_row + (long long)kvh * D;
+
+  // Live query tiles of this key tile: [qt_begin, qt_end), for each of the
+  // group's rep heads: iteration it is head it / nlive, tile it % nlive.
+  const int k1 = min(k0 + kRows, Sk) - 1;
+  const int nqt = (Sq + kN - 1) / kN;
+  int qt_begin = 0, qt_end = nqt;
+  if (causal) qt_begin = max(0, k0 - q_offset) / kN;
+  if (window > 0) {
+    const long long last = (long long)k1 + window - 1 - q_offset;
+    qt_end = last < 0 ? 0 : (int)min((long long)nqt, last / kN + 1);
+  }
+  const int nlive = max(0, qt_end - qt_begin);
+  const int n_iter = rep * nlive;
+  auto head = [&](int it) { return kvh * rep + it / nlive; };
+  auto first_row = [&](int it) { return (qt_begin + it % nlive) * kN; };
+  auto stage_qdo = [&](int it, int st) {
+    const long long q_base =
+        (long long)bi * Sq * q_row + (long long)head(it) * D;
+    __nv_bfloat16* dst = qds + st * 2 * kTile;
+    tc::stage<DP, kN>(q + q_base, dst, q_row, first_row(it), Sq, D, kLd,
+                      async);
+    tc::stage<DP, kN>(dout + q_base, dst + kTile, q_row, first_row(it), Sq,
+                      D, kLd, async);
+  };
+  // Row statistics of iteration it's tile (threads below kN, one row
+  // each; rows past Sq read as m 0, l 1, delta 0).
+  auto load_stats = [&](int it, float& rm, float& rl, float& rd) {
+    const int row = first_row(it) + threadIdx.x;
+    const long long at = ((long long)bi * H + head(it)) * Sq + row;
+    const bool in = row < Sq;
+    rm = in ? m[at] : 0.f;
+    rl = in ? l[at] : 1.f;
+    rd = kDK && in ? delta[at] : 0.f;
+  };
+  auto put_stats = [&](int st, float rm, float rl, float rd) {
+    float* sm = stats + st * 3 * kN;
+    sm[threadIdx.x] = rm * kLog2e;
+    sm[kN + threadIdx.x] = 1.f / fmaxf(rl, 1e-30f);
+    sm[2 * kN + threadIdx.x] = rd;
+  };
+
+  zero_tiles<DP>(smem_raw, async);
+  tc::stage<DP>(k + kv_base, ks, kv_row, k0, Sk, D, kLd, async);
+  if (kDK) tc::stage<DP>(v + kv_base, vs, kv_row, k0, Sk, D, kLd, async);
+  if (n_iter > 0) {
+    stage_qdo(0, 0);
+    if (threadIdx.x < kN) {
+      float rm, rl, rd;
+      load_stats(0, rm, rl, rd);
+      put_stats(0, rm, rl, rd);
+    }
+  }
+  async_copy::commit();
+
+  float adv[kDV ? DP / 8 : 1][4], adk[kDK ? DP / 8 : 1][4];
+  if constexpr (kDV) zero<DP>(adv);
+  if constexpr (kDK) zero<DP>(adk);
+  const uint32_t k_addr = smem_addr(ks + warp * 16 * kLd + a_off(lane, kLd));
+  const uint32_t v_addr = smem_addr(vs + warp * 16 * kLd + a_off(lane, kLd));
+  const int key_lo = k0 + warp * 16 + g;
+  for (int it = 0; it < n_iter; ++it) {
+    const int st = it & 1;
+    const int q0 = first_row(it);
+    const bool more = it + 1 < n_iter;
+    float rm = 0.f, rl = 1.f, rd = 0.f;
+    if (more) {
+      stage_qdo(it + 1, st ^ 1);
+      async_copy::commit();
+      if (threadIdx.x < kN) load_stats(it + 1, rm, rl, rd);
+      async_copy::wait<1>();
+    } else {
+      async_copy::wait<0>();
+    }
+    __syncthreads();
+
+    const __nv_bfloat16* qs = qds + st * 2 * kTile;
+    const __nv_bfloat16* dos = qs + kTile;
+    const float* sm = stats + st * 3 * kN;
+    float s[kNT][4], dp[kDK ? kNT : 1][4];
+    products<DP, kNT>(s, k_addr, smem_addr(qs + b_off(lane, kLd)), kLd);
+    if constexpr (kDK)
+      products<DP, kNT>(dp, v_addr, smem_addr(dos + b_off(lane, kLd)), kLd);
+    const bool edge = q0 + kN > Sq || k0 + kRows > Sk
+                      || (causal && q0 + q_offset < k0 + kRows - 1)
+                      || (window > 0 && q0 + kN - 1 + q_offset - k0
+                                            >= window);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const int c = 8 * j + 2 * t;  // the thread's query columns c, c + 1
+      const float2 mc = *reinterpret_cast<const float2*>(sm + c);
+      const float2 il = *reinterpret_cast<const float2*>(sm + kN + c);
+      const float2 dl = *reinterpret_cast<const float2*>(sm + 2 * kN + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool odd = e & 1;
+        float p = tc::ex2(__fmaf_rn(s[j][e], scale_log2,
+                                    -(odd ? mc.y : mc.x)))
+                  * (odd ? il.y : il.x);
+        if (edge && !bwd::live(q0 + c + odd, key_lo + 8 * (e >> 1), Sq, Sk,
+                               causal, window, q_offset))
+          p = 0.f;
+        if constexpr (kDK) dp[j][e] = p * (dp[j][e] - (odd ? dl.y : dl.x));
+        s[j][e] = p;
+      }
+    }
+    if constexpr (kDV)
+      accumulate<DP, kNT>(adv, s, smem_addr(dos + bt_off(lane, kLd)), kLd);
+    if constexpr (kDK)
+      accumulate<DP, kNT>(adk, dp, smem_addr(qs + bt_off(lane, kLd)), kLd);
+    if (more && threadIdx.x < kN) put_stats(st ^ 1, rm, rl, rd);
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+  async_copy::wait<0>();  // no copy outlives the block
+  if constexpr (kDK) store<DP>(dk + kv_base, kv_row, adk, key_lo, Sk, t, D,
+                               scale);
+  if constexpr (kDV) store<DP>(dv + kv_base, kv_row, adv, key_lo, Sk, t, D,
+                               1.f);
+}
+
+template <int DP>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* m,
+                   const float* l, float* delta, void* dq, void* dk, void* dv,
+                   int B, int Sq, int Sk, int H, int Hk, int D, int causal,
+                   int window, int q_offset, float scale,
+                   cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr size_t dq_bytes = dq_smem(DP), dkv_bytes = dkv_smem(DP);
+  const int async = D % 8 == 0 && (size_t)q % 16 == 0 && (size_t)k % 16 == 0
+                    && (size_t)v % 16 == 0 && (size_t)o % 16 == 0
+                    && (size_t)dout % 16 == 0;
+  const float scale_log2 = scale * kLog2e;
+  auto kq = dq_kernel<DP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_bytes);
+  if (e != cudaSuccess) return e;
+  kq<<<dim3(B * H, (Sq + kRows - 1) / kRows), kThreads, dq_bytes, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
+      (const bf16*)dout, m, l, delta, (bf16*)dq, Sq, Sk, H, Hk, D, causal,
+      window, q_offset, scale, scale_log2, async);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  auto dkv = [&](auto kernel) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dkv_bytes);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(B * Hk, (Sk + kRows - 1) / kRows), kThreads, dkv_bytes,
+             stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+        m, l, delta, (bf16*)dk, (bf16*)dv, Sq, Sk, H, Hk, D, causal, window,
+        q_offset, scale, scale_log2, async);
+    return cudaGetLastError();
+  };
+  if constexpr (DP <= 128) {
+    return dkv(dkv_kernel<DP, 3>);
+  } else {  // dV, then dK
+    e = dkv(dkv_kernel<DP, 1>);
+    return e != cudaSuccess ? e : dkv(dkv_kernel<DP, 2>);
+  }
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* m,
+                     const float* l, float* delta, void* dq, void* dk,
+                     void* dv, int B, int Sq, int Sk, int H, int Hk, int D,
+                     int causal, int window, int q_offset, float scale,
+                     cudaStream_t stream) {
+  if ((Sq + kRows - 1) / kRows > 65535 || (Sk + kRows - 1) / kRows > 65535)
+    return cudaErrorInvalidValue;
+#define FLASH_BWD_CASE(DP)                                                   \
+  if (D <= DP)                                                               \
+    return launch<DP>(q, k, v, o, dout, m, l, delta, dq, dk, dv, B, Sq, Sk, \
+                      H, Hk, D, causal, window, q_offset, scale, stream);
+  FLASH_BWD_CASE(16)
+  FLASH_BWD_CASE(32)
+  FLASH_BWD_CASE(48)
+  FLASH_BWD_CASE(64)
+  FLASH_BWD_CASE(80)
+  FLASH_BWD_CASE(96)
+  FLASH_BWD_CASE(128)
+  FLASH_BWD_CASE(160)
+  FLASH_BWD_CASE(192)
+  FLASH_BWD_CASE(256)
+#undef FLASH_BWD_CASE
+  return cudaErrorInvalidValue;  // D > 256
+}
+
+}  // namespace bwd_tc
 
 }  // namespace
 
@@ -1240,8 +1757,10 @@ extern "C" int flash_attention_dead_rows_launch(const void* v, void* o, int B,
 // The backward of flash_attention_launch's function: dq [B, Sq, H, D] and
 // dk, dv [B, Sk, Hk, D] in the inputs' dtype (0 float32, 1 bfloat16) from
 // q, k, v, the forward's o, its row statistics m and l (float32 [B, H, Sq])
-// and dout.  ``delta`` is float32 scratch [B, H, Sq].  Two launches on
-// ``stream``: bwd::dq_kernel (which writes delta), then bwd::dkv_kernel.
+// and dout.  ``delta`` is float32 scratch [B, H, Sq].  On ``stream``:
+// float32 bwd::dq_kernel (which writes delta), then bwd::dkv_kernel; bf16
+// bwd_tc::dq_kernel, then bwd_tc::dkv_kernel (twice, dV then dK, for heads
+// wider than 128).
 // Rows with no live key are not taken (the caller refuses them).  Returns a
 // cudaError_t (0 on success).
 extern "C" int flash_attention_bwd_launch(
@@ -1255,11 +1774,11 @@ extern "C" int flash_attention_bwd_launch(
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)bwd::dispatch<float>(
+    return (int)bwd::dispatch(
         q, k, v, o, dout, (const float*)m, (const float*)l, (float*)delta, dq,
         dk, dv, B, Sq, Sk, H, Hk, D, causal, window, q_offset, scale, st);
   if (dtype == 1)
-    return (int)bwd::dispatch<__nv_bfloat16>(
+    return (int)bwd_tc::dispatch(
         q, k, v, o, dout, (const float*)m, (const float*)l, (float*)delta, dq,
         dk, dv, B, Sq, Sk, H, Hk, D, causal, window, q_offset, scale, st);
   return (int)cudaErrorInvalidValue;

@@ -339,17 +339,23 @@ def test_flash_bwd_kernel_matches_plain_version(card, case):
 
 @pytest.mark.parametrize("case", [(2, 700, 700, 32, 8, 80, 0, True),
                                   (2, 600, 600, 32, 4, 128, 0, True),
-                                  (1, 500, 500, 8, 4, 256, 128, True)],
+                                  (1, 500, 500, 8, 4, 256, 128, True),
+                                  (1, 400, 400, 24, 24, 64, 0, True),
+                                  (80, 300, 300, 1, 1, 96, 0, True),
+                                  (1, 333, 333, 8, 2, 18, 100, False)],
                          ids=["danube-D80", "qwen3-moe-D128",
-                              "gemma3-local-D256"])
+                              "gemma3-local-D256", "musicgen-MHA-D64",
+                              "minicpm3-folded-D96", "ragged-D18-window"])
 def test_flash_bwd_kernel_bf16(card, case):
-    """bf16 inputs at the head widths that train on the card (GQA): the
-    kernel chain against the plain chain in float32 on the same values
-    (2e-2 of each gradient's max); two runs give the same bits."""
+    """bf16 inputs at the head widths that train on the card (GQA, MHA,
+    minicpm3's heads folded into the batch) and at a width staged element
+    by element, on the tensor-core kernels: the kernel chain against the
+    plain chain in float32 on the same values (2e-2 of each gradient's
+    max); two runs give the same bits."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     q, k, v, dout = smoke.flash_bwd_inputs(case, torch.bfloat16, card,
                                            seed=3)
-    kw = dict(causal=True, window=case[6])
+    kw = dict(causal=case[7], window=case[6])
     smoke.flash_bwd_check(q, k, v, dout, kw, str(case))
     out, m, l = fa_ops.flash_attention(q, k, v, return_stats=True, **kw)
     first = fa_ops.flash_attention_bwd(q, k, v, out, m, l, dout, **kw)

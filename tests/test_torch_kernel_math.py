@@ -11,6 +11,12 @@ JAX package is their arithmetic, written out in PyTorch:
   compared in float32) of the Pallas kernel in interpret mode and of the
   reference's ``blocked_attention``; offset cases, which the Pallas kernel
   does not take, go against the port's float32 plain version;
+* the bf16 flash backward (``bwd_tc::dq_kernel`` and ``dkv_kernel``):
+  S and dP in float32 from bf16 operands, p from the forward's m and l,
+  p and dS rounded to bf16 before the dV, dK and dQ products, float32
+  accumulation.  Its chain from the bf16 forward must stay within the card
+  check's 2e-2 of each gradient's max (chip_smoke.FLASH_BWD_TOL) of
+  ``jax.grad`` through the reference's ``blocked_attention`` in float32;
 * the rows with no live key (a window that ends before the first key):
   the reference's -1e30 mask makes them the sum of V over the key slots of
   its tiles, which the wrapper's ``first_dead_row`` / ``key_slots`` and the
@@ -24,6 +30,7 @@ JAX package is their arithmetic, written out in PyTorch:
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,7 +43,8 @@ from repro.models import attention as RA
 from repro.models import rwkv as RR
 from repro.models import ssm as RS
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
 from repro_torch.kernels.mamba2 import ops as ssd_ops
 from repro_torch.kernels.mamba2.ref import (chunk_scan_ref, chunk_state_ref,
                                             state_pass_ref)
@@ -58,7 +66,7 @@ def one_torch_thread():
 
 
 def flash_bf16_emulation(q, k, v, *, causal=True, window=0, q_offset=0,
-                         round_p=True):
+                         round_p=True, return_stats=False):
     """What ``flash_bf16_kernel`` computes, tile by tile: 64 queries by 64
     keys, the live key tiles of each query tile only, S = q k^T in float32
     (products of bf16 values are exact in float32), masked to -inf, the
@@ -68,7 +76,9 @@ def flash_bf16_emulation(q, k, v, *, causal=True, window=0, q_offset=0,
     second kernel, the rows with no live key set to the sum of V over the
     keys (float32) divided by ``key_slots(Sk, 512)`` (the wrapper's default
     ``block_k``).  ``round_p`` False keeps P in float32 (only to show what
-    the rounding of P changes)."""
+    the rounding of P changes).  ``return_stats`` adds the kernel's row
+    statistics, float32 [B, H, Sq]: the running max of the score times the
+    scale, and l."""
     b, sq, h, d = q.shape
     sk, rep = k.shape[1], h // k.shape[2]
     c = torch.tensor(d ** -0.5, dtype=torch.float32) \
@@ -79,6 +89,7 @@ def flash_bf16_emulation(q, k, v, *, causal=True, window=0, q_offset=0,
               .repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
               for t in (k, v))                                # [B,H,Sk',D]
     out = torch.empty_like(qf)
+    m_out, l_out = (torch.empty((b, h, sq)) for _ in range(2))
     for q0 in range(0, sq, 64):
         q1 = min(q0 + 64, sq)
         qpos = torch.arange(q0, q1) + q_offset
@@ -112,10 +123,13 @@ def flash_bf16_emulation(q, k, v, *, causal=True, window=0, q_offset=0,
             acc = acc * corr[..., None] + p @ vf[:, :, kt_keys]
             m = m_new
         out[:, :, q0:q1] = acc / torch.clamp_min(l, 1e-30)[..., None]
+        m_out[:, :, q0:q1] = m * torch.tensor(d ** -0.5, dtype=torch.float32)
+        l_out[:, :, q0:q1] = l
     first = fa_ops.first_dead_row(sq, sk, window, q_offset)
     out[:, :, first:] = (vf[:, :, :sk].sum(2, keepdim=True)
                          / fa_ops.key_slots(sk, 512))
-    return out.permute(0, 2, 1, 3).bfloat16()
+    out = out.permute(0, 2, 1, 3).bfloat16()
+    return (out, m_out, l_out) if return_stats else out
 
 
 def bf16_qkv(b, sq, sk, h, hk, d, seed):
@@ -184,6 +198,130 @@ def test_flash_bf16_arithmetic_rounds_only_p():
     assert float(((exact_p.float() - want).abs() / ulp).max()) <= 1
     rounded_p = flash_bf16_emulation(q, k, v, window=64)
     assert not torch.equal(rounded_p, exact_p)
+
+
+def flash_bwd_bf16_emulation(q, k, v, out, m, l, dout, *, causal=True,
+                             window=0, q_offset=0, round_ps=True):
+    """What the tensor-core backward (``bwd_tc::dq_kernel`` and
+    ``dkv_kernel``) computes: S = q k^T and dP = dO v^T in float32 (products
+    of bf16 values are exact in float32; the kernels' tiles change only the
+    order of the sums), p = exp2(s c - m log2(e)) / max(l, 1e-30) with
+    c = D^-0.5 log2(e) from the forward's m (in units of the scaled score)
+    and l, 0 where the mask is dead, delta = rowsum(dO out) in float32,
+    dS = p (dP - delta); p and dS rounded to bf16 before dV = p^T dO,
+    dK = scale dS^T q and dQ = scale dS k, which accumulate in float32; the
+    query heads of a KV head summed onto it; gradients in q's dtype.
+    ``round_ps`` False keeps p and dS in float32."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    rep = h // hk
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    log2e = torch.tensor(1 / math.log(2), dtype=torch.float32)
+
+    def heads(t, r):        # [B, S, Hx, D] -> [B, H, S, D] float32
+        return t.float().repeat_interleave(r, dim=2).permute(0, 2, 1, 3)
+
+    qf, dof, of = heads(q, 1), heads(dout, 1), heads(out, 1)
+    kf, vf = heads(k, rep), heads(v, rep)
+    rel = (torch.arange(sq)[:, None] + q_offset) - torch.arange(sk)[None, :]
+    ok = torch.ones_like(rel, dtype=torch.bool)
+    if causal:
+        ok = ok & (rel >= 0)
+    if window > 0:
+        ok = ok & (rel < window)
+    s = qf @ kf.transpose(-1, -2)
+    p = (torch.exp2(s * (scale * log2e) - (m * log2e)[..., None])
+         / torch.clamp_min(l, 1e-30)[..., None])
+    p = torch.where(ok, p, 0.0)
+    delta = (dof * of).sum(-1)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    if round_ps:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    dq = (ds @ kf) * scale
+    dk = ((ds.transpose(-1, -2) @ qf) * scale).reshape(b, hk, rep, sk, d)
+    dv = (p.transpose(-1, -2) @ dof).reshape(b, hk, rep, sk, d)
+    return tuple(t.permute(0, 2, 1, 3).to(q.dtype)
+                 for t in (dq, dk.sum(2), dv.sum(2)))
+
+
+#: (B, S, H, Hk, D, window, causal): GQA 4/2 at danube's width, MHA at
+#: musicgen's, minicpm3's folded width with one KV head, a width staged
+#: element by element with a window (causal and not), ragged S.
+BWD_EMULATION_CASES = [(1, 200, 4, 2, 80, 0, True),
+                       (1, 150, 4, 4, 64, 0, False),
+                       (1, 130, 4, 1, 96, 0, True),
+                       (1, 170, 4, 2, 18, 48, True),
+                       (1, 190, 2, 1, 18, 64, False)]
+
+
+def rel_to_max(got, want):
+    """Max abs error over the max abs value (chip_smoke.flash_bwd_check)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.fixture(scope="module")
+def flash_bwd_reference():
+    """Per case: bf16 q, k, v, dout and jax.grad of sum(out * dout) through
+    the reference's blocked_attention, float32 on the same values;
+    compiled once for the module."""
+    out = {}
+    for case in BWD_EMULATION_CASES:
+        b, s, h, hk, d, window, causal = case
+        q, k, v = bf16_qkv(b, s, s, h, hk, d, seed=s + d)
+        rng = np.random.default_rng(d)
+        dout = torch.as_tensor(rng.standard_normal((b, s, h, d))
+                               .astype(np.float32)).bfloat16()
+        jq, jk, jv, jdo = (jnp.asarray(t.float().numpy())
+                           for t in (q, k, v, dout))
+
+        def loss(q_, k_, v_, causal=causal, window=window):
+            o = RA.blocked_attention(q_, k_, v_, causal=causal, window=window,
+                                     block_q=64, block_k=64)
+            return (o * jdo).sum()
+
+        grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(jq, jk, jv)
+        out[case] = (q, k, v, dout), [np.asarray(g) for g in grads]
+    return out
+
+
+@pytest.mark.parametrize("case", BWD_EMULATION_CASES,
+                         ids=lambda c: "B{}-S{}-H{}-Hk{}-D{}-w{}-c{}"
+                         .format(*c))
+def test_flash_bwd_bf16_arithmetic_matches_jax_grad(flash_bwd_reference,
+                                                    case):
+    """The bf16 chain (forward emulation with its statistics, then the
+    backward's) within 2e-2 of each gradient's max of jax.grad."""
+    (q, k, v, dout), want = flash_bwd_reference[case]
+    kw = dict(causal=case[6], window=case[5])
+    out, m, l = flash_bf16_emulation(q, k, v, return_stats=True, **kw)
+    got = flash_bwd_bf16_emulation(q, k, v, out, m, l, dout, **kw)
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+        err = rel_to_max(g.float(), w)
+        assert err <= BF16_TOL, f"{name}: {err:.3g} of its max"
+
+
+def test_flash_bwd_bf16_arithmetic_rounds_only_p_and_ds():
+    """With p and dS kept in float32, the emulation on float32 values is
+    the port's float32 plain backward (the reference's _flash_bwd) up to
+    the order of float32 sums; rounding them to bf16 moves the gradients,
+    within the bf16 tolerance."""
+    q, k, v = (t.float() for t in bf16_qkv(1, 200, 200, 4, 2, 80, seed=9))
+    dout = torch.as_tensor(np.random.default_rng(10).standard_normal(
+        q.shape).astype(np.float32)).bfloat16().float()
+    kw = dict(causal=True, window=64)
+    out, m, l = flash_attention_ref(q, k, v, return_stats=True, block_q=64,
+                                    block_k=64, **kw)
+    want = flash_attention_bwd_ref(q, k, v, out, m, l, dout, block_q=64,
+                                   block_k=64, **kw)
+    exact = flash_bwd_bf16_emulation(q, k, v, out, m, l, dout,
+                                     round_ps=False, **kw)
+    rounded = flash_bwd_bf16_emulation(q, k, v, out, m, l, dout, **kw)
+    for e, r, w in zip(exact, rounded, want):
+        assert rel_to_max(e, w) <= 1e-5
+        assert not torch.equal(r, e)
+        assert rel_to_max(r, w) <= BF16_TOL
 
 
 #: (Sq, Sk, window, causal, q_offset): windows that end before the first

@@ -60,10 +60,10 @@ EDITS = {
         "q_in_registers": [
             ("return dp <= 80 ? 4 : 1;", "return 1;"),
             ("kQInRegs = DP > 80 && DP <= 128;", "kQInRegs = DP <= 128;")],
-        # The backward's 32-row tiles (R = 2) past D = 64, in place of
-        # 64-row tiles up to D = 128.
-        "bwd_rows_32": [("kRowGroups = DPT4 <= 4 ? 4 : 2;",
-                         "kRowGroups = DPT4 <= 2 ? 4 : 2;")],
+        # The tensor-core backward's 32-wide tiles of the other side (keys
+        # in dq, queries in dkv) at every width, in place of 64 up to
+        # DP = 128.
+        "bwd_tile_32": [("return dp <= 128 ? 64 : 32;", "return 32;")],
     },
     "mamba2_ssd": {
         # The gating with one whole 4 x 4 tile per thread, element by
@@ -139,19 +139,19 @@ void cwe_buffer(size_t n) {
     },
 }
 
-#: Appended to every build of flash_attention.cu that has the backward:
-#: registers, local (spilled) bytes, dynamic shared memory and resident
-#: blocks an SM of the backward's dq_kernel and dkv_kernel at head width D,
+#: Appended to every build of flash_attention.cu that has the tensor-core
+#: backward: the width of the other side's tile, registers, local (spilled)
+#: bytes, dynamic shared memory and resident blocks an SM of bwd_tc's
+#: dq_kernel and dkv_kernel (the dK launch above DP = 128) at head width D,
 #: read from the CUDA runtime (ncu cannot run on the card's machine).
 BWD_OCCUPANCY_SRC = r"""
 namespace {
-template <typename T, int DPT4>
-int bwd_occupancy(int D, int* out) {
-  constexpr int R = bwd::kRowGroups<DPT4>;
-  const int ld = 8 * ((D + 7) / 8) + 4;
-  const void* fns[2] = {(const void*)bwd::dq_kernel<T, R, DPT4>,
-                        (const void*)bwd::dkv_kernel<T, R, DPT4>};
-  const size_t smem[2] = {bwd::dq_smem<R>(ld), bwd::dkv_smem<R>(ld)};
+template <int DP>
+int bwd_occupancy(int* out) {
+  const void* fns[2] = {
+      (const void*)bwd_tc::dq_kernel<DP>,
+      (const void*)bwd_tc::dkv_kernel<DP, DP <= 128 ? 3 : 2>};
+  const size_t smem[2] = {bwd_tc::dq_smem(DP), bwd_tc::dkv_smem(DP)};
   for (int i = 0; i < 2; ++i) {
     cudaError_t e = cudaFuncSetAttribute(
         fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem[i]);
@@ -161,9 +161,9 @@ int bwd_occupancy(int D, int* out) {
     if (e != cudaSuccess) return (int)e;
     int blocks = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fns[i], bwd::kThreads, smem[i]);
+        &blocks, fns[i], bwd_tc::kThreads, smem[i]);
     if (e != cudaSuccess) return (int)e;
-    out[5 * i] = 16 * R;
+    out[5 * i] = bwd_tc::tile_cols(DP);
     out[5 * i + 1] = a.numRegs;
     out[5 * i + 2] = (int)a.localSizeBytes;
     out[5 * i + 3] = (int)smem[i];
@@ -173,10 +173,10 @@ int bwd_occupancy(int D, int* out) {
 }
 }  // namespace
 
-extern "C" int flash_bwd_occupancy(int D, int dtype, int* out) {
-  const int need = (D + 31) / 32;
-#define OCC_CASE(W)                                                        if (need <= W)                                                             return dtype ? bwd_occupancy<__nv_bfloat16, W>(D, out)                                : bwd_occupancy<float, W>(D, out);
-  OCC_CASE(1) OCC_CASE(2) OCC_CASE(3) OCC_CASE(4) OCC_CASE(6) OCC_CASE(8)
+extern "C" int flash_bwd_occupancy(int D, int* out) {
+#define OCC_CASE(DP) if (D <= DP) return bwd_occupancy<DP>(out);
+  OCC_CASE(16) OCC_CASE(32) OCC_CASE(48) OCC_CASE(64) OCC_CASE(80)
+  OCC_CASE(96) OCC_CASE(128) OCC_CASE(160) OCC_CASE(192) OCC_CASE(256)
 #undef OCC_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -211,7 +211,7 @@ def sources(kernel, other):
         out["other"] = (other / "src" / "repro_torch" / "kernels" / "csrc"
                         / f"{kernel}.cu").read_text()
     if kernel == "flash_attention":
-        out = {name: t + BWD_OCCUPANCY_SRC if "kRowGroups" in t else t
+        out = {name: t + BWD_OCCUPANCY_SRC if "namespace bwd_tc" in t else t
                for name, t in out.items()}
     return out
 
@@ -479,7 +479,7 @@ def probe_flash_bwd(libs, cs) -> None:
         flash_attention_bwd_ref, flash_attention_ref)
     builds = {name: lib for (kernel, name), lib in libs.items()
               if kernel == "flash_attention"
-              and hasattr(lib, "flash_bwd_occupancy")}
+              and hasattr(lib, "flash_attention_bwd_launch")}
     tol = cs.FLASH_BWD_TOL["bfloat16"]
     for b, s, h, hk, d in FLASH_BWD_SHAPES:
         case = (b, s, s, h, hk, d, 0, True)
@@ -504,16 +504,18 @@ def probe_flash_bwd(libs, cs) -> None:
               f"bf16: " + ", ".join(f"{n} {t:.3f} ms"
                                     for n, t in best.items()), flush=True)
     for name, lib in builds.items():
+        if not hasattr(lib, "flash_bwd_occupancy"):
+            continue
         fn = lib.flash_bwd_occupancy
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
         for d in FLASH_BWD_WIDTHS:
             got = (ctypes.c_int * 10)()
-            rc = fn(d, 1, got)
+            rc = fn(d, got)
             if rc:
                 raise SystemExit(f"{name} build's occupancy readout at D={d}:"
                                  f" CUDA error {rc}")
             print(f"flash_attention_bwd {name} D={d} bf16: " + "; ".join(
-                f"{kname} {got[5 * i]}-row tiles, {got[5 * i + 1]} "
+                f"{kname} {got[5 * i]}-wide tiles, {got[5 * i + 1]} "
                 f"registers, {got[5 * i + 2]} spilled bytes, "
                 f"{got[5 * i + 3]} B shared, {got[5 * i + 4]} blocks an SM"
                 for i, kname in enumerate(("dq", "dkv"))), flush=True)
