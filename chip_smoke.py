@@ -216,8 +216,13 @@ each printing its lines before the last:
   step_decay    zamba2's step and decay kernel (softplus and exp in the
                 reference's float32 roundings) against its plain version,
                 bit for bit on the card and the CPU, on the inputs layer 0
-                of serve_zamba2 gave it and on edge values; its time beside
-                its bound (bytes) and the plain version's
+                of serve_zamba2 gave it and on edge values (dt_raw float32
+                and bf16); the exhaustive sweep of its functions (exp,
+                log1p, softplus) over all 2^32 float32 inputs against the
+                first version's float64 multiply-adds: 0 differing inputs
+                for each function in the version the kernel uses; its time
+                beside its bound (bytes), the plain version's and one
+                launch of a one-element add_
   ssm_card_vs_cpu  full width cut in depth, float32 (zamba2: one mamba
                 block plus the shared block; rwkv6: 2 layers): one
                 1100-token prompt and 8 decode steps on the card and on the
@@ -265,11 +270,33 @@ each printing its lines before the last:
                 cores, exponentials or bytes), the plain version's and
                 scaled_dot_product_attention's backward (forward and
                 backward minus forward)
-  train_card_vs_cpu  danube at full width cut to 2 layers, float32, 512
-                tokens (tiles of 256, so through the flash kernels): one
+  train_zamba2  the train phase on zamba2-2.7b at full width and depth
+                (54 Mamba-2 layers and the shared block, bf16, remat
+                "block", 2 x 4096 tokens, 3 steps): finite losses, the
+                step-0 cross-entropy within 35 % of ln(32000), a gradient
+                norm above 0; per step 108 mamba2_ssd and step_decay
+                launches (forward and recompute), 54 of each backward
+                (mamba2_ssd_bwd's four passes once each), 18 flash forward
+                and 9 backward launches; ms/step, tokens/s, peak memory
+  ssd_bwd       the SSD backward kernels against their plain version on
+                the card over a case list (MAMBA2_CASES' geometry, chunk 16,
+                P and N padded): each gradient within 1e-4 of its max (da
+                as da * max(a, 1e-20), bf16 db and dc one rounding apart),
+                each pass against its plain version, a second run bit for
+                bit equal; then on the inputs layer 0 of train_zamba2 gave
+                them, with their time, each pass's, the bound (FMA) and the
+                plain version's
+  step_decay_bwd  the step and decay's backward kernel the same way, on
+                train_zamba2's layer-0 inputs and edge values; its time
+                beside its bound and the plain version's
+  train_card_vs_cpu  danube at full width cut to 2 layers and zamba2 cut to
+                a mamba block and the shared block, float32, 512 tokens
+                (tiles of 256, so through the flash kernels, and zamba2's
+                scan and step and decay kernels forward and backward): one
                 train step on the card and on the CPU from the same
                 weights and batch; loss to rel 1e-5, every gradient,
                 updated parameter and moment within 1e-4 of its leaf's max
+                (zamba2's within 3e-4: the scan's sums in other orders)
   train_blocks  two train steps at full width, bf16, B = 2 of gemma3-4b (6
                 layers, one 5:1 period, D = 256, window 1024; S = 4096),
                 minicpm3-4b (2 layers, MLA's folded flash; 4096),
@@ -280,8 +307,8 @@ each printing its lines before the last:
                 gemma3's tied, sqrt(d)-scaled embedding 0.02 d_model,
                 the logit a random model gives its input token), a
                 finite grad norm
-                above 0, flash launches per step; zamba2 and rwkv6 refuse a
-                train step on the card, naming the next slice
+                above 0, flash launches per step; rwkv6 refuses a train
+                step on the card, naming the next slice
   train_restart the reference's examples/quickstart.py on the card: danube
                 reduced (tiles of 32, through the flash kernels), its data
                 shards and checkpoints through a size-fair 2-server burst
@@ -3635,17 +3662,24 @@ def phase_scan(device, kernel, layer0, *, reps=10):
 
 #: Operations of the float32 function per element of the step_decay kernel
 #: (an FMA counted as two), counted off csrc/mamba2_ssd.cu: the add of
-#: dt_bias, softplus (an exp of 33 and a log1p of 79 operations as XLA
-#: expands them, and 5 more) and the decay's product and exp.  The
-#: exp(a_log) of each head is not counted per element.
-STEP_DECAY_OPS = 152
+#: dt_bias, softplus (an exp of 33 operations as XLA expands it, one branch
+#: of log1p: 33 near 0, 31 by log(1 + x); 33 counted, and 3 more), the
+#: decay's negation and product and its exp of 33.  The exp(a_log) of each
+#: column is not counted per element.
+STEP_DECAY_OPS = 104
+#: step_decay_bwd's float32 operations and exponentials per element: the
+#: decay's product (2), the add of dt_bias, the sigmoid (a negation, an
+#: exponential, an add and a division), the product with the summed
+#: gradient (2), the two column sums' adds and the g_step dt product.
+STEP_DECAY_BWD_OPS = 12
 
 
 def step_decay_inputs(device, seed):
     """(dt_raw, dt_bias, a_log) cases beside the serve phase's: a float32
     strided view of a projection with edge values (zeros of both signs,
     subnormals, exp's clamp points, the log1p branch point, +-inf, large
-    magnitudes) among normal ones, and a decode step's [B, H]."""
+    magnitudes) among normal ones, the same one column on (a view the
+    kernel reads by element), and a decode step's [B, H]."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -3653,7 +3687,7 @@ def step_decay_inputs(device, seed):
                       87.8, 88.8, 88.9, -87.8, -88.8, -104.0, 100.0, 1e30,
                       -1e30, np.inf, -np.inf, 20.0, -20.0, 1e-7, -1e-7],
                      dtype=np.float32)
-    proj = rng.normal(0.0, 4.0, (2, 600, 200)).astype(np.float32)
+    proj = rng.normal(0.0, 4.0, (2, 600, 201)).astype(np.float32)
     flat = proj[..., 120:200].reshape(-1)
     flat[:edges.size] = edges
     proj[..., 120:200] = flat.reshape(2, 600, 80)
@@ -3663,16 +3697,47 @@ def step_decay_inputs(device, seed):
     t = lambda a: torch.from_numpy(a).to(device)   # noqa: E731
     return [("float32 [2, 600, 80] view, edge values",
              (t(proj)[..., 120:200], t(bias), t(a_log))),
+            ("float32 [2, 600, 80] view one column on, by element",
+             (t(proj)[..., 121:201], t(bias), t(a_log))),
             ("float32 [2, 80] (a decode step)",
              (t(proj[:, 7, :80].copy()), t(bias), t(a_log)))]
 
 
-def phase_step_decay(device, layer0, *, reps=10):
+def step_decay_sweep(phase="step_decay") -> dict:
+    """The step_decay kernel's exhaustive sweep on the card: all 2^32
+    float32 inputs through exp, log1p and softplus as the first version
+    took them (each multiply-add a float64 product and sum, both branches
+    of log1p) and as the kernel takes them (float32 multiply-adds; log1p on
+    the arguments softplus gives it: +0, normal floats up to 1, NaN).
+    Fails unless no input's bits differ for any function.  Returns the
+    counts and the sweep's seconds."""
+    import torch
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    ssd_ops.step_decay_sweep()                       # warm: first launch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ssd_ops.step_decay_sweep()
+    seconds = time.perf_counter() - t0
+    say(phase, f"sweep of all 2^32 float32 inputs in {seconds:.3f} s: "
+        "inputs whose bits differ from the first version's: " + ", ".join(
+            f"{fn} {n}" + (f" (first 0x{lo:08x})" if n else "")
+            for fn, (n, lo) in got.items()))
+    bad = {fn: v for fn, v in got.items() if v[0]}
+    if bad:
+        raise AssertionError(f"step_decay: {bad} differ from the first "
+                             "version on some input")
+    return dict(seconds=seconds, counts={fn: n for fn, (n, _) in
+                                         got.items()})
+
+
+def phase_step_decay(device, layer0, *, reps=50):
     """The step_decay kernel against its plain version on the same card
     tensors and on the CPU, bit for bit (tolerance 0), on the inputs layer 0
-    of serve_zamba2 gave it and on ``step_decay_inputs``; then its time at
-    the serving shape beside its bound and the plain version's.  Returns its
-    record for the kernels line."""
+    of serve_zamba2 gave it and on ``step_decay_inputs`` (dt_raw in float32
+    and bf16); the exhaustive sweep (on the card); then its time at the
+    serving shape beside its bound, the plain version's and one launch of a
+    one-element add_ (the fixed cost of a launch under this timing).
+    Returns its record for the kernels line."""
     import torch
     from repro_torch.kernels.mamba2 import ops as ssd_ops
     from repro_torch.kernels.mamba2.ref import step_and_decay_ref
@@ -3680,6 +3745,9 @@ def phase_step_decay(device, layer0, *, reps=10):
     cases = [(f"serve layer 0 {serve_args[0].dtype} "
               f"{tuple(serve_args[0].shape)}", serve_args)]
     cases += step_decay_inputs(device, seed=0)
+    cases += [(f"{tag}, dt_raw bf16", (raw.to(torch.bfloat16), bias, a_log))
+              for tag, (raw, bias, a_log) in step_decay_inputs(device,
+                                                               seed=3)]
     worst = 0.0
     for tag, args in cases:
         got = ssd_ops.step_and_decay(*args)
@@ -3694,20 +3762,267 @@ def phase_step_decay(device, layer0, *, reps=10):
                     f"{float(diff[torch.isfinite(diff)].max())}")
             finite = torch.isfinite(w)
             worst = max(worst, float((g - w)[finite].abs().max()))
-        say("mamba2", f"step_decay {tag}: dt and a equal the plain version's "
-            "on the card and on the CPU bit for bit (tolerance 0)")
+        say("step_decay", f"{tag}: dt and a equal the plain version's on "
+            "the card and on the CPU bit for bit (tolerance 0)")
+    # The sweep is a kernel of the card's build: a CPU rehearsal skips it.
+    sweep = (step_decay_sweep() if torch.device(device).type == "cuda"
+             else None)
     x = serve_args[0]
     n = x.numel()
+    one = torch.zeros(1, device=device)
     ms = time_ms(lambda: ssd_ops.step_and_decay(*serve_args), reps=reps)
-    plain = time_ms(lambda: step_and_decay_ref(*serve_args), reps=reps)
+    empty = time_ms(lambda: one.add_(1), reps=reps)
+    plain = time_ms(lambda: step_and_decay_ref(*serve_args), reps=10)
     nbytes = n * (x.element_size() + 8) + 8 * x.shape[-1]
     bound, by = bound_ms(nbytes, n * STEP_DECAY_OPS)
-    say("mamba2", f"step_decay {tuple(x.shape)} {x.dtype}: kernel {ms:.4f} "
-        f"ms, bound {bound:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+    say("step_decay", f"{tuple(x.shape)} {x.dtype}: kernel {ms * 1e3:.2f} "
+        f"us, one launch of a one-element add_ {empty * 1e3:.2f} us, bound "
+        f"{bound * 1e3:.3f} us ({by}: {nbytes / 1e6:.2f} MB, "
         f"{n * STEP_DECAY_OPS / 1e6:.0f} M fp32 operations), plain "
         f"{plain:.3f} ms; no one PyTorch call computes this function")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                library_ms=None, max_abs_err=worst)
+                library_ms=None, max_abs_err=worst, empty_launch_ms=empty,
+                sweep=sweep)
+
+
+#: (B, S, H, P, N, chunk, b/c dtype, h0, decay, views) of the SSD backward's
+#: card checks: MAMBA2_CASES' geometry (the reduced and full widths, chunk
+#: 32, 64 and 128, bf16 b/c, an initial state, strong decay, strided b/c
+#: views), a chunk of 16 and P, N not multiples of 4 (padded by
+#: kernel_layout).
+SSD_BWD_CASES = MAMBA2_CASES + [
+    (2, 64, 4, 16, 16, 16, "float32", True, "normal", False),
+    (1, 128, 3, 18, 30, 32, "bfloat16", True, "strong", True),
+]
+#: Each gradient of the backward kernels against the plain version: max abs
+#: error over the gradient's max.  da is compared as da * max(a, 1e-20),
+#: the log decay's gradient: 1/a multiplies dla's float32 rounding by up to
+#: 1e20 near the clamp.  A bf16 db or dc may land one bf16 step (2^-7
+#: of the element) apart, since both sides round their float32 sums once.
+SSD_BWD_TOL = 1e-4
+BF16_ULP = 2.0 ** -7
+
+
+def ssd_bwd_inputs(case, device, seed):
+    """(args, kw) of an SSD_BWD_CASES entry: (x, a, b, c, dy, dhf), dy and
+    dhf normal from ``seed``, and (chunk, cum, h_in), the scratch of the
+    forward (``mamba2_ssd(keep=True)``, from the case's h0) that the
+    backward reads."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    x, a, b, c, h0 = mamba2_inputs(case, device, seed)
+    rng = np.random.default_rng(seed + 1000)
+    t = lambda v: torch.as_tensor(v.astype(np.float32), device=device)  # noqa
+    dy = t(rng.standard_normal(tuple(x.shape)))
+    dhf = t(rng.standard_normal((x.shape[0], x.shape[2], x.shape[3],
+                                 b.shape[-1])))
+    _, _, cum, h_in = ssd_ops.mamba2_ssd(x, a, b, c, chunk=case[5], h0=h0,
+                                         keep=True)
+    return (x, a, b, c, dy, dhf), dict(chunk=case[5], cum=cum, h_in=h_in)
+
+
+def grads_held(tag, names, got, want, scale=None) -> float:
+    """Each gradient of ``got`` within SSD_BWD_TOL of its max in ``want``
+    where ``want`` is finite (a bf16 one one bf16 step apart at most),
+    non-finite where ``want`` is; ``scale`` {name: tensor} multiplies both
+    sides first.  Returns the worst error over its gradient's max."""
+    import torch
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{tag} {name}: {g.dtype} {tuple(g.shape)}"
+                                 f" against {w.dtype} {tuple(w.shape)}")
+        g32, w32 = g.float(), w.float()
+        if scale and name in scale:
+            g32, w32 = g32 * scale[name], w32 * scale[name]
+        finite = torch.isfinite(w32)
+        if not torch.equal(finite, torch.isfinite(g32)):
+            raise AssertionError(f"{tag} {name}: finite at other elements "
+                                 "than the plain version")
+        if not bool(finite.any()):
+            continue
+        g32, w32 = g32[finite], w32[finite]
+        top = float(w32.abs().max().clamp_min(1e-30))
+        diff = (g32 - w32).abs()
+        bound = SSD_BWD_TOL * top + (BF16_ULP * w32.abs()
+                                     if g.dtype == torch.bfloat16 else 0.0)
+        if not bool((diff <= bound).all()):
+            raise AssertionError(f"{tag} {name}: error {float(diff.max())} "
+                                 f"over the bound (max {top})")
+        worst = max(worst, float(diff.max()) / top)
+    return worst
+
+
+def ssd_bwd_held(got, want, a, tag) -> float:
+    """(dx, da, db, dc, dh0) held by grads_held, da as da * max(a,
+    1e-20)."""
+    import torch
+    return grads_held(tag, ("dx", "da", "db", "dc", "dh0"), got, want,
+                      {"da": torch.clamp_min(a.float(), 1e-20)})
+
+
+def same_bits(got, again) -> bool:
+    """Two runs' outputs equal bit for bit (NaNs included)."""
+    import torch
+    return all(torch.equal(u.view(torch.int16 if u.element_size() == 2
+                                  else torch.int32),
+                           v.view(torch.int16 if v.element_size() == 2
+                                  else torch.int32))
+               for u, v in zip(got, again))
+
+
+def ssd_bwd_check(args, kw, tag, phase) -> float:
+    """The SSD backward kernels against their plain version on the same
+    card tensors (ssd_bwd_held), and a second run bit for bit equal (no
+    atomics); then, where P and N are multiples of 4, each pass against its
+    plain version on the plain outputs of the passes before it.  Returns
+    the worst error."""
+    import torch
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2 import ref as ssd_ref
+    x, a, b, c, dy, dhf = args
+    got = ssd_ops.mamba2_ssd_bwd(*args, **kw)
+    again = ssd_ops.mamba2_ssd_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    if not same_bits(got, again):
+        raise AssertionError(f"mamba2_ssd_bwd {tag}: two runs differ")
+    want = ssd_ref.mamba2_ssd_bwd_ref(*args, **kw)
+    worst = ssd_bwd_held(got, want, a, f"mamba2_ssd_bwd {tag}")
+    passes = 0.0
+    if x.shape[-1] % 4 == 0 and b.shape[-1] % 4 == 0:
+        chunk, cum, h_in = kw["chunk"], kw["cum"], kw["h_in"]
+        q = ssd_ref.chunk_dstate_ref(dy, c, cum, chunk=chunk)
+        got_q = ssd_ops.chunk_dstate(dy, c, cum, chunk=chunk)
+        r, dh0 = ssd_ref.state_pass_bwd_ref(q.clone(), cum, dhf=dhf)
+        got_r, got_dh0 = ssd_ops.state_pass_bwd(q.clone(), cum, dhf=dhf)
+        passes = grads_held(f"passes {tag}", ("chunk_dstate q",
+                                              "state_pass_bwd r",
+                                              "state_pass_bwd dh0"),
+                            (got_q, got_r, got_dh0), (q, r, dh0))
+        want = ssd_ref.chunk_bwd_ref(x, a, b, c, dy, cum, h_in, r,
+                                     chunk=chunk)
+        got = ssd_ops.chunk_bwd(x, a, b, c, dy, cum, h_in, r, chunk=chunk)
+        passes = max(passes, ssd_bwd_held(tuple(got) + (dh0,),
+                                          tuple(want) + (dh0,), a,
+                                          f"chunk_bwd {tag}"))
+    say(phase, f"{tag}: max error over each gradient's max {worst:.3g}, "
+        f"passes {passes:.3g} (tolerance {SSD_BWD_TOL:g}; bf16 one step "
+        "apart); a second run equal bit for bit")
+    return max(worst, passes)
+
+
+def mamba2_bwd_work(x, b, chunk):
+    """(bytes, fp32 operations, exponentials) the SSD backward needs on
+    these inputs: x, a, b, c, dy and dh_final read and dx, da, db, dc and
+    dh0 written once; per (b, h, chunk) the states entering the chunks
+    (their own states' product), the products over the lower triangle
+    (dy . x, and those giving dx, dC and dB: over P twice and N twice),
+    the state terms (R B, S^T dy, R^T x and the chunk's dy (x) C: L P N
+    each), the C . B^T Gram once per (b, chunk), and an exponential per
+    lower pair and 2 per step."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc, tri = s // chunk, chunk * (chunk + 1) // 2
+    nbytes = (3 * x.numel() * 4 + 2 * bsz * s * h * 4
+              + 4 * bsz * s * n * b.element_size() + 2 * bsz * h * p * n * 4)
+    fma = bsz * nc * (h * (tri * (2 * p + 2 * n) + 5 * chunk * p * n)
+                      + tri * n)
+    exps = bsz * nc * h * (tri + 2 * chunk)
+    return nbytes, 2 * fma, exps
+
+
+def phase_ssd_bwd(device, layer0, *, cases=SSD_BWD_CASES, reps=5):
+    """The SSD backward kernels against their plain version over
+    SSD_BWD_CASES and on the inputs layer 0 of train_zamba2 gave them (with
+    the forward's scratch, as the autograd Function passes it); then the
+    time there beside the bound, the plain version's, and each pass's.
+    Returns the record for the kernels line."""
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2.ref import mamba2_ssd_bwd_ref
+    worst = 0.0
+    for n, case in enumerate(cases):
+        args, kw = ssd_bwd_inputs(case, device, seed=n)
+        tag = ("B={} S={} H={} P={} N={} chunk={} b/c {} h0={} decay={} "
+               "views={}".format(*case))
+        worst = max(worst, ssd_bwd_check(args, kw, tag, "ssd_bwd"))
+    args, kw = layer0["args"], layer0["kw"]
+    x, a, b, c, dy, dhf = args
+    tag = (f"train layer 0 inputs x {tuple(x.shape)} b/c {b.dtype} chunk "
+           f"{kw['chunk']}, the forward's scratch")
+    worst = max(worst, ssd_bwd_check(args, kw, tag, "ssd_bwd"))
+    chunk, cum, h_in = kw["chunk"], kw["cum"], kw["h_in"]
+    ms = time_ms(lambda: ssd_ops.mamba2_ssd_bwd(*args, **kw), reps=reps)
+    plain = time_ms(lambda: mamba2_ssd_bwd_ref(*args, **kw), reps=2)
+    q = ssd_ops.chunk_dstate(dy, c, cum, chunk=chunk)
+    passes = {
+        "chunk_dstate": time_ms(lambda: ssd_ops.chunk_dstate(
+            dy, c, cum, chunk=chunk), reps=reps),
+        "state_pass_bwd": time_ms(lambda: ssd_ops.state_pass_bwd(
+            q, cum, dhf=dhf), reps=reps),
+        "chunk_bwd + sum_groups": time_ms(lambda: ssd_ops.chunk_bwd(
+            x, a, b, c, dy, cum, h_in, q, chunk=chunk), reps=reps)}
+    work = mamba2_bwd_work(x, b, chunk)
+    bound, by, pipe = pipe_bound(*work)
+    nbytes, ops, exps = work
+    say("ssd_bwd", f"{tag}: device ms per pass " + ", ".join(
+        f"{k} {v:.3f}" for k, v in passes.items()))
+    say("ssd_bwd", f"{tag}: kernels {ms:.3f} ms, bound {bound:.4f} ms "
+        f"({by}, {pipe}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP fp32, "
+        f"{exps / 1e9:.3f} G exponentials), plain {plain:.3f} ms; kernels / "
+        f"bound {ms / bound:.1f}; no PyTorch call computes this function")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                bound_pipe=pipe, library_ms=None, max_abs_err=worst,
+                pass_ms=passes)
+
+
+STEP_DECAY_GRADS = ("g_dt_raw", "g_dt_bias", "g_a_log")
+
+
+def phase_step_decay_bwd(device, layer0, *, reps=50):
+    """The step_decay backward kernel against its plain version on the
+    inputs layer 0 of train_zamba2 gave it and on ``step_decay_inputs``
+    (normal output gradients from a seed): within SSD_BWD_TOL, a second
+    run equal bit for bit; then its time at the training shape beside its
+    bound and the plain version's.  Returns the record for the kernels
+    line."""
+    import torch
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2.ref import (step_and_decay_bwd_ref,
+                                                step_and_decay_ref)
+    train_args = tuple(layer0["args"])
+    cases = [(f"train layer 0 dt_raw {train_args[2].dtype} "
+              f"{tuple(train_args[2].shape)}", train_args)]
+    gen = torch.Generator().manual_seed(5)
+    for tag, (raw, bias, a_log) in step_decay_inputs(device, seed=0):
+        dt, a = step_and_decay_ref(raw, bias, a_log)
+        g_dt, g_a = (torch.randn(dt.shape, generator=gen).to(device)
+                     for _ in range(2))
+        cases.append((tag, (g_dt, g_a, raw, bias, a_log, dt, a)))
+    worst = 0.0
+    for tag, args in cases:
+        got = ssd_ops.step_and_decay_bwd(*args)
+        again = ssd_ops.step_and_decay_bwd(*args)
+        if not same_bits(got, again):
+            raise AssertionError(f"step_decay_bwd {tag}: two runs differ")
+        err = grads_held(f"step_decay_bwd {tag}", STEP_DECAY_GRADS, got,
+                         step_and_decay_bwd_ref(*args))
+        worst = max(worst, err)
+        say("step_decay_bwd", f"{tag}: max error over each gradient's max "
+            f"{err:.3g} (tolerance {SSD_BWD_TOL:g}); a second run equal bit "
+            "for bit")
+    raw = train_args[2]
+    n = raw.numel()
+    ms = time_ms(lambda: ssd_ops.step_and_decay_bwd(*train_args), reps=reps)
+    plain = time_ms(lambda: step_and_decay_bwd_ref(*train_args), reps=10)
+    nbytes = n * (16 + 2 * raw.element_size()) + 16 * raw.shape[-1]
+    bound, by, pipe = pipe_bound(nbytes, n * STEP_DECAY_BWD_OPS, n)
+    say("step_decay_bwd", f"{tuple(raw.shape)} {raw.dtype}: kernel "
+        f"{ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us ({by}, {pipe}: "
+        f"{nbytes / 1e6:.2f} MB), plain {plain * 1e3:.1f} us; no one "
+        "PyTorch call computes this function")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                bound_pipe=pipe, library_ms=None, max_abs_err=worst)
 
 
 def model_card_vs_cpu(device, cfg, *, phase, seq, steps):
@@ -3952,6 +4267,10 @@ def phase_blocks_card_vs_cpu(device, *, reduced=False, seq=1100, steps=8):
 #: "block"), the reference's train_4k sequence (configs/base.py:182), its
 #: global batch of 256 cut to 2, 5 AdamW steps.
 TRAIN_ARGS = dict(seq=4096, batch=2, steps=5)
+#: The train_zamba2 phase: zamba2-2.7b at full width and depth (54 Mamba-2
+#: layers and the shared block, bf16, remat "block"), the same sequence and
+#: batch, 3 AdamW steps.
+TRAIN_ZAMBA2_ARGS = dict(seq=4096, batch=2, steps=3)
 #: The reference smoke test's bound (tests/test_models_smoke.py:30-33): a
 #: random model's first cross-entropy within 35 % of ln(vocab).
 CE_SPREAD = 0.35
@@ -4003,28 +4322,83 @@ def check_ce(tag, phase, ce, cfg) -> None:
                              f"{math.log(cfg.vocab):.3f})")
 
 
-def capture_flash_bwd(store):
-    """Patch the model's flash backward so that ``store`` holds the inputs of
-    its latest call (the last layer a backward reaches is layer 0); returns
-    the undo."""
-    from repro_torch.models import attention
-    real = attention.flash_attention_bwd
+def capture_last_calls(store):
+    """Patch the model modules' backward wrappers so that ``store[name]``
+    holds the inputs of each one's latest call (``args`` cloned, ``kw``;
+    the last layer a backward reaches is layer 0): flash_attention_bwd,
+    mamba2_ssd_bwd and step_and_decay_bwd.  Returns the undo."""
+    import torch
+    from repro_torch.models import attention, ssm
+    saved = []
 
-    def wrapper(*args, **kw):
-        store.update(args=[a.clone() for a in args], kw=dict(kw))
-        return real(*args, **kw)
+    def copy(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
 
-    attention.flash_attention_bwd = wrapper
-    return lambda: setattr(attention, "flash_attention_bwd", real)
+    for module, name in ((attention, "flash_attention_bwd"),
+                         (ssm, "mamba2_ssd_bwd"),
+                         (ssm, "step_and_decay_bwd")):
+        real = getattr(module, name)
+
+        def wrapper(*args, _real=real, _name=name, **kw):
+            store[_name] = dict(args=[copy(a) for a in args],
+                                kw={k: copy(v) for k, v in kw.items()})
+            return _real(*args, **kw)
+
+        setattr(module, name, wrapper)
+        saved.append((module, name, real))
+
+    def undo():
+        for module, name, real in saved:
+            setattr(module, name, real)
+    return undo
 
 
-def phase_train(device, *, arch=SERVE_ARCH, full=True, **args):
-    """``repro_torch.launch.train``'s entry point at TRAIN_ARGS: every loss
-    finite, the step-0 cross-entropy within CE_SPREAD of initial_ce, the
-    flash kernels launched as train_launches says.  Then one more step with
-    the backward's inputs captured (layer 0's, for flash_bwd).  Returns
-    (forward launches, backward launches, layer-0 backward inputs,
-    metrics)."""
+def mamba_layers(cfg) -> int:
+    return sum(k == "mamba" for rep, ks in cfg.pattern for _ in range(rep)
+               for k in ks)
+
+
+def scan_counts() -> dict:
+    """The SSD scan's and the step and decay's launch counts, forward and
+    backward, and the backward's passes."""
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    return {"mamba2_ssd": ssd_ops.LAUNCHES,
+            "step_decay": ssd_ops.STEP_DECAY_LAUNCHES,
+            "mamba2_ssd_bwd": ssd_ops.SSD_BWD_LAUNCHES,
+            "step_decay_bwd": ssd_ops.STEP_DECAY_BWD_LAUNCHES,
+            **{f"bwd {k}": v for k, v in ssd_ops.BWD_PASS_LAUNCHES.items()}}
+
+
+def zero_scan_counts() -> None:
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    ssd_ops.LAUNCHES = ssd_ops.STEP_DECAY_LAUNCHES = 0
+    ssd_ops.SSD_BWD_LAUNCHES = ssd_ops.STEP_DECAY_BWD_LAUNCHES = 0
+    for k in ssd_ops.BWD_PASS_LAUNCHES:
+        ssd_ops.BWD_PASS_LAUNCHES[k] = 0
+
+
+def scan_train_launches(cfg, steps=1) -> dict:
+    """scan_counts of ``steps`` train steps: each mamba block's scan and
+    step and decay run forward twice under remat "block" (forward and
+    recompute) and backward once (the backward's four passes once each)."""
+    n = mamba_layers(cfg) * steps
+    f = 2 if cfg.remat == "block" else 1
+    return {"mamba2_ssd": n * f, "step_decay": n * f, "mamba2_ssd_bwd": n,
+            "step_decay_bwd": n, "bwd chunk_dstate": n,
+            "bwd state_pass_bwd": n, "bwd chunk_bwd": n,
+            "bwd sum_groups": n}
+
+
+def phase_train(device, *, arch=SERVE_ARCH, full=True, tag="train",
+                **args):
+    """``repro_torch.launch.train``'s entry point at TRAIN_ARGS (or
+    ``args``): every loss finite, the step-0 cross-entropy within CE_SPREAD
+    of initial_ce, the flash kernels (and a hybrid's scan kernels, forward
+    and backward) launched as train_launches and scan_train_launches say.
+    Then one more step with the backward wrappers' inputs captured (layer
+    0's: flash_bwd, ssd_bwd, step_decay_bwd), whose gradient norm must be
+    finite and above 0.  Returns (forward launches, backward launches,
+    the captures by wrapper name, metrics)."""
     import math
     import statistics
     import torch
@@ -4038,22 +4412,25 @@ def phase_train(device, *, arch=SERVE_ARCH, full=True, **args):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     zero_flash_counts()
+    zero_scan_counts()
     t0 = synced(device)
     trainer = train.main(argv)
     wall = synced(device) - t0
     fwd, bwd = flash_counts()
+    scans = scan_counts()
     cfg = trainer.cfg
     hist = trainer.history
     losses = [h["loss"] for h in hist]
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"train: a loss is not finite: {losses}")
-    check_ce("step 0", "train", losses[0], cfg)
+        raise AssertionError(f"{tag}: a loss is not finite: {losses}")
+    check_ce("step 0", tag, losses[0], cfg)
     per_step = train_launches(cfg, args["seq"])
     steps = len(hist)
-    expect_launches("train", device, (fwd, bwd),
+    expect_launches(tag, device, (fwd, bwd),
                     (per_step[0] * steps, per_step[1] * steps))
-    if cuda and per_step[1] == 0:
-        raise AssertionError("train: no flash backward on the main path")
+    expect_launches(tag, device, scans, scan_train_launches(cfg, steps))
+    if cuda and per_step[1] + scans["mamba2_ssd_bwd"] == 0:
+        raise AssertionError(f"{tag}: no backward kernel on the main path")
     ms = [1e3 * h["dt"] for h in hist]
     steady = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
     tokens = args["batch"] * args["seq"]
@@ -4064,20 +4441,26 @@ def phase_train(device, *, arch=SERVE_ARCH, full=True, **args):
         ms_per_step=steady, first_step_ms=ms[0], tokens_per_s=tokens
         / (steady / 1e3), wall_s=wall,
         peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
-        flash_fwd_per_step=fwd / steps, flash_bwd_per_step=bwd / steps)
-    say("train", f"{arch} {'full' if full else 'reduced'} "
+        flash_fwd_per_step=fwd / steps, flash_bwd_per_step=bwd / steps,
+        scan_launches={k: v / steps for k, v in scans.items() if v})
+    layer0 = {}
+    undo = capture_last_calls(layer0)
+    try:
+        _, m = trainer.step_fn(trainer.state, trainer.loader.next_batch())
+    finally:
+        undo()
+    metrics["grad_norm"] = float(m["grad_norm"])
+    if not (math.isfinite(metrics["grad_norm"]) and metrics["grad_norm"] > 0):
+        raise AssertionError(f"{tag}: grad norm {metrics['grad_norm']}")
+    say(tag, f"{arch} {'full' if full else 'reduced'} "
         f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.param_dtype}, "
         f"remat {cfg.remat}), {args['batch']} x {args['seq']} tokens: "
         f"losses {[round(x, 4) for x in losses]}, {steady:.1f} ms/step "
         f"(first {ms[0]:.1f}), {metrics['tokens_per_s']:.0f} tokens/s, "
-        f"peak {metrics['peak_gb']} GB, flash forward {fwd / steps:g} and "
-        f"backward {bwd / steps:g} launches per step")
-    layer0 = {}
-    undo = capture_flash_bwd(layer0)
-    try:
-        trainer.step_fn(trainer.state, trainer.loader.next_batch())
-    finally:
-        undo()
+        f"peak {metrics['peak_gb']} GB, grad norm {metrics['grad_norm']:.4g}"
+        f", flash forward {fwd / steps:g} and backward {bwd / steps:g} "
+        f"launches per step; scan launches per step "
+        f"{metrics['scan_launches']}")
     del trainer
     if cuda:
         torch.cuda.empty_cache()
@@ -4090,68 +4473,93 @@ def phase_train(device, *, arch=SERVE_ARCH, full=True, **args):
 #: eps is 1e-5 there: at the default 1e-8 a gradient at float32 noise level
 #: takes a whole +-lr step whose sign is the noise's, on either side.
 TRAIN_F32_TOL = dict(loss=1e-5, leaf=1e-4)
+#: zamba2's leaves within 3e-4 of their max: its gradients run back through
+#: the SSD scan's chunk products and the log decay's in-chunk prefix sums,
+#: which the backward kernels sum in other orders than the plain version
+#: (tests/test_torch_train.py's SCAN_GRAD_TOL against the reference, for
+#: the same reason).
+TRAIN_F32_SCAN_TOL = dict(loss=1e-5, leaf=3e-4)
+#: The archs of train_card_vs_cpu: (cut in depth, tolerances).
+TRAIN_CARD_VS_CPU = {
+    SERVE_ARCH: (lambda n: dict(n_layers=n, pattern=((n, ("attn",)),)),
+                 TRAIN_F32_TOL),
+    "zamba2-2.7b": (lambda n: SSM_CUTS["zamba2-2.7b"], TRAIN_F32_SCAN_TOL),
+}
 
 
-def phase_train_card_vs_cpu(device, *, reduced=False, n_layers=2, seq=512):
-    """danube at full width cut to ``n_layers``, float32, tiles of 256 (so
-    the 512 tokens go through the flash kernels): one train step's loss,
-    gradients and AdamW update on the card and on the CPU from the same
-    weights and batch."""
+def phase_train_card_vs_cpu(device, *, reduced=False, n_layers=2, seq=512,
+                            archs=tuple(TRAIN_CARD_VS_CPU)):
+    """danube at full width cut to ``n_layers`` and zamba2 cut as SSM_CUTS
+    (a mamba block and the shared block), float32, tiles of 256 (so the
+    512 tokens go through the flash kernels, and zamba2's through the SSD
+    kernels and their backward): one train step's loss, gradients and AdamW
+    update on the card and on the CPU from the same weights and batch,
+    within each arch's tolerance.  Returns {arch: (loss error, worst
+    leaf)}."""
     import copy
     import numpy as np
     import torch
     from repro_torch.models import model as M
     from repro_torch.train import optimizer as O
     from repro_torch.train import train_step as T
-    cut = {} if reduced else dict(n_layers=n_layers,
-                                  pattern=((n_layers, ("attn",)),))
-    cfg = serve_config(reduced, SERVE_ARCH, dtype="float32",
-                       param_dtype="float32", block_q=256, block_k=256,
-                       loss_chunk=256, **cut)
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on; float32 parity needs "
                              "them off")
-    card = M.init_params(cfg, seed=2, device=device).requires_grad_(True)
-    cpu = copy.deepcopy(card).to("cpu")
-    ids = np.random.default_rng(2).integers(0, cfg.vocab, (1, seq + 1))
-    ocfg = O.OptConfig(lr=1e-3, warmup_steps=1, eps=1e-5)
-    zero_flash_counts()
-    out = {}
-    for name, params in (("card", card), ("cpu", cpu)):
-        dev = O.leaves(params)[0][1].device
-        batch = T.to_device({"tokens": ids[:, :-1], "labels": ids[:, 1:]},
-                            dev)
-        loss, _, grads = T._grads(params, cfg, batch)
-        params, opt, om = O.apply(ocfg, params, grads, O.init(params))
-        out[name] = (loss, grads, params, opt)
-    fwd, bwd = flash_counts()
-    expect_launches("train_card_vs_cpu", device, (fwd, bwd),
-                    train_launches(cfg, seq))
-    (l_card, g_card, p_card, o_card), (l_cpu, g_cpu, p_cpu, o_cpu) = \
-        out["card"], out["cpu"]
-    loss_err = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
-    worst = {}
-    for what, a, b in (("grad", g_card, g_cpu), ("param", p_card, p_cpu),
-                       ("mu", o_card.mu, o_cpu.mu),
-                       ("nu", o_card.nu, o_cpu.nu)):
-        for path, x in O.leaves(a):
-            y = O.get_path(b, path)
-            err = float((x.detach().cpu().double() - y.detach().double())
-                        .abs().max() / y.detach().double().abs().max()
-                        .clamp_min(1e-30))
-            key = f"{what} {'.'.join(path)}"
-            worst[key] = err
-    bad = {k: v for k, v in worst.items() if not v <= TRAIN_F32_TOL["leaf"]}
-    if not loss_err <= TRAIN_F32_TOL["loss"] or bad:
-        raise AssertionError(f"train_card_vs_cpu: loss rel err {loss_err:.3g}"
-                             f", leaves over {TRAIN_F32_TOL['leaf']}: {bad}")
-    top = max(worst, key=worst.get)
-    say("train_card_vs_cpu", f"danube {cfg.n_layers} layers float32, "
-        f"{seq} tokens: loss {float(l_card):.6f} (card) vs "
-        f"{float(l_cpu):.6f} (cpu), rel err {loss_err:.3g}; worst leaf "
-        f"{top} {worst[top]:.3g} of its max over {len(worst)} leaves; "
-        f"flash forward {fwd}, backward {bwd}")
-    return dict(loss_rel_err=loss_err, worst_leaf=worst[top])
+    results = {}
+    for arch in archs:
+        cut_of, tol = TRAIN_CARD_VS_CPU[arch]
+        cfg = serve_config(reduced, arch, dtype="float32",
+                           param_dtype="float32", block_q=256, block_k=256,
+                           loss_chunk=256,
+                           **({} if reduced else cut_of(n_layers)))
+        card = M.init_params(cfg, seed=2, device=device).requires_grad_(True)
+        cpu = copy.deepcopy(card).to("cpu")
+        ids = np.random.default_rng(2).integers(0, cfg.vocab, (1, seq + 1))
+        ocfg = O.OptConfig(lr=1e-3, warmup_steps=1, eps=1e-5)
+        zero_flash_counts()
+        zero_scan_counts()
+        out = {}
+        for name, params in (("card", card), ("cpu", cpu)):
+            dev = O.leaves(params)[0][1].device
+            batch = T.to_device({"tokens": ids[:, :-1],
+                                 "labels": ids[:, 1:]}, dev)
+            loss, _, grads = T._grads(params, cfg, batch)
+            params, opt, om = O.apply(ocfg, params, grads, O.init(params))
+            out[name] = (loss, grads, params, opt)
+        fwd, bwd = flash_counts()
+        expect_launches(f"train_card_vs_cpu {arch}", device, (fwd, bwd),
+                        train_launches(cfg, seq))
+        scans = scan_counts()
+        expect_launches(f"train_card_vs_cpu {arch}", device, scans,
+                        scan_train_launches(cfg))
+        (l_card, g_card, p_card, o_card), (l_cpu, g_cpu, p_cpu, o_cpu) = \
+            out["card"], out["cpu"]
+        loss_err = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+        worst = {}
+        for what, a, b in (("grad", g_card, g_cpu), ("param", p_card, p_cpu),
+                           ("mu", o_card.mu, o_cpu.mu),
+                           ("nu", o_card.nu, o_cpu.nu)):
+            for path, x in O.leaves(a):
+                y = O.get_path(b, path)
+                err = float((x.detach().cpu().double() - y.detach().double())
+                            .abs().max() / y.detach().double().abs().max()
+                            .clamp_min(1e-30))
+                worst[f"{what} {'.'.join(path)}"] = err
+        bad = {k: v for k, v in worst.items() if not v <= tol["leaf"]}
+        if not loss_err <= tol["loss"] or bad:
+            raise AssertionError(f"train_card_vs_cpu {arch}: loss rel err "
+                                 f"{loss_err:.3g}, leaves over "
+                                 f"{tol['leaf']}: {bad}")
+        top = max(worst, key=worst.get)
+        say("train_card_vs_cpu", f"{arch} {cfg.n_layers} layers float32, "
+            f"{seq} tokens: loss {float(l_card):.6f} (card) vs "
+            f"{float(l_cpu):.6f} (cpu), rel err {loss_err:.3g}; worst leaf "
+            f"{top} {worst[top]:.3g} of its max over {len(worst)} leaves "
+            f"(tolerance {tol['leaf']:g}); flash forward {fwd}, backward "
+            f"{bwd}; scan launches {({k: v for k, v in scans.items() if v})}")
+        results[arch] = dict(loss_rel_err=loss_err, worst_leaf=worst[top])
+        del card, cpu, out
+    return results
 
 
 #: The train_blocks phase: each arch at full width cut in depth, bf16,
@@ -4168,8 +4576,8 @@ TRAIN_BLOCKS = {
                              4096),
     "musicgen-medium": (dict(n_layers=2, pattern=((2, ("attn",)),)), 4096),
 }
-#: Trained on the CPU only: their scan kernels have no backward yet.
-SCAN_ARCHS = ("zamba2-2.7b", "rwkv6-7b")
+#: Trained on the CPU only: its scan kernel has no backward yet.
+SCAN_ARCHS = ("rwkv6-7b",)
 
 
 def phase_train_blocks(device, *, reduced=False, steps=2, seq=None,
@@ -4179,8 +4587,8 @@ def phase_train_blocks(device, *, reduced=False, steps=2, seq=None,
     CE_SPREAD of initial_ce, a finite gradient norm above 0, the flash
     kernels launched as train_launches says; then the flash backward of
     the last step's layer 0, on the inputs it was given (bf16), against
-    the plain version (flash_bwd_check), outside the counts.  zamba2 and
-    rwkv6 must refuse a train step on the card, naming the next slice.
+    the plain version (flash_bwd_check), outside the counts.  rwkv6 must
+    refuse a train step on the card, naming the next slice.
     Returns (forward, backward launches, {arch: metrics}, the worst
     backward error)."""
     import math
@@ -4202,8 +4610,8 @@ def phase_train_blocks(device, *, reduced=False, steps=2, seq=None,
         zero_flash_counts()
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-        layer0 = {}
-        undo = capture_flash_bwd(layer0)
+        store = {}
+        undo = capture_last_calls(store)
         try:
             rows, t0 = [], synced(device)
             for _ in range(steps):
@@ -4223,9 +4631,10 @@ def phase_train_blocks(device, *, reduced=False, steps=2, seq=None,
         if not all(math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
                    for r in rows):
             raise AssertionError(f"train_blocks {arch}: grad norms {rows}")
-        if "args" not in layer0:
+        if "flash_attention_bwd" not in store:
             raise AssertionError(f"train_blocks {arch}: no flash backward "
                                  "ran")
+        layer0 = store.pop("flash_attention_bwd")
         (q, k, v, _, _, _, dout), kw = layer0["args"], layer0["kw"]
         q_shape, kv_shape, q_dtype = q.shape, k.shape, str(q.dtype)[6:]
         err = flash_bwd_check(q, k, v, dout, kw, f"train_blocks {arch} "
@@ -4592,8 +5001,27 @@ def main() -> int:
     say("train", "metrics " + json.dumps(train_metrics))
     launches["flash_attention"] += fwd
     launches["flash_attention_bwd"] = bwd
-    records["flash_attention_bwd"] = timed("flash_bwd", phase_flash_bwd,
-                                           device, layer0)
+    records["flash_attention_bwd"] = timed(
+        "flash_bwd", phase_flash_bwd, device, layer0["flash_attention_bwd"])
+    del layer0
+    # zamba2 at full width through the train CLI: the SSD scan and the
+    # step and decay forward and backward on the card, every counter zeroed
+    # before it; then their backward kernels against their plain versions.
+    fwd, bwd, layer0, train_metrics = timed(
+        "train_zamba2", phase_train, device, arch="zamba2-2.7b",
+        tag="train_zamba2", **TRAIN_ZAMBA2_ARGS)
+    say("train_zamba2", "metrics " + json.dumps(train_metrics))
+    launches["flash_attention"] += fwd
+    launches["flash_attention_bwd"] += bwd
+    per_step = train_metrics["steps"]
+    for name in ("mamba2_ssd", "step_decay", "mamba2_ssd_bwd",
+                 "step_decay_bwd"):
+        launches[name] = launches.get(name, 0) + round(
+            train_metrics["scan_launches"][name] * per_step)
+    records["mamba2_ssd_bwd"] = timed("ssd_bwd", phase_ssd_bwd, device,
+                                      layer0["mamba2_ssd_bwd"])
+    records["step_decay_bwd"] = timed("step_decay_bwd", phase_step_decay_bwd,
+                                      device, layer0["step_and_decay_bwd"])
     del layer0
     timed("train_card_vs_cpu", phase_train_card_vs_cpu, device)
     fwd, bwd, _, bwd_err = timed("train_blocks", phase_train_blocks, device)
@@ -4614,14 +5042,19 @@ def main() -> int:
                 # Not a Pallas kernel: the XLA fusion of softplus and exp.
                 "step_decay": "src/repro/models/ssm.py:131",
                 # Not a Pallas kernel: plain JAX under a custom_vjp.
-                "flash_attention_bwd": "src/repro/models/attention.py:241"}
+                "flash_attention_bwd": "src/repro/models/attention.py:241",
+                # Not Pallas kernels: jax.vjp of ssd_chunked and jax.grad of
+                # the softplus and exp fusion.
+                "mamba2_ssd_bwd": "src/repro/models/ssm.py:66",
+                "step_decay_bwd": "src/repro/models/ssm.py:131"}
     kernels = []
     for name in ("tick_step[themis]", "tick_step[fifo]", "token_select",
                  "flash_attention", "mamba2_ssd", "wkv6", "step_decay",
-                 "flash_attention_bwd"):
+                 "flash_attention_bwd", "mamba2_ssd_bwd", "step_decay_bwd"):
         r = records[name]
         base = name.split("[")[0]
-        source = {"step_decay": "mamba2_ssd",
+        source = {"step_decay": "mamba2_ssd", "mamba2_ssd_bwd": "mamba2_ssd",
+                  "step_decay_bwd": "mamba2_ssd",
                   "flash_attention_bwd": "flash_attention"}.get(base, base)
         kernels.append(dict(
             name=name, route="cuda",
@@ -4630,7 +5063,8 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms"),
-            **{k: r[k] for k in ("pass_ms", "at_shapes") if k in r},
+            **{k: r[k] for k in ("pass_ms", "at_shapes", "empty_launch_ms",
+                                 "sweep") if k in r},
             **{k: v for k, v in r.items() if k.startswith("service_")},
             **row_records.get(name, {})))
     print(json.dumps({"kernels": kernels}))

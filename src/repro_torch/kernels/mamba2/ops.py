@@ -17,7 +17,16 @@ layer), ``PASS_LAUNCHES`` the launches of each pass, from any wrapper.
 
 ``step_and_decay`` is a fourth, elementwise kernel of the same source: the
 scan's step ``dt`` and decay ``a`` from the projection's ``dt_raw``, in
-the reference's float32 roundings (``STEP_DECAY_LAUNCHES`` counts it).
+the reference's float32 roundings (``STEP_DECAY_LAUNCHES`` counts it);
+``step_decay_sweep`` runs its exhaustive check over all float32 inputs.
+
+The backward: ``mamba2_ssd_bwd`` runs four passes, each with a wrapper of
+its own (``chunk_dstate``, ``state_pass_bwd``, and ``chunk_bwd``, which
+runs the per-chunk kernel and the sum of its head groups' partials);
+``SSD_BWD_LAUNCHES`` counts its calls on the card, ``BWD_PASS_LAUNCHES``
+each pass's launches.  ``step_and_decay_bwd`` is the step and decay's
+backward (``STEP_DECAY_BWD_LAUNCHES``; two device launches a call: the
+per-tile kernel and the sum of its tiles).
 """
 from __future__ import annotations
 
@@ -28,8 +37,10 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .ref import (chunk_scan_ref, chunk_state_ref, mamba2_ssd_ref,
-                  state_pass_ref, step_and_decay_ref)
+from .ref import (chunk_bwd_ref, chunk_dstate_ref, chunk_scan_ref,
+                  chunk_state_ref, mamba2_ssd_bwd_ref, mamba2_ssd_ref,
+                  state_pass_bwd_ref, state_pass_ref, step_and_decay_bwd_ref,
+                  step_and_decay_ref)
 
 #: Calls of :func:`mamba2_ssd` on the card in this process.
 LAUNCHES = 0
@@ -39,6 +50,17 @@ PASS_LAUNCHES = {"chunk_state": 0, "state_pass": 0, "chunk_scan": 0}
 
 #: Launches of the step_decay kernel in this process.
 STEP_DECAY_LAUNCHES = 0
+
+#: Calls of :func:`mamba2_ssd_bwd` on the card in this process.
+SSD_BWD_LAUNCHES = 0
+
+#: Kernel launches of each backward pass in this process.
+BWD_PASS_LAUNCHES = {"chunk_dstate": 0, "state_pass_bwd": 0, "chunk_bwd": 0,
+                     "sum_groups": 0}
+
+#: Calls of :func:`step_and_decay_bwd` on the card in this process.
+STEP_DECAY_BWD_LAUNCHES = 0
+
 
 #: Shared memory one block may use on the H100 (bytes).
 MAX_SMEM = 232448
@@ -51,15 +73,28 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
+#: The source's queries: functions that launch nothing (no ``_launch``).
+_QUERIES = ("step_decay_bwd_tiles", "chunk_bwd_heads")
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher(name: str):
     lib = _build.load("mamba2_ssd")
-    fn = getattr(lib, f"mamba2_{name}_launch")
+    fn = getattr(lib, f"mamba2_{name}" if name in _QUERIES
+                 else f"mamba2_{name}_launch")
     fn.argtypes = {
         "chunk_state": [_PTR] * 5 + [_INT] * 6 + [_LL] * 7 + [_INT, _PTR],
         "state_pass": [_PTR] * 4 + [_INT] * 6 + [_PTR],
         "chunk_scan": [_PTR] * 6 + [_INT] * 6 + [_LL] * 7 + [_INT, _PTR],
         "step_decay": [_PTR] * 5 + [_INT] * 2 + [_LL, _INT, _PTR],
+        "step_decay_sweep": [_PTR] * 3,
+        "step_decay_bwd_tiles": [_INT],
+        "step_decay_bwd": [_PTR] * 11 + [_INT] * 2 + [_LL, _INT, _PTR],
+        "chunk_dstate": [_PTR] * 4 + [_INT] * 6 + [_LL] * 2 + [_INT, _PTR],
+        "state_pass_bwd": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+        "chunk_bwd_heads": [_INT] * 4,
+        "chunk_bwd": [_PTR] * 12 + [_INT] * 7 + [_LL] * 9 + [_INT, _PTR],
+        "sum_groups": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     }[name]
     fn.restype = ctypes.c_int
     return fn
@@ -80,6 +115,11 @@ def _launch(name: str, device, *args) -> None:
     PASS_LAUNCHES[name] += 1
 
 
+def _ask(name: str, *args) -> int:
+    """The value of a launcher's query (no launch) on the current device."""
+    return _launcher(name)(*args)
+
+
 def smem_bytes(chunk: int, p: int, n: int) -> int:
     """Shared memory of the larger block of the passes, as
     ``csrc/mamba2_ssd.cu`` lays them out."""
@@ -90,6 +130,16 @@ def smem_bytes(chunk: int, p: int, n: int) -> int:
             + 2 * max(chunk * (p + 4), n * (chunk + 4)) + 2 * n * (p + 4)
             + 3 * chunk)
     return 4 * max(state, scan)
+
+
+def bwd_smem_bytes(chunk: int, p: int, n: int) -> int:
+    """Shared memory of the backward's chunk_bwd block, as
+    ``csrc/mamba2_ssd.cu`` lays it out (``bwd_smem_floats``)."""
+    lt = chunk // 4
+    nl = lt * (lt + 1) // 2
+    part = max(8 * nl, chunk * (p // 4), chunk * (n // 4))
+    return 4 * (2 * chunk * (n + 4) + 2 * chunk * (p + 4) + n * (p + 4)
+                + 16 * nl + part + 5 * chunk + 512 // 32)
 
 
 def _check_devices(name, tensors) -> None:
@@ -302,18 +352,20 @@ def chunk_scan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
 def mamba2_ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                c: torch.Tensor, *, chunk: int,
-               h0: torch.Tensor | None = None):
+               h0: torch.Tensor | None = None, keep: bool = False):
     """Chunked Mamba-2 SSD scan: x [B,S,H,P] float32 (dt-scaled), a [B,S,H]
     float32 decay in (0, 1], b/c [B,S,N] float32 or bfloat16 (shared across
     heads), h0 [B,H,P,N] float32 or None (zeros); S a multiple of
-    ``chunk``.  Returns (y [B,S,H,P], h_final [B,H,P,N]), both float32.
+    ``chunk``.  Returns (y [B,S,H,P], h_final [B,H,P,N]), both float32,
+    and with ``keep`` also the scratch the backward reads (cum, the state
+    entering each chunk; on the card in ``kernel_layout``).
     On the card: the inputs in ``kernel_layout``, then ``chunk_state``,
     ``state_pass``, ``chunk_scan``, three
     launches with float32 scratch of N / chunk + 1 / P times x's size."""
     global LAUNCHES
     check_inputs(x, a, b, c, chunk, h0)
     if x.device.type == "cpu":
-        return mamba2_ssd_ref(x, a, b, c, chunk=chunk, h0=h0)
+        return mamba2_ssd_ref(x, a, b, c, chunk=chunk, h0=h0, keep=keep)
     (x, a, b, c, h0), pn = kernel_layout(x, a, b, c, h0)
     _check_kernel(x, a, b, c, chunk, h0)
     shape_cum, shape_states = _scratch_shapes(x, b, chunk)
@@ -326,7 +378,8 @@ def mamba2_ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     _run_state_pass(states, cum, h0, hf)
     _run_chunk_scan(x, b, c, cum, states, chunk, y)
     LAUNCHES += 1
-    return from_kernel_layout(y, hf, pn)
+    y, hf = from_kernel_layout(y, hf, pn)
+    return (y, hf, cum, states) if keep else (y, hf)
 
 
 def step_and_decay(dt_raw: torch.Tensor, dt_bias: torch.Tensor,
@@ -363,3 +416,261 @@ def step_and_decay(dt_raw: torch.Tensor, dt_bias: torch.Tensor,
           rows.stride(0), _DTYPES[rows.dtype])
     STEP_DECAY_LAUNCHES += 1
     return dt.view(dt_raw.shape), a.view(dt_raw.shape)
+
+
+def step_decay_sweep(device="cuda") -> dict:
+    """The step_decay kernel's exhaustive check on the card: every float32
+    bit pattern through exp, log1p and softplus as the first version
+    computed them (each multiply-add a float64 product and sum) and as the
+    kernel does (log1p on the arguments softplus gives it: +0, normal
+    floats up to 1, NaN).  Returns {function: (inputs whose bits differ,
+    the least such input's bits or None)}; two NaNs count as equal."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("step_decay_sweep runs on the card")
+    counts = torch.zeros(3, dtype=torch.int64, device=device)
+    first = torch.zeros(3, dtype=torch.int32, device=device)
+    _call("step_decay_sweep", device, counts.data_ptr(), first.data_ptr())
+    return {fn: (n, None if n == 0 else lo & 0xffffffff)
+            for fn, n, lo in zip(("exp", "log1p", "softplus"),
+                                 counts.tolist(), first.tolist())}
+
+
+def step_and_decay_bwd(g_dt: torch.Tensor, g_a: torch.Tensor,
+                       dt_raw: torch.Tensor, dt_bias: torch.Tensor,
+                       a_log: torch.Tensor, dt: torch.Tensor,
+                       a: torch.Tensor):
+    """The backward of :func:`step_and_decay`: (g_dt_raw in ``dt_raw``'s
+    dtype and shape, g_dt_bias [H], g_a_log [H]) from the gradients of its
+    outputs ``g_dt``, ``g_a`` and its inputs and outputs.  On the card: one
+    call of two launches (the tiles' column sums in a fixed order, no
+    atomics)."""
+    global STEP_DECAY_BWD_LAUNCHES
+    h = dt_raw.shape[-1]
+    for name, t in (("g_dt", g_dt), ("g_a", g_a), ("dt", dt), ("a", a)):
+        if t.dtype != torch.float32 or t.shape != dt_raw.shape:
+            raise ValueError(f"step_and_decay_bwd: {name} must be float32 "
+                             f"{tuple(dt_raw.shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if dt_raw.dtype not in _DTYPES:
+        raise TypeError(f"step_and_decay_bwd takes float32 or bfloat16 "
+                        f"dt_raw, got {dt_raw.dtype}")
+    for name, t in (("dt_bias", dt_bias), ("a_log", a_log)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (h,):
+            raise ValueError(f"step_and_decay_bwd: {name} must be float32 "
+                             f"({h},), got {t.dtype} {tuple(t.shape)}")
+    _check_devices("step_and_decay_bwd",
+                   [g_dt, g_a, dt_raw, dt_bias, a_log, dt, a])
+    if dt_raw.device.type == "cpu":
+        return step_and_decay_bwd_ref(g_dt, g_a, dt_raw, dt_bias, a_log, dt,
+                                      a)
+    raw = dt_raw.reshape(-1, h)
+    if raw.stride(1) != 1 or raw.stride(0) < h:
+        raw = raw.contiguous()
+    rows = raw.shape[0]
+    if raw.numel() >= 2 ** 31 or rows == 0:
+        raise ValueError(f"step_and_decay_bwd kernel takes 1 to 2^31 - 1 "
+                         f"elements, got {raw.numel()}")
+    g_dt, g_a, dt, a = (t.reshape(rows, h).contiguous()
+                        for t in (g_dt, g_a, dt, a))
+    bias, a_log = dt_bias.contiguous(), a_log.contiguous()
+    dev = raw.device
+    g_raw = torch.empty((rows, h), dtype=raw.dtype, device=dev)
+    with torch.cuda.device(dev):
+        tiles = _ask("step_decay_bwd_tiles", rows)
+    part = torch.empty((tiles, 2, h), dtype=torch.float32, device=dev)
+    g_bias = torch.empty(h, dtype=torch.float32, device=dev)
+    g_alog = torch.empty_like(g_bias)
+    _call("step_decay_bwd", dev, g_dt.data_ptr(), g_a.data_ptr(),
+          raw.data_ptr(), dt.data_ptr(), a.data_ptr(), bias.data_ptr(),
+          a_log.data_ptr(), g_raw.data_ptr(), part.data_ptr(),
+          g_bias.data_ptr(), g_alog.data_ptr(), rows, h, raw.stride(0),
+          _DTYPES[raw.dtype])
+    STEP_DECAY_BWD_LAUNCHES += 1
+    return g_raw.view(dt_raw.shape), g_bias, g_alog
+
+
+def _bwd_launch(name: str, device, *args) -> None:
+    _call(name, device, *args)
+    BWD_PASS_LAUNCHES[name] += 1
+
+
+def _check_bwd_kernel(chunk, p, n) -> None:
+    """What the backward's kernels take beyond the forward's
+    (``_check_kernel``): chunk_bwd's shared memory."""
+    if bwd_smem_bytes(chunk, p, n) > MAX_SMEM:
+        raise ValueError(f"mamba2_ssd backward kernel: chunk {chunk} with "
+                         f"P={p}, N={n} needs {bwd_smem_bytes(chunk, p, n)} "
+                         f"bytes of shared memory in chunk_bwd, more than "
+                         f"{MAX_SMEM} (ROADMAP section 3, fault 1)")
+
+
+def _check_grad(name, t, shape) -> None:
+    if t is not None and (t.dtype != torch.float32
+                          or tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"mamba2_ssd_bwd: {name} must be float32 "
+                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+
+
+def chunk_dstate(dy: torch.Tensor, c: torch.Tensor, cum: torch.Tensor, *,
+                 chunk: int):
+    """Backward pass 1: q [B,nc,H,N,P], each chunk's sum_i exp(cum_i) dy_i
+    (x) C_i, transposed, float32, from dy [B,S,H,P] float32, c [B,S,N] and
+    the forward's cum [B,nc,H,L]."""
+    bsz, s, h, p = dy.shape
+    n = c.shape[-1]
+    _check_grad("dy", dy, dy.shape)
+    if c.dtype not in _DTYPES or c.shape[:2] != dy.shape[:2] or s % chunk \
+            or tuple(cum.shape) != (bsz, s // chunk, h, chunk):
+        raise ValueError(f"chunk_dstate takes dy [B,S,H,P], c [B,S,N] and cum"
+                         f" [B,S/chunk,H,chunk], got {tuple(dy.shape)}, "
+                         f"{tuple(c.shape)}, {tuple(cum.shape)}")
+    _check_devices("chunk_dstate", [dy, c, cum])
+    if dy.device.type == "cpu":
+        return chunk_dstate_ref(dy, c, cum, chunk=chunk)
+    if p % 4 or n % 4 or chunk % 4 or c.stride(2) != 1 \
+            or not (dy.is_contiguous() and cum.is_contiguous()) \
+            or dy.data_ptr() % 16 or cum.data_ptr() % 16:
+        raise ValueError("chunk_dstate kernel takes contiguous, 16-byte "
+                         "aligned dy and cum, c with its innermost dimension "
+                         "contiguous, and P, N and chunk multiples of 4")
+    q = torch.empty((bsz, s // chunk, h, n, p), dtype=torch.float32,
+                    device=dy.device)
+    _run_chunk_dstate(dy, c, cum, chunk, q)
+    return q
+
+
+def _run_chunk_dstate(dy, c, cum, chunk, q) -> None:
+    bsz, s, h, p = dy.shape
+    _bwd_launch("chunk_dstate", dy.device, dy.data_ptr(), c.data_ptr(),
+                cum.data_ptr(), q.data_ptr(), bsz, s, h, p, c.shape[-1],
+                chunk, c.stride(0), c.stride(1), _DTYPES[c.dtype])
+
+
+def state_pass_bwd(q: torch.Tensor, cum: torch.Tensor, *,
+                   dhf: torch.Tensor | None = None):
+    """Backward pass 2: overwrites ``q`` ([B,nc,H,N,P], transposed) with the
+    gradient of the state leaving each chunk, carried backwards from
+    ``dhf`` [B,H,P,N] (or zeros) by ``R <- exp(cum_{L-1}) R + q_c``;
+    returns (q, dh0 [B,H,P,N])."""
+    bsz, nc, h, n, p = q.shape
+    chunk = cum.shape[-1]
+    if q.dtype != torch.float32 or cum.dtype != torch.float32 \
+            or tuple(cum.shape[:3]) != (bsz, nc, h):
+        raise ValueError(f"state_pass_bwd takes float32 q [B,nc,H,N,P] and "
+                         f"cum [B,nc,H,L], got {q.dtype} {tuple(q.shape)}, "
+                         f"{cum.dtype} {tuple(cum.shape)}")
+    _check_grad("dhf", dhf, (bsz, h, p, n))
+    _check_devices("state_pass_bwd", [q, cum, dhf])
+    if q.device.type == "cpu":
+        return state_pass_bwd_ref(q, cum, dhf=dhf)
+    if p % 4 or n % 4 or chunk % 4 or q.data_ptr() % 16 \
+            or not (q.is_contiguous() and cum.is_contiguous()) \
+            or (dhf is not None and not dhf.is_contiguous()):
+        raise ValueError("state_pass_bwd kernel takes contiguous q (16-byte "
+                         "aligned), cum and dhf, and P, N and L multiples of "
+                         "4")
+    dh0 = torch.empty((bsz, h, p, n), dtype=torch.float32, device=q.device)
+    _run_state_pass_bwd(q, cum, dhf, dh0)
+    return q, dh0
+
+
+def _run_state_pass_bwd(q, cum, dhf, dh0) -> None:
+    bsz, nc, h, n, p = q.shape
+    _bwd_launch("state_pass_bwd", q.device, cum.data_ptr(), q.data_ptr(),
+                dhf.data_ptr() if dhf is not None else None, dh0.data_ptr(),
+                bsz, nc, h, p, n, cum.shape[-1])
+
+
+def chunk_bwd(x, a, b, c, dy, cum, h_in, r, *, chunk: int):
+    """Backward passes 3 and 4: (dx [B,S,H,P], da [B,S,H] float32, db, dc
+    [B,S,N] in b's dtype) from the forward's inputs, dy, cum, the state
+    entering each chunk ``h_in`` and the gradient of the state leaving it
+    ``r`` (both [B,nc,H,N,P], transposed).  On the card: the per-chunk
+    kernel over groups of heads, then the sum of the groups' dB and dC
+    partials in group order."""
+    check_inputs(x, a, b, c, chunk, None)
+    _check_grad("dy", dy, x.shape)
+    _check_scratch("chunk_bwd", cum, h_in, x, b, chunk)
+    _check_scratch("chunk_bwd", cum, r, x, b, chunk)
+    _check_devices("chunk_bwd", [x, a, b, c, dy, cum, h_in, r])
+    if x.device.type == "cpu":
+        return chunk_bwd_ref(x, a, b, c, dy, cum, h_in, r, chunk=chunk)
+    _check_kernel(x, a, b, c, chunk, None)
+    _check_bwd_kernel(chunk, x.shape[-1], b.shape[-1])
+    if not dy.is_contiguous() or dy.data_ptr() % 16:
+        raise ValueError("chunk_bwd kernel takes a contiguous, 16-byte "
+                         "aligned dy")
+    return _run_chunk_bwd(x, a, b, c, dy, cum, h_in, r, chunk)
+
+
+def _run_chunk_bwd(x, a, b, c, dy, cum, h_in, r, chunk):
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    dev = x.device
+    with torch.cuda.device(dev):
+        hpb = _ask("chunk_bwd_heads", bsz, s, h, chunk)
+    groups = -(-h // hpb)
+    dx = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    da = torch.empty(a.shape, dtype=torch.float32, device=dev)
+    dbp = torch.empty((bsz, s, groups, n), dtype=torch.float32, device=dev)
+    dcp = torch.empty_like(dbp)
+    _bwd_launch("chunk_bwd", dev, x.data_ptr(), a.data_ptr(), b.data_ptr(),
+                c.data_ptr(), dy.data_ptr(), cum.data_ptr(), h_in.data_ptr(),
+                r.data_ptr(), dx.data_ptr(), da.data_ptr(), dbp.data_ptr(),
+                dcp.data_ptr(), bsz, s, h, p, n, chunk, hpb, x.stride(0),
+                x.stride(1), x.stride(2), a.stride(0), a.stride(1),
+                b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+                _DTYPES[b.dtype])
+    db = torch.empty((bsz, s, n), dtype=b.dtype, device=dev)
+    dc = torch.empty_like(db)
+    _bwd_launch("sum_groups", dev, dbp.data_ptr(), dcp.data_ptr(),
+                db.data_ptr(), dc.data_ptr(), bsz, s, groups, n,
+                _DTYPES[b.dtype])
+    return dx, da, db, dc
+
+
+def mamba2_ssd_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, dy: torch.Tensor,
+                   dhf: torch.Tensor | None = None, *, chunk: int,
+                   cum: torch.Tensor, h_in: torch.Tensor):
+    """The gradient of :func:`mamba2_ssd`'s (y, h_final) with respect to
+    (x, a, b, c, h0), given dy [B,S,H,P] and dhf [B,H,P,N] (float32; None:
+    zeros) and the forward's scratch ``cum`` and ``h_in`` (``keep=True``;
+    h0 entered them).
+    Returns (dx, da float32, db, dc in b's dtype, dh0 float32).  On the
+    card: the inputs in ``kernel_layout``, then ``chunk_dstate``,
+    ``state_pass_bwd``, ``chunk_bwd`` and its group sum, four launches,
+    deterministic."""
+    global SSD_BWD_LAUNCHES
+    check_inputs(x, a, b, c, chunk, None)
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    _check_grad("dy", dy, x.shape)
+    _check_grad("dhf", dhf, (bsz, h, p, n))
+    _check_devices("mamba2_ssd_bwd", [x, a, b, c, dy, dhf, cum, h_in])
+    if x.device.type == "cpu":
+        return mamba2_ssd_bwd_ref(x, a, b, c, dy, dhf, chunk=chunk, cum=cum,
+                                  h_in=h_in)
+    (x, a, b, c, _), pn = kernel_layout(x, a, b, c, None)
+    pad_p, pad_n = x.shape[-1] - p, b.shape[-1] - n
+    dy = F.pad(dy, (0, pad_p)) if pad_p else dy
+    if dhf is not None and (pad_p or pad_n):
+        dhf = F.pad(dhf, (0, pad_n, 0, pad_p))
+    dy = dy.contiguous()
+    dhf = None if dhf is None else dhf.contiguous()
+    _check_kernel(x, a, b, c, chunk, None)
+    _check_bwd_kernel(chunk, x.shape[-1], b.shape[-1])
+    _check_scratch("mamba2_ssd_bwd", cum, h_in, x, b, chunk)
+    q = torch.empty(h_in.shape, dtype=torch.float32, device=x.device)
+    dh0 = torch.empty((bsz, h, x.shape[-1], b.shape[-1]),
+                      dtype=torch.float32, device=x.device)
+    _run_chunk_dstate(dy, c, cum, chunk, q)
+    _run_state_pass_bwd(q, cum, dhf, dh0)
+    dx, da, db, dc = _run_chunk_bwd(x, a, b, c, dy, cum, h_in, q, chunk)
+    SSD_BWD_LAUNCHES += 1
+    if pad_p or pad_n:
+        dx, db, dc = (dx[..., :p].contiguous(), db[..., :n].contiguous(),
+                      dc[..., :n].contiguous())
+        dh0 = dh0[..., :p, :n].contiguous()
+    return dx, da, db, dc, dh0

@@ -7,9 +7,9 @@ The port of ``repro.launch.train``: the arch's reduced config unless
 ``--full``, AdamW (lr 3e-4, 20 warmup steps, cosine to ``--steps``), the
 synthetic zipf corpus through the port's ``DataLoader``, a checkpoint every
 50 steps into ``--ckpt-dir`` if given.  Runs on the card by default;
-``--device cpu`` runs the plain path.  The archs whose only kernel under a
-gradient is flash attention train on either; zamba2-2.7b and rwkv6-7b
-train on the CPU only (their scan kernels have no backward yet).
+``--device cpu`` runs the plain path.  Every arch but rwkv6-7b trains on
+either (zamba2-2.7b's SSD scan and step and decay have backward kernels);
+rwkv6-7b trains on the CPU only (its WKV kernel has no backward yet).
 """
 from __future__ import annotations
 

@@ -9,18 +9,22 @@ with a_t = exp(-softplus(dt_raw_t + dt_bias) * A_head).
 The sequence path is the chunked SSD scan (:func:`ssd_chunked`): the
 ``mamba2_ssd`` kernel on the card, its plain version (the reference's
 ``ssd_chunked``) on the CPU; it returns the final state, which fills the
-decode cache.  Prefill and decode take the step dt and the decay a from
-one kernel (``step_and_decay``) in the reference's float32 roundings: the
-scan sums the log decay in the reference's order, where the prefix
-reaches thousands under strong decay.  Decode is the one-step recurrence carrying (conv window,
-state).  ``ssd_reference`` is the sequential oracle of the tests.
+decode cache.  Under a gradient it is an autograd Function whose backward
+is ``mamba2_ssd_bwd`` (the backward kernels on the card, their plain
+version on the CPU).  Prefill and decode take the step dt and the decay a
+from one kernel (``step_and_decay``) in the reference's float32 roundings:
+the scan sums the log decay in the reference's order, where the prefix
+reaches thousands under strong decay; its backward is
+``step_and_decay_bwd``.  Decode is the one-step recurrence carrying (conv
+window, state).  ``ssd_reference`` is the sequential oracle of the tests.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..kernels.mamba2.ops import mamba2_ssd, step_and_decay
+from ..kernels.mamba2.ops import (mamba2_ssd, mamba2_ssd_bwd, step_and_decay,
+                                  step_and_decay_bwd)
 from .layers import Init, linear, linear_init, rmsnorm, rmsnorm_init
 
 
@@ -76,9 +80,10 @@ def _causal_conv(w, b, xbc, conv_state=None):
 class _StepDecay(torch.autograd.Function):
     """``step_and_decay`` under a gradient: the forward is the kernel or
     its plain version (the reference's roundings, which read float32 bits
-    and so have no autograd of their own), the backward the exact
-    derivatives dt' = sigmoid(dt_raw + dt_bias), da/ddt = -e a and
-    da/da_log = -dt e a with e = exp(a_log)."""
+    and so have no autograd of their own), the backward
+    ``step_and_decay_bwd`` (a kernel on the card): the exact derivatives
+    dt' = sigmoid(dt_raw + dt_bias), da/ddt = -e a and da/da_log = -dt e a
+    with e = exp(a_log)."""
 
     @staticmethod
     def forward(ctx, dt_raw, dt_bias, a_log):
@@ -89,12 +94,7 @@ class _StepDecay(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_dt, g_a):
         dt_raw, dt_bias, a_log, dt, a = ctx.saved_tensors
-        e = torch.exp(a_log)
-        g_step = g_a * a * -e                   # d loss / d dt through a
-        g_z = (g_dt + g_step) * torch.sigmoid(dt_raw.float() + dt_bias)
-        lead = tuple(range(g_z.dim() - 1))
-        return (g_z.to(dt_raw.dtype), g_z.sum(dim=lead),
-                (g_step * dt).sum(dim=lead))
+        return step_and_decay_bwd(g_dt, g_a, dt_raw, dt_bias, a_log, dt, a)
 
 
 def _step_and_decay(dt_raw, dt_bias, a_log):
@@ -104,22 +104,43 @@ def _step_and_decay(dt_raw, dt_bias, a_log):
     return step_and_decay(dt_raw, dt_bias, a_log)
 
 
+class _SSD(torch.autograd.Function):
+    """``mamba2_ssd`` under a gradient.  The forward keeps the scratch its
+    passes leave (the in-chunk prefix sums of the log decay and the state
+    entering each chunk), so the backward ``mamba2_ssd_bwd`` does not run
+    the forward's passes again: under remat "block" the forward already
+    runs twice, and the scratch lives only while its block's backward
+    does."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, c, h0, chunk):
+        y, hf, cum, h_in = mamba2_ssd(x, a, b, c, chunk=chunk, h0=h0,
+                                      keep=True)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, a, b, c, h0, cum, h_in)
+        return y, hf
+
+    @staticmethod
+    def backward(ctx, dy, dhf):
+        x, a, b, c, h0, cum, h_in = ctx.saved_tensors
+        dx, da, db, dc, dh0 = mamba2_ssd_bwd(x, a, b, c, dy, dhf,
+                                             chunk=ctx.chunk, cum=cum,
+                                             h_in=h_in)
+        return dx, da, db, dc, (dh0 if h0 is not None else None), None
+
+
 def ssd_chunked(x, a, b, c, dt=None, *, chunk: int, h0=None):
     """Chunked SSD scan.
 
     x: [B,S,H,P] (dt-scaled inputs), a: [B,S,H] per-step decay in (0,1],
     b,c: [B,S,N] (shared across heads, Mamba-2 style), dt is already folded
-    into x (unused, as in the reference). Returns (y [B,S,H,P], h_final
-    [B,H,P,N]), float32: the ``mamba2_ssd`` kernel for CUDA tensors, its
-    plain version for CPU tensors.  The kernel has no backward yet: a CUDA
-    input that requires grad is refused (the plain version differentiates)."""
+    into x (unused, as in the reference: it gets no gradient). Returns (y
+    [B,S,H,P], h_final [B,H,P,N]), float32: the ``mamba2_ssd`` kernel for
+    CUDA tensors, its plain version for CPU tensors; under a gradient
+    through ``_SSD``, whose backward is the backward kernels on the card."""
     if torch.is_grad_enabled() and any(
-            t is not None and t.is_cuda and t.requires_grad
-            for t in (x, a, b, c, h0)):
-        raise NotImplementedError(
-            "ssd_chunked has no backward on the card yet: the SSD backward "
-            "kernel comes with the next slice of the port (zamba2 training "
-            "on the card); train on the CPU meanwhile")
+            t is not None and t.requires_grad for t in (x, a, b, c, h0)):
+        return _SSD.apply(x, a, b, c, h0, chunk)
     return mamba2_ssd(x, a, b, c, chunk=chunk, h0=h0)
 
 

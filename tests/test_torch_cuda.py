@@ -119,28 +119,120 @@ def test_fused_tick_equals_scan_at_fleet_shape(card, dtype):
 
 
 def test_scans_refuse_grad_on_the_card(card):
-    """The scan kernels have no backward yet: a CUDA input that requires
-    grad is refused, naming the next slice (the SSD and WKV backward
-    kernels), and the same call without grad runs the kernel."""
+    """The WKV kernel has no backward yet: a CUDA input that requires grad
+    is refused, naming the next slice, and the same call without grad runs
+    the kernel.  The SSD scan under a gradient runs its forward kernel's
+    three passes and, in the backward, the backward kernels once, with
+    gradients within ssd_bwd_held's tolerance of the plain backward's."""
     from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2 import ref as ssd_ref
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.models import rwkv, ssm
     x, a, b, c, _ = smoke.mamba2_inputs(smoke.MAMBA2_CASES[0], card, seed=0)
     r, k, v, lw, u, _ = smoke.wkv6_inputs(smoke.WKV6_CASES[0], card, seed=0)
-    x.requires_grad_()
     lw.requires_grad_()
-    with pytest.raises(NotImplementedError,
-                       match="ssd_chunked.*SSD backward kernel"):
-        ssm.ssd_chunked(x, a, b, c, chunk=32)
     with pytest.raises(NotImplementedError,
                        match="wkv6_chunked.*WKV backward kernel"):
         rwkv.wkv6_chunked(r, k, v, lw, u, chunk=32)
-    before = ssd_ops.LAUNCHES, wkv_ops.LAUNCHES
+    before = wkv_ops.LAUNCHES
     with torch.no_grad():
-        ssm.ssd_chunked(x, a, b, c, chunk=32)
         rwkv.wkv6_chunked(r, k, v, lw, u, chunk=32)
-    assert (ssd_ops.LAUNCHES, wkv_ops.LAUNCHES) == (before[0] + 1,
-                                                    before[1] + 1)
+    assert wkv_ops.LAUNCHES == before + 1
+    leaves = [t.clone().requires_grad_() for t in (x, a, b, c)]
+    before = ssd_ops.LAUNCHES, ssd_ops.SSD_BWD_LAUNCHES
+    y, hf = ssm.ssd_chunked(*leaves, chunk=32)
+    dy, dhf = torch.randn_like(y), torch.randn_like(hf)
+    got = torch.autograd.grad((y * dy).sum() + (hf * dhf).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (ssd_ops.LAUNCHES, ssd_ops.SSD_BWD_LAUNCHES) == (before[0] + 1,
+                                                            before[1] + 1)
+    _, _, cum, h_in = ssd_ops.mamba2_ssd(x, a, b, c, chunk=32, keep=True)
+    want = ssd_ref.mamba2_ssd_bwd_ref(x, a, b, c, dy, dhf, chunk=32, cum=cum,
+                                      h_in=h_in)
+    smoke.ssd_bwd_held(tuple(got) + (want[4],), want, a, "ssd_chunked")
+
+
+@pytest.mark.parametrize("case", smoke.SSD_BWD_CASES, ids=lambda c: (
+    "B{}-S{}-H{}-P{}-N{}-L{}-{}-h0{}-{}-views{}".format(*c)))
+def test_ssd_bwd_kernels_match_plain_version(card, case):
+    """The SSD backward kernels against their plain version on the same
+    card tensors over chip_smoke's SSD_BWD_CASES (ssd_bwd_check: each
+    gradient within 1e-4 of its max, da scaled by max(a, 1e-20), bf16 db
+    and dc one rounding apart at most; each pass against its plain version;
+    a second run equal bit for bit); each call launches the four passes
+    once."""
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    args, kw = smoke.ssd_bwd_inputs(case, card, seed=case[1] + case[3])
+    before = ssd_ops.SSD_BWD_LAUNCHES, dict(ssd_ops.BWD_PASS_LAUNCHES)
+    smoke.ssd_bwd_check(args, kw, str(case), "test")
+    assert ssd_ops.SSD_BWD_LAUNCHES == before[0] + 2
+    passes = 2 + (case[3] % 4 == 0 and case[4] % 4 == 0)
+    assert all(ssd_ops.BWD_PASS_LAUNCHES[k] == before[1][k] + passes
+               for k in before[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_decay_bwd_kernel_matches_plain_version(card, dtype):
+    """step_decay_bwd against step_and_decay_bwd_ref on the same card
+    tensors (chip_smoke.grads_held: 1e-4 of each gradient's max where
+    finite, a bf16 g_dt_raw one bf16 step apart at most) on
+    chip_smoke's edge-value cases, dt_raw in float32 and bf16; a second
+    run equal bit for bit; one counted call each."""
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.mamba2.ref import (step_and_decay_bwd_ref,
+                                                step_and_decay_ref)
+    gen = torch.Generator().manual_seed(4)
+    for tag, (raw, bias, a_log) in smoke.step_decay_inputs(card, seed=3):
+        raw = raw.to(getattr(torch, dtype))
+        dt, a = step_and_decay_ref(raw, bias, a_log)
+        g_dt, g_a = (torch.randn(dt.shape, generator=gen).to(card)
+                     for _ in range(2))
+        args = (g_dt, g_a, raw, bias, a_log, dt, a)
+        before = ssd_ops.STEP_DECAY_BWD_LAUNCHES
+        got = ssd_ops.step_and_decay_bwd(*args)
+        again = ssd_ops.step_and_decay_bwd(*args)
+        assert ssd_ops.STEP_DECAY_BWD_LAUNCHES == before + 2
+        assert smoke.same_bits(got, again)
+        smoke.grads_held(tag, smoke.STEP_DECAY_GRADS, got,
+                         step_and_decay_bwd_ref(*args))
+
+
+def test_step_decay_sweep_finds_no_difference(card):
+    """The exhaustive sweep over all 2^32 float32 inputs: the functions the
+    step_decay kernel evaluates (exp, log1p on softplus's arguments,
+    softplus) give the first version's bits on every input
+    (chip_smoke.step_decay_sweep raises otherwise)."""
+    got = smoke.step_decay_sweep("test")
+    assert got["counts"] == {"exp": 0, "log1p": 0, "softplus": 0}
+
+
+def test_zamba2_train_step_on_card(card):
+    """zamba2 reduced (float32, tiles of 64, loss chunks of 32) through
+    make_train_step on the card, 160 tokens (past block_q, so the shared
+    block's flash kernels run; not a multiple of the SSD chunk, so the
+    padded tail runs): every new kernel launches as scan_train_launches
+    says, the gradient norm is finite and above 0, and the loss equals the
+    CPU's on a copy of the same parameters within 1e-5."""
+    import copy
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.inputs import random_batch
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as T
+    cfg = dataclasses.replace(get_config("zamba2-2.7b", reduced=True),
+                              block_q=64, block_k=64, loss_chunk=32)
+    batch = random_batch(torch.Generator().manual_seed(1), cfg, 160, 2)
+    state = T.init_state(cfg, seed=0, device=card)
+    cpu_params = copy.deepcopy(state.params).to("cpu")
+    step = T.make_train_step(cfg, O.OptConfig(lr=1e-3, warmup_steps=1))
+    smoke.zero_scan_counts()
+    _, m = step(state, T.to_device(batch, card))
+    assert smoke.scan_counts() == smoke.scan_train_launches(cfg)
+    assert np.isfinite(float(m["grad_norm"])) and m["grad_norm"] > 0
+    with torch.no_grad():
+        want, _ = M.loss_fn(cpu_params, cfg, T.to_device(batch, "cpu"))
+    np.testing.assert_allclose(float(m["loss"]), float(want), rtol=1e-5)
 
 
 @pytest.mark.parametrize("kernel,case,view", smoke.LAYOUT_CASES,

@@ -411,10 +411,11 @@ def test_params_from_numpy_round_trip_with_bf16():
 
 
 def test_unported_entry_points_raise():
-    """What the training slice ported runs (loss_fn, blocked_attention's
-    backward); what it left (the scans' backward on the card) raises,
-    naming the next slice.  A tensor that reports itself on the card
-    stands in for a CUDA input."""
+    """What the training slices ported runs (loss_fn, blocked_attention's
+    backward, the SSD scan's autograd Function); what they left (the WKV
+    backward on the card) raises, naming the next slice.  A tensor that
+    reports itself on the card stands in for a CUDA input: the SSD scan
+    takes it into its Function, the WKV scan refuses it."""
     from repro_torch.models import rwkv as TR
     from repro_torch.models import ssm as TS
     cfg = tcfg.get_config("qwen3-32b", reduced=True)
@@ -432,10 +433,10 @@ def test_unported_entry_points_raise():
     def card(*shape):
         return torch.zeros(shape).as_subclass(OnCard).requires_grad_()
 
-    with pytest.raises(NotImplementedError,
-                       match="SSD backward kernel comes with the next slice"):
-        TS.ssd_chunked(card(1, 8, 2, 4), card(1, 8, 2), card(1, 8, 4),
-                       card(1, 8, 4), chunk=4)
+    y, hf = TS.ssd_chunked(card(1, 8, 2, 4), card(1, 8, 2), card(1, 8, 4),
+                           card(1, 8, 4), chunk=4)
+    assert type(y.grad_fn).__name__ == "_SSDBackward"
+    assert y.grad_fn is hf.grad_fn
     with pytest.raises(NotImplementedError,
                        match="WKV backward kernel comes with the next slice"):
         TR.wkv6_chunked(*(card(1, 8, 2, 4) for _ in range(4)), card(2, 4),

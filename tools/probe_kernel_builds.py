@@ -90,6 +90,16 @@ EDITS = {
           gs[16 * t + 4 * r + c] = cb[16 * t + 4 * r + c] * g;
         }
     }""")],
+        # step_decay: 128-thread blocks; __fdiv_rn in softplus's log1p in
+        # place of the reciprocal and one correction.
+        "step_threads_128": [("constexpr int kStepThreads = 256;",
+                              "constexpr int kStepThreads = 128;")],
+        "step_fdiv": [(
+            """    float rcp;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(rcp) : "f"(d));
+    const float q0 = __fmul_rn(n, rcp);
+    const float q = __fmaf_rn(__fmaf_rn(-d, q0, n), rcp, q0);""",
+            """    const float q = __fdiv_rn(n, d);""")],
     },
     "wkv6": {
         # Accurate expf for every exponential, in place of ex2.approx.ftz.
@@ -181,6 +191,59 @@ extern "C" int flash_bwd_occupancy(int D, int* out) {
   return (int)cudaErrorInvalidValue;
 }
 """
+#: Appended to every build of mamba2_ssd.cu that has the backward: the
+#: registers, local (spilled) bytes, dynamic shared memory and resident
+#: blocks an SM of the backward's kernels (bf16 b/c) at (P, N, L), read from
+#: the CUDA runtime.
+SSD_BWD_OCCUPANCY_SRC = r"""
+namespace {
+int kernel_occupancy(const void* fn, int threads, size_t smem, int* out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return 0;
+}
+}  // namespace
+
+extern "C" int ssd_bwd_occupancy(int P, int N, int L, int* out) {
+  using T = __nv_bfloat16;
+  const void* fns[5] = {(const void*)chunk_dstate_kernel<T>,
+                        (const void*)state_pass_bwd_kernel,
+                        (const void*)chunk_bwd_kernel<T>,
+                        (const void*)sum_groups_kernel<T>,
+                        (const void*)step_decay_bwd_kernel<T>};
+  const int threads[5] = {kStateThreads, kPassThreads, kBwdThreads,
+                          kPassThreads, kStepThreads};
+  const size_t smem[5] = {
+      sizeof(float) * ((size_t)L * (N + 4) + (size_t)L * (P + 4) + L), 0,
+      sizeof(float) * bwd_smem_floats(P, N, L), 0, 0};
+  for (int i = 0; i < 5; ++i) {
+    const int rc = kernel_occupancy(fns[i], threads[i], smem[i], out + 4 * i);
+    if (rc) return rc;
+  }
+  return 0;
+}
+"""
+#: The backward kernels the readout covers, in its order.
+SSD_BWD_KERNELS = ("chunk_dstate", "state_pass_bwd", "chunk_bwd",
+                   "sum_groups", "step_decay_bwd")
+#: (B, S, H, P, N, L) of zamba2's Mamba-2 layer in chip_smoke's train_zamba2
+#: phase (2 x 4096 tokens), bf16 b/c.
+SSD_BWD_SHAPE = (2, 4096, 80, 64, 64, 128)
+#: zamba2's projection width and the column of its dt_raw in it.
+ZAMBA2_PROJ, ZAMBA2_DT_COL = 10448, 10368
+
 #: (B, S, H, Hk, D) of the flash backward at layer 0 of chip_smoke's train
 #: phase (danube) and of its qwen3-moe train_blocks case; causal.
 FLASH_BWD_SHAPES = [(2, 4096, 32, 8, 80), (2, 2048, 32, 4, 128)]
@@ -213,6 +276,9 @@ def sources(kernel, other):
     if kernel == "flash_attention":
         out = {name: t + BWD_OCCUPANCY_SRC if "namespace bwd_tc" in t else t
                for name, t in out.items()}
+    if kernel == "mamba2_ssd":
+        out = {name: t + SSD_BWD_OCCUPANCY_SRC if "chunk_bwd_kernel" in t
+               else t for name, t in out.items()}
     return out
 
 
@@ -559,12 +625,140 @@ def probe_wkv6(libs, cs) -> None:
           + ", ".join(f"{n} {t:.3f} ms" for n, t in best.items()), flush=True)
 
 
+def step_decay_call(lib, raw, bias, a_log, dt, a):
+    """One launch of a build's step_decay on a [.., H] view ``raw``."""
+    import torch
+    fn = lib.mamba2_step_decay_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    rows = raw.reshape(-1, raw.shape[-1])
+    rc = fn(rows.data_ptr(), bias.data_ptr(), a_log.data_ptr(), dt.data_ptr(),
+            a.data_ptr(), rows.shape[0], rows.shape[1], rows.stride(0),
+            int(raw.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"step_decay launch failed: CUDA error {rc}")
+
+
+def probe_step_decay(libs, cs) -> None:
+    """Every build's step_decay at zamba2's prefill (dt_raw a bf16 view of
+    the projection, [2, 6000, 80]), held to the plain version bit for bit,
+    timed in turns with one launch of a one-element add_ (the fixed cost of
+    a launch under this timing) and 50 launches a timing."""
+    import torch
+    from repro_torch.kernels.mamba2.ref import step_and_decay_ref
+    gen = torch.Generator().manual_seed(0)
+    proj = (torch.randn(2, 6000, ZAMBA2_PROJ, generator=gen) * 3).to(
+        torch.bfloat16).cuda()
+    raw = proj[..., ZAMBA2_DT_COL:]
+    bias = torch.randn(raw.shape[-1], generator=gen).cuda()
+    a_log = (torch.rand(raw.shape[-1], generator=gen) * 6 - 3).cuda()
+    want = step_and_decay_ref(raw, bias, a_log)
+    calls = {}
+    for (kernel, name), lib in libs.items():
+        if kernel != "mamba2_ssd":
+            continue
+        dt, a = torch.empty_like(want[0]), torch.empty_like(want[1])
+        step_decay_call(lib, raw, bias, a_log, dt, a)
+        if not (torch.equal(dt, want[0]) and torch.equal(a, want[1])):
+            raise SystemExit(f"{name} build's step_decay differs from the "
+                             "plain version")
+        calls[name] = lambda lib=lib, dt=dt, a=a: step_decay_call(
+            lib, raw, bias, a_log, dt, a)
+    for (kernel, name), lib in libs.items():
+        if kernel == "mamba2_ssd" and hasattr(
+                lib, "mamba2_step_decay_sweep_launch"):
+            fn = lib.mamba2_step_decay_sweep_launch
+            fn.argtypes = [ctypes.c_void_p] * 3
+            counts = torch.zeros(3, dtype=torch.int64, device="cuda")
+            first = torch.zeros(3, dtype=torch.int32, device="cuda")
+            if fn(counts.data_ptr(), first.data_ptr(),
+                  torch.cuda.current_stream().cuda_stream):
+                raise SystemExit(f"{name} build's sweep failed to launch")
+            print(f"step_decay sweep, {name} build: inputs whose bits differ "
+                  f"(exp, log1p, softplus): {counts.tolist()}", flush=True)
+    one = torch.zeros(1, device="cuda")
+    calls["empty launch"] = lambda: one.add_(1)
+    names = list(calls)
+    times = {name: [] for name in names}
+    for order in (names, names[::-1]) * 2:
+        for name in order:
+            times[name].append(cs.time_ms(calls[name], reps=50))
+    print(f"step_decay {tuple(raw.shape)} bf16 view: " + ", ".join(
+        f"{n} {min(t) * 1e3:.2f} us" for n, t in times.items()), flush=True)
+
+
+def probe_ssd_bwd(libs, cs) -> None:
+    """Every build's SSD backward at SSD_BWD_SHAPE (bf16 b/c, the forward's
+    scratch given), held to the plain version (chip_smoke.ssd_bwd_held),
+    timed in turns; then each build's occupancy readout."""
+    from repro_torch.kernels.mamba2 import ops
+    from repro_torch.kernels.mamba2.ref import mamba2_ssd_bwd_ref
+    bsz, s, h, p, n, chunk = SSD_BWD_SHAPE
+    case = (bsz, s, h, p, n, chunk, "bfloat16", False, "normal", True)
+    args, kw = cs.ssd_bwd_inputs(case, "cuda", seed=0)
+    x, a = args[:2]
+    want = mamba2_ssd_bwd_ref(*args, **kw)
+    calls = {}
+    for (kernel, name), lib in libs.items():
+        if kernel != "mamba2_ssd" or not hasattr(lib,
+                                                 "mamba2_chunk_bwd_launch"):
+            continue
+        ops._launcher.cache_clear()
+        saved = ops._build._LIBS.get("mamba2_ssd")
+        ops._build._LIBS["mamba2_ssd"] = lib
+        try:
+            cs.ssd_bwd_held(ops.mamba2_ssd_bwd(*args, **kw), want, a,
+                            f"{name} build")
+            fns = {fn: ops._launcher(fn) for fn in
+                   ("chunk_dstate", "state_pass_bwd", "chunk_bwd",
+                    "chunk_bwd_heads", "sum_groups")}
+        finally:
+            ops._launcher.cache_clear()
+            if saved is None:
+                ops._build._LIBS.pop("mamba2_ssd", None)
+            else:
+                ops._build._LIBS["mamba2_ssd"] = saved
+
+        def call(fns=fns):
+            real = ops._launcher
+            ops._launcher = lambda name: fns[name]
+            try:
+                ops.mamba2_ssd_bwd(*args, **kw)
+            finally:
+                ops._launcher = real
+        calls[name] = call
+    if calls:
+        best = timed_in_turns(calls)
+        print(f"mamba2_ssd_bwd {tuple(x.shape)} chunk {chunk} b/c bf16: "
+              + ", ".join(f"{n} {t:.3f} ms" for n, t in best.items()),
+              flush=True)
+    for (kernel, name), lib in libs.items():
+        if kernel != "mamba2_ssd" or not hasattr(lib, "ssd_bwd_occupancy"):
+            continue
+        fn = lib.ssd_bwd_occupancy
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        got = (ctypes.c_int * 20)()
+        rc = fn(p, n, chunk, got)
+        if rc:
+            raise SystemExit(f"{name} build's backward occupancy readout: "
+                             f"CUDA error {rc}")
+        print(f"mamba2_ssd_bwd {name} P={p} N={n} L={chunk} bf16: "
+              + "; ".join(f"{k} {got[4 * i]} registers, {got[4 * i + 1]} "
+                          f"spilled bytes, {got[4 * i + 2]} B shared, "
+                          f"{got[4 * i + 3]} blocks an SM"
+                          for i, k in enumerate(SSD_BWD_KERNELS)),
+              flush=True)
+
+
 PROBES = {"token_select": lambda libs, cs: probe_draws(libs, cs,
                                                       "token_select"),
           "tick_step": lambda libs, cs: probe_draws(libs, cs, "tick_step"),
           "flash_attention": lambda libs, cs: (probe_flash(libs, cs),
                                                probe_flash_bwd(libs, cs)),
-          "mamba2_ssd": probe_mamba2,
+          "mamba2_ssd": lambda libs, cs: (probe_mamba2(libs, cs),
+                                          probe_step_decay(libs, cs),
+                                          probe_ssd_bwd(libs, cs)),
           "wkv6": probe_wkv6}
 
 

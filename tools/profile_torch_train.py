@@ -10,9 +10,10 @@ tokens).  After one warm-up step it times the forward and backward
 (``train_step._grads``) and the AdamW update (``optimizer.apply``) of one
 step with the device synchronised, then profiles one whole step with
 ``torch.profiler`` and prints the device's busy time and idle share, its
-kernel time by kind (flash backward, flash forward, bf16 GEMMs, float32
-GEMMs, the rest) and the kernels that take the most.  Exits 2 without a
-card.
+kernel time by kind (the SSD scan's backward and forward, the step and
+decay forward and backward, flash backward, flash forward, bf16 GEMMs,
+float32 GEMMs, the rest) and the kernels that take the most.  Exits 2
+without a card.
 """
 from __future__ import annotations
 
@@ -28,7 +29,12 @@ ROOT = Path(__file__).resolve().parent.parent
 #: Kernel kinds by name: the first pattern a kernel's name contains (the
 #: float32 head's GEMMs are CUTLASS SIMT and xmma f32 kernels; cuBLASLt
 #: names its bf16 GEMMs ``nvjet_*`` on Hopper).
-KINDS = (("flash backward", ("dq_kernel", "dkv_kernel")),
+KINDS = (("SSD backward", ("chunk_dstate_kernel", "state_pass_bwd_kernel",
+                           "chunk_bwd_kernel", "sum_groups_kernel")),
+         ("SSD forward", ("chunk_state_kernel", "state_pass_kernel",
+                          "chunk_scan_kernel")),
+         ("step and decay", ("step_decay",)),
+         ("flash backward", ("dq_kernel", "dkv_kernel")),
          ("flash forward", ("flash_bf16_kernel", "flash_fwd_kernel")),
          ("float32 GEMM", ("f32f32", "sgemm", "gemm_f32", "tf32")),
          ("bf16 GEMM", ("nvjet", "bf16", "gemm", "xmma", "cutlass")))
