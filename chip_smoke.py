@@ -280,15 +280,18 @@ each printing its lines before the last:
                 and 9 backward launches; ms/step, tokens/s, peak memory
   ssd_bwd       the SSD backward kernels against their plain version on
                 the card over a case list (MAMBA2_CASES' geometry, chunk 16,
-                P and N padded): each gradient within 1e-4 of its max (da
-                as da * max(a, 1e-20), bf16 db and dc one rounding apart),
-                each pass against its plain version, a second run bit for
-                bit equal; then on the inputs layer 0 of train_zamba2 gave
-                them, with their time, each pass's, the bound (FMA) and the
-                plain version's
-  step_decay_bwd  the step and decay's backward kernel the same way, on
-                train_zamba2's layer-0 inputs and edge values; its time
-                beside its bound and the plain version's
+                P and N padded, chunk 24 with P = 984, a chunk of 20 with
+                P = 20 and N = 12): each gradient within 1e-4 of its max
+                (da as da * max(a, 1e-20), bf16 db and dc one rounding
+                apart), each pass against its plain version, a second run
+                bit for bit equal, chunk_bwd's shared-memory layout = the
+                wrapper's mirror (ops.bwd_layout); then on the inputs layer
+                0 of train_zamba2 gave them, with their time, each pass's,
+                the bound (TF32 tensor cores, the FMA bound beside it, and
+                the split's own TF32 operations) and the plain version's
+  step_decay_bwd  the step and decay's backward kernel (one launch) the
+                same way, on train_zamba2's layer-0 inputs and edge values;
+                its time beside its bound and the plain version's
   train_card_vs_cpu  danube at full width cut to 2 layers and zamba2 cut to
                 a mamba block and the shared block, float32, 512 tokens
                 (tiles of 256, so through the flash kernels, and zamba2's
@@ -353,6 +356,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+#: Dense TF32 tensor-core op/s (the SSD backward's chunk_bwd).
+TF32_OPS_PER_S = 495e12
 #: Exponentials per second of the special-function units: 16 results per
 #: clock per SM for compute capability 9.0 (CUDA C++ Programming Guide,
 #: throughput of native arithmetic instructions), 132 SMs, 1.98 GHz boost.
@@ -3788,11 +3793,15 @@ def phase_step_decay(device, layer0, *, reps=50):
 #: (B, S, H, P, N, chunk, b/c dtype, h0, decay, views) of the SSD backward's
 #: card checks: MAMBA2_CASES' geometry (the reduced and full widths, chunk
 #: 32, 64 and 128, bf16 b/c, an initial state, strong decay, strided b/c
-#: views), a chunk of 16 and P, N not multiples of 4 (padded by
-#: kernel_layout).
+#: views), a chunk of 16, P and N not multiples of 4 (padded by
+#: kernel_layout), chunk 24 with P = 984 and N = 4 (P in sixteen slices),
+#: and a chunk of 20 with P = 20, N = 12 (tiles of 16 x 8 cut at every
+#: edge).
 SSD_BWD_CASES = MAMBA2_CASES + [
     (2, 64, 4, 16, 16, 16, "float32", True, "normal", False),
     (1, 128, 3, 18, 30, 32, "bfloat16", True, "strong", True),
+    (1, 48, 2, 984, 4, 24, "float32", False, "normal", False),
+    (1, 120, 3, 20, 12, 20, "float32", True, "strong", False),
 ]
 #: Each gradient of the backward kernels against the plain version: max abs
 #: error over the gradient's max.  da is compared as da * max(a, 1e-20),
@@ -3912,6 +3921,52 @@ def ssd_bwd_check(args, kw, tag, phase) -> float:
     return max(worst, passes)
 
 
+def ssd_bwd_layout_held(x, b, chunk, tag) -> dict:
+    """chunk_bwd's shared-memory layout at this geometry as the kernel
+    chooses it (mamba2_chunk_bwd_smem) = the wrapper's mirror
+    (ops.bwd_layout), in the kernel's layout of P and N (multiples of 4).
+    Returns the layout."""
+    import ctypes
+    import torch
+    from repro_torch.kernels.mamba2 import ops as ssd_ops
+    p, n = -(-x.shape[-1] // 4) * 4, -(-b.shape[-1] // 4) * 4
+    want = ssd_ops.bwd_layout(chunk, p, n, b.element_size())
+    if torch.device(x.device).type != "cuda":
+        return want
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(x.device):
+        got = ssd_ops._ask("chunk_bwd_smem", p, n, chunk,
+                           int(b.dtype == torch.bfloat16), out)
+    if (got, out[0], out[1], bool(out[2])) != (want["bytes"], want["ps"],
+                                               want["pad"], want["m1"]):
+        raise AssertionError(f"chunk_bwd layout {tag}: kernel {got} B, "
+                             f"slice {out[0]}, pad {out[1]}, M1^T {out[2]}; "
+                             f"mirror {want}")
+    return want
+
+
+def mamba2_bwd_split_ops(x, b, chunk, groups):
+    """TF32 operations chunk_bwd's split-TF32 products take on these inputs
+    (two per multiply-add of each pass, on its 16 x 8 tiles): per (b, h,
+    chunk) M1^T dy and D = dy x^T over the lower tiles (3 passes each), B R
+    (2 with bf16 b, else 3), (w x) R^T and dy S^T (3 each); per (b, chunk)
+    and each of ``groups`` groups of heads the Gram (1 or 3) and sum_h M2
+    B, (sum_h M2)^T C (2 or 3 each)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    lp, np_, pp = -(-chunk // 16) * 16, -(-n // 8) * 8, -(-p // 8) * 8
+    nb, nc = lp // 16, s // chunk
+    bf = b.element_size() == 2
+    lower = 128 * nb * (nb + 1)               # elements of the lower tiles
+    # M1^T dy: band tj's 16 rows take k from 16 tj up.
+    m1dy = sum(16 * (lp - 16 * tj) for tj in range(nb)) * pp
+    per_head = (3 * m1dy + 3 * lower * pp + (2 if bf else 3) * lp * np_ * pp
+                + 3 * 2 * lp * pp * np_)
+    per_group = ((1 if bf else 3) * lower * np_
+                 + 2 * (2 if bf else 3) * lower * np_)
+    return 2 * bsz * nc * (h * per_head + groups * per_group)
+
+
 def mamba2_bwd_work(x, b, chunk):
     """(bytes, fp32 operations, exponentials) the SSD backward needs on
     these inputs: x, a, b, c, dy and dh_final read and dx, da, db, dc and
@@ -3946,12 +4001,14 @@ def phase_ssd_bwd(device, layer0, *, cases=SSD_BWD_CASES, reps=5):
         tag = ("B={} S={} H={} P={} N={} chunk={} b/c {} h0={} decay={} "
                "views={}".format(*case))
         worst = max(worst, ssd_bwd_check(args, kw, tag, "ssd_bwd"))
+        ssd_bwd_layout_held(args[0], args[2], case[5], tag)
     args, kw = layer0["args"], layer0["kw"]
     x, a, b, c, dy, dhf = args
     tag = (f"train layer 0 inputs x {tuple(x.shape)} b/c {b.dtype} chunk "
            f"{kw['chunk']}, the forward's scratch")
     worst = max(worst, ssd_bwd_check(args, kw, tag, "ssd_bwd"))
     chunk, cum, h_in = kw["chunk"], kw["cum"], kw["h_in"]
+    layout = ssd_bwd_layout_held(x, b, chunk, tag)
     ms = time_ms(lambda: ssd_ops.mamba2_ssd_bwd(*args, **kw), reps=reps)
     plain = time_ms(lambda: mamba2_ssd_bwd_ref(*args, **kw), reps=2)
     q = ssd_ops.chunk_dstate(dy, c, cum, chunk=chunk)
@@ -3963,17 +4020,34 @@ def phase_ssd_bwd(device, layer0, *, cases=SSD_BWD_CASES, reps=5):
         "chunk_bwd + sum_groups": time_ms(lambda: ssd_ops.chunk_bwd(
             x, a, b, c, dy, cum, h_in, q, chunk=chunk), reps=reps)}
     work = mamba2_bwd_work(x, b, chunk)
-    bound, by, pipe = pipe_bound(*work)
+    bound, by, pipe = pipe_bound(*work, ops_per_s=TF32_OPS_PER_S,
+                                 ops_pipe="TF32 tensor")
+    fma_bound, _, _ = pipe_bound(*work)
     nbytes, ops, exps = work
+    import torch
+    hpb = 10  # what the launcher picks at zamba2's training shape
+    if torch.device(x.device).type == "cuda":
+        with torch.cuda.device(x.device):
+            hpb = ssd_ops._ask("chunk_bwd_heads", x.shape[0], x.shape[1],
+                               x.shape[2], chunk)
+    split = mamba2_bwd_split_ops(x, b, chunk, -(-x.shape[2] // hpb))
     say("ssd_bwd", f"{tag}: device ms per pass " + ", ".join(
         f"{k} {v:.3f}" for k, v in passes.items()))
     say("ssd_bwd", f"{tag}: kernels {ms:.3f} ms, bound {bound:.4f} ms "
-        f"({by}, {pipe}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP fp32, "
-        f"{exps / 1e9:.3f} G exponentials), plain {plain:.3f} ms; kernels / "
-        f"bound {ms / bound:.1f}; no PyTorch call computes this function")
+        f"({by}, {pipe}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP, "
+        f"{exps / 1e9:.3f} G exponentials; on the FMA pipes "
+        f"{fma_bound:.4f} ms), plain {plain:.3f} ms; kernels / bound "
+        f"{ms / bound:.1f}; no PyTorch call computes this function")
+    say("ssd_bwd", f"{tag}: chunk_bwd's split TF32 takes {split / 1e9:.1f} "
+        f"GFLOP of TF32 ({split / TF32_OPS_PER_S * 1e3:.4f} ms at "
+        f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s); layout: P slices of "
+        f"{layout['ps']}, rows padded by {layout['pad']}, M1^T "
+        f"{'stored' if layout['m1'] else 'formed from the Gram'}, "
+        f"{layout['bytes']} B of shared memory")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                 bound_pipe=pipe, library_ms=None, max_abs_err=worst,
-                pass_ms=passes)
+                pass_ms=passes, fma_bound_ms=fma_bound,
+                split_tf32_gflop=split / 1e9)
 
 
 STEP_DECAY_GRADS = ("g_dt_raw", "g_dt_bias", "g_a_log")

@@ -19,6 +19,12 @@ __device__ __forceinline__ void copy16(void* dst, const void* src,
                :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
 
+// 4 bytes from ``src`` to ``dst`` (both 4-byte aligned).
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src));
+}
+
 __device__ __forceinline__ void commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -22,17 +22,20 @@ the reference's float32 roundings (``STEP_DECAY_LAUNCHES`` counts it);
 
 The backward: ``mamba2_ssd_bwd`` runs four passes, each with a wrapper of
 its own (``chunk_dstate``, ``state_pass_bwd``, and ``chunk_bwd``, which
-runs the per-chunk kernel and the sum of its head groups' partials);
-``SSD_BWD_LAUNCHES`` counts its calls on the card, ``BWD_PASS_LAUNCHES``
-each pass's launches.  ``step_and_decay_bwd`` is the step and decay's
-backward (``STEP_DECAY_BWD_LAUNCHES``; two device launches a call: the
-per-tile kernel and the sum of its tiles).
+runs the per-chunk kernel -- split TF32 on the tensor cores, P in slices,
+so it takes every geometry the forward takes (``bwd_layout``) -- and the
+sum of its head groups' partials); ``SSD_BWD_LAUNCHES`` counts its calls on
+the card, ``BWD_PASS_LAUNCHES`` each pass's launches.
+``step_and_decay_bwd`` is the step and decay's backward
+(``STEP_DECAY_BWD_LAUNCHES``; one device launch a call, whose last block
+to finish sums the row tiles' partials).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -58,7 +61,8 @@ SSD_BWD_LAUNCHES = 0
 BWD_PASS_LAUNCHES = {"chunk_dstate": 0, "state_pass_bwd": 0, "chunk_bwd": 0,
                      "sum_groups": 0}
 
-#: Calls of :func:`step_and_decay_bwd` on the card in this process.
+#: Calls of :func:`step_and_decay_bwd` on the card in this process, one
+#: device launch each.
 STEP_DECAY_BWD_LAUNCHES = 0
 
 
@@ -74,7 +78,7 @@ _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 #: The source's queries: functions that launch nothing (no ``_launch``).
-_QUERIES = ("step_decay_bwd_tiles", "chunk_bwd_heads")
+_QUERIES = ("step_decay_bwd_tiles", "chunk_bwd_heads", "chunk_bwd_smem")
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,10 +97,11 @@ def _launcher(name: str):
         "chunk_dstate": [_PTR] * 4 + [_INT] * 6 + [_LL] * 2 + [_INT, _PTR],
         "state_pass_bwd": [_PTR] * 4 + [_INT] * 6 + [_PTR],
         "chunk_bwd_heads": [_INT] * 4,
+        "chunk_bwd_smem": [_INT] * 4 + [_PTR],
         "chunk_bwd": [_PTR] * 12 + [_INT] * 7 + [_LL] * 9 + [_INT, _PTR],
         "sum_groups": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     }[name]
-    fn.restype = ctypes.c_int
+    fn.restype = _LL if name == "chunk_bwd_smem" else ctypes.c_int
     return fn
 
 
@@ -120,26 +125,65 @@ def _ask(name: str, *args) -> int:
     return _launcher(name)(*args)
 
 
-def smem_bytes(chunk: int, p: int, n: int) -> int:
+def smem_bytes(chunk, p, n):
     """Shared memory of the larger block of the passes, as
-    ``csrc/mamba2_ssd.cu`` lays them out."""
+    ``csrc/mamba2_ssd.cu`` lays them out (elementwise for numpy arrays)."""
     lt = chunk // 4
     state = (chunk * (n + 4) + chunk * (p + 4)
              + chunk * (1 + MAX_HEADS_PER_BLOCK))
     scan = (33 * (lt * (lt + 1) // 2) + chunk * (n + 4)
-            + 2 * max(chunk * (p + 4), n * (chunk + 4)) + 2 * n * (p + 4)
-            + 3 * chunk)
-    return 4 * max(state, scan)
+            + 2 * np.maximum(chunk * (p + 4), n * (chunk + 4))
+            + 2 * n * (p + 4) + 3 * chunk)
+    return 4 * np.maximum(state, scan)
 
 
-def bwd_smem_bytes(chunk: int, p: int, n: int) -> int:
-    """Shared memory of the backward's chunk_bwd block, as
-    ``csrc/mamba2_ssd.cu`` lays it out (``bwd_smem_floats``)."""
-    lt = chunk // 4
-    nl = lt * (lt + 1) // 2
-    part = max(8 * nl, chunk * (p // 4), chunk * (n // 4))
-    return 4 * (2 * chunk * (n + 4) + 2 * chunk * (p + 4) + n * (p + 4)
-                + 16 * nl + part + 5 * chunk + 512 // 32)
+def _bwd_layout_floats(chunk, n, ps, pad, m1, itemsize):
+    """Floats of chunk_bwd's shared memory with P slices of ``ps`` columns,
+    rows padded by ``pad`` elements, M1^T stored or not and B, C kept in
+    b's dtype (``itemsize`` bytes), as ``csrc/mamba2_ssd.cu`` lays it out
+    (``bwd_layout_of``: every region rounded up to 4 floats; elementwise
+    for numpy arrays)."""
+    def r4(r):
+        return -(-r // 4) * 4
+    lp, np_ = -(-chunk // 16) * 16, -(-n // 8) * 8
+    nb, nq = lp // 16, -(-np_ // 32)
+    banded = 128 * nb * (nb + 1) + 16 * pad * nb
+    small = (nb * nq <= 16) & (nb * (nb + 1) <= 80)  # sum_h M2 stored
+    return (2 * r4(lp * (ps + pad)) + 2 * r4(np_ * (ps + pad))
+            + 2 * r4(-(-lp * (np_ + pad) * itemsize // 4))
+            + r4(banded) * (1 + small + m1) + 6 * r4(lp)
+            + r4(512 // 32 + 1) + r4(24 * nb * (nb + 1)) + r4(16 * nb * nq)
+            + r4(16 * nb * ps // 8))
+
+#: chunk_bwd's layouts in the order ``bwd_layout`` tries them: (M1^T
+#: stored, row padding, P slice).
+BWD_LAYOUTS = tuple((m1, pad, ps) for m1 in (True, False) for pad in (4, 0)
+                    for ps in (64, 32, 16, 8))
+
+
+def bwd_layout(chunk: int, p: int, n: int, itemsize: int = 4) -> dict:
+    """chunk_bwd's layout at (chunk, P, N) with b and c of ``itemsize``
+    bytes, as ``csrc/mamba2_ssd.cu`` chooses it (``bwd_layout``): the
+    widest P slice (64, 32, 16 or 8 columns, no wider than P rounded up to
+    8) that fits ``MAX_SMEM``, rows padded by 4 elements where that fits,
+    else by none, and M1^T stored where that fits, else formed from the
+    Gram as the kernel reads it.  Returns {"ps", "pad", "m1", "bytes"};
+    raises where no layout fits (no geometry the forward takes)."""
+    p8 = -(-p // 8) * 8
+    for m1, pad, ps in BWD_LAYOUTS:
+        if ps > p8 and ps > 8:
+            continue
+        nbytes = int(4 * _bwd_layout_floats(chunk, n, ps, pad, m1,
+                                            itemsize))
+        if nbytes <= MAX_SMEM:
+            return {"ps": ps, "pad": pad, "m1": m1, "bytes": nbytes}
+    raise ValueError(f"mamba2_ssd backward kernel: no shared-memory layout "
+                     f"fits chunk {chunk}, P={p}, N={n}")
+
+
+def bwd_smem_bytes(chunk: int, p: int, n: int, itemsize: int = 4) -> int:
+    """Shared memory of the backward's chunk_bwd block (``bwd_layout``)."""
+    return bwd_layout(chunk, p, n, itemsize)["bytes"]
 
 
 def _check_devices(name, tensors) -> None:
@@ -443,8 +487,8 @@ def step_and_decay_bwd(g_dt: torch.Tensor, g_a: torch.Tensor,
     """The backward of :func:`step_and_decay`: (g_dt_raw in ``dt_raw``'s
     dtype and shape, g_dt_bias [H], g_a_log [H]) from the gradients of its
     outputs ``g_dt``, ``g_a`` and its inputs and outputs.  On the card: one
-    call of two launches (the tiles' column sums in a fixed order, no
-    atomics)."""
+    launch, whose last block to finish sums the row tiles' column sums in a
+    fixed order (no atomics in the sums)."""
     global STEP_DECAY_BWD_LAUNCHES
     h = dt_raw.shape[-1]
     for name, t in (("g_dt", g_dt), ("g_a", g_a), ("dt", dt), ("a", a)):
@@ -493,16 +537,6 @@ def step_and_decay_bwd(g_dt: torch.Tensor, g_a: torch.Tensor,
 def _bwd_launch(name: str, device, *args) -> None:
     _call(name, device, *args)
     BWD_PASS_LAUNCHES[name] += 1
-
-
-def _check_bwd_kernel(chunk, p, n) -> None:
-    """What the backward's kernels take beyond the forward's
-    (``_check_kernel``): chunk_bwd's shared memory."""
-    if bwd_smem_bytes(chunk, p, n) > MAX_SMEM:
-        raise ValueError(f"mamba2_ssd backward kernel: chunk {chunk} with "
-                         f"P={p}, N={n} needs {bwd_smem_bytes(chunk, p, n)} "
-                         f"bytes of shared memory in chunk_bwd, more than "
-                         f"{MAX_SMEM} (ROADMAP section 3, fault 1)")
 
 
 def _check_grad(name, t, shape) -> None:
@@ -597,7 +631,6 @@ def chunk_bwd(x, a, b, c, dy, cum, h_in, r, *, chunk: int):
     if x.device.type == "cpu":
         return chunk_bwd_ref(x, a, b, c, dy, cum, h_in, r, chunk=chunk)
     _check_kernel(x, a, b, c, chunk, None)
-    _check_bwd_kernel(chunk, x.shape[-1], b.shape[-1])
     if not dy.is_contiguous() or dy.data_ptr() % 16:
         raise ValueError("chunk_bwd kernel takes a contiguous, 16-byte "
                          "aligned dy")
@@ -660,7 +693,6 @@ def mamba2_ssd_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     dy = dy.contiguous()
     dhf = None if dhf is None else dhf.contiguous()
     _check_kernel(x, a, b, c, chunk, None)
-    _check_bwd_kernel(chunk, x.shape[-1], b.shape[-1])
     _check_scratch("mamba2_ssd_bwd", cum, h_in, x, b, chunk)
     q = torch.empty(h_in.shape, dtype=torch.float32, device=x.device)
     dh0 = torch.empty((bsz, h, x.shape[-1], b.shape[-1]),

@@ -26,7 +26,14 @@ JAX package is their arithmetic, written out in PyTorch:
   ``chunk_state_ref``, ``state_pass_ref`` and ``chunk_scan_ref`` composed
   must equal the reference's ``ssd_chunked`` / ``wkv6_chunked`` and the
   Pallas kernel, output and final state, within ``SCAN_TOL`` (both
-  packages sum the log decay's prefix in float32 in XLA CPU's order).
+  packages sum the log decay's prefix in float32 in XLA CPU's order);
+* the SSD backward's ``chunk_bwd`` on the tensor cores in split TF32:
+  every float32 operand of its products rounded as the kernel rounds it
+  (TF32 to nearest, ties away from zero, hi and lo = TF32(v - hi)), the
+  products hi.hi + hi.lo + lo.hi summed in float32 (one or two of them
+  where an operand is a bf16 B or C, exact in TF32), composed with the
+  plain first two passes into the whole backward, within ``GRAD_TOL`` of
+  each gradient's max of ``jax.vjp`` of the reference's ``ssd_chunked``.
 """
 import math
 
@@ -46,7 +53,9 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 from repro_torch.kernels.mamba2 import ops as ssd_ops
-from repro_torch.kernels.mamba2.ref import (chunk_scan_ref, chunk_state_ref,
+from repro_torch.kernels.mamba2.ref import (chunk_dstate_ref, chunk_scan_ref,
+                                            chunk_state_ref, mamba2_ssd_ref,
+                                            state_pass_bwd_ref,
                                             state_pass_ref)
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
@@ -54,6 +63,9 @@ from repro_torch.kernels.rwkv6 import ref as wkv_ref
 #: tests/test_kernels.py:129: bf16 against float32 references.
 BF16_TOL = 2e-2
 SCAN_TOL = 2e-5
+#: The SSD backward's gradients against jax.vjp: max abs error over each
+#: gradient's max (tests/test_torch_ssd_bwd.py, chip_smoke.SSD_BWD_TOL).
+GRAD_TOL = 1e-4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -471,6 +483,221 @@ def test_pass_wrappers_take_the_plain_path_on_the_cpu_and_refuse_bad_input():
     with pytest.raises(TypeError, match="float32"):
         ssd_ops.chunk_state(x.double(), a, b, chunk=32)
     assert ssd_ops.smem_bytes(128, 64, 64) <= ssd_ops.MAX_SMEM
+
+
+# -- the SSD backward in split TF32 ------------------------------------------
+
+def tf32_round(t):
+    """float32 ``t`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero: what cvt.rna.tf32.f32 gives a finite value, and how
+    chunk_bwd rounds (adding half of the dropped 13 bits, then masking)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1fff).view(torch.float32)
+
+
+def tf32_split(t):
+    """(hi, lo) with hi = TF32(t) and lo = TF32(t - hi)."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+def split_mm(a, b, a_exact=False, b_exact=False, passes=3):
+    """a @ b (batched) as chunk_bwd's mma take it: lo.hi + hi.lo + hi.hi,
+    each product exact in float32 and summed in float32, the pass with an
+    exact operand's lo left out; ``passes=1`` keeps hi.hi alone (single
+    TF32)."""
+    ah, al = tf32_split(a.float())
+    bh, bl = tf32_split(b.float())
+    out = ah @ bh
+    if passes == 3 and not b_exact:
+        out = out + ah @ bl
+    if passes == 3 and not a_exact:
+        out = out + al @ bh
+    return out
+
+
+def chunk_bwd_split_tf32_emulation(x, a, b, c, dy, cum, h_in, r, *, chunk,
+                                   passes=3):
+    """What chunk_bwd (``csrc/mamba2_ssd.cu``) computes: chunk_bwd_ref's
+    arithmetic with its eight products in split TF32, in the kernel's
+    arrangement -- the Gram C B^T once per chunk, per head dx = M1^T dy +
+    w o (B R), (w o x) R^T and dy S^T for dB's and dC's state terms, D =
+    dy x^T; then sum_h M2 B and (sum_h M2)^T C once.  B and C loaded from
+    bf16 are exact in TF32 (fewer passes).  Returns (dx, da, db, dc), db
+    and dc in float32 (the kernel's partials before sum_groups casts them
+    to b's dtype)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = s // chunk
+    exact = b.dtype == torch.bfloat16
+
+    def mm(u, v, ux=False, vx=False):
+        return split_mm(u, v, ux, vx, passes)
+
+    xs = x.float().reshape(bsz, nc, chunk, h, p)
+    ys = dy.float().reshape(bsz, nc, chunk, h, p)
+    bs = b.float().reshape(bsz, nc, chunk, n)
+    cs = c.float().reshape(bsz, nc, chunk, n)
+    cumt = cum.transpose(2, 3)                                    # [B,nc,L,H]
+    ones = torch.ones((chunk, chunk), dtype=torch.bool)
+    tri, below = torch.tril(ones), torch.tril(ones, -1)
+    e = torch.exp(cumt)
+    w = torch.exp(cumt[:, :, -1:] - cumt)
+    cb = mm(cs, bs.transpose(-1, -2), exact, exact)               # [B,nc,L,L]
+    msum = torch.zeros_like(cb)
+    db = torch.zeros_like(bs)
+    dc = torch.zeros_like(cs)
+    dx = torch.zeros_like(xs)
+    dcum = torch.zeros_like(cumt)
+    for hh in range(h):
+        rel = cumt[..., :, None, hh] - cumt[..., None, :, hh]
+        g = torch.exp(torch.where(tri, rel, -torch.inf))
+        xh, yh = xs[..., hh, :], ys[..., hh, :]                   # [B,nc,L,P]
+        rt, st = r[:, :, hh], h_in[:, :, hh]                      # [B,nc,N,P]
+        wh, eh = w[..., hh, None], e[..., hh, None]
+        m1 = cb * g
+        d = mm(yh, xh.transpose(-1, -2))
+        t = torch.where(below, m1 * d, 0.0)
+        msum = msum + d * g
+        rb = mm(bs, rt, exact, False)                             # B R
+        dx[..., hh, :] = mm(m1.transpose(-1, -2), yh) + wh * rb
+        sdy = mm(yh, st.transpose(-1, -2))                        # dy S^T
+        dc = dc + eh * sdy
+        db = db + mm(wh * xh, rt.transpose(-1, -2))               # (w x) R^T
+        u = wh[..., 0] * (xh * rb).sum(-1)
+        dcum[..., hh] = (t.sum(-1) - t.sum(-2) + eh[..., 0] * (cs * sdy).sum(-1)
+                         - u)
+        dcum[:, :, -1, hh] += e[:, :, -1, hh] * (rt * st).sum((-1, -2)) \
+            + u.sum(-1)
+    dc = dc + mm(msum, bs, False, exact)
+    db = db + mm(msum.transpose(-1, -2), cs, False, exact)
+    dla = dcum.flip(2).cumsum(2).flip(2).reshape(bsz, s, h)
+    af = a.float()
+    floor = torch.tensor(1e-20, dtype=torch.float32)
+    da = torch.where(af > floor, dla / af,
+                     torch.where(af == floor, 0.5 * (dla / af), 0.0))
+    return (dx.reshape(bsz, s, h, p), da, db.reshape(bsz, s, n),
+            dc.reshape(bsz, s, n))
+
+
+def ssd_bwd_split_tf32(x, a, b, c, dy, dhf, h0, *, chunk, passes=3):
+    """The whole backward with chunk_bwd emulated: the plain forward's
+    scratch, chunk_dstate_ref and state_pass_bwd_ref (float32 on the FMA
+    pipes in the kernels), then the emulation.  (dx, da, db, dc, dh0)."""
+    _, _, cum, h_in = mamba2_ssd_ref(x, a, b, c, chunk=chunk, h0=h0,
+                                     keep=True)
+    q = chunk_dstate_ref(dy, c, cum, chunk=chunk)
+    rr, dh0 = state_pass_bwd_ref(q, cum, dhf=dhf)
+    return chunk_bwd_split_tf32_emulation(x, a, b, c, dy, cum, h_in, rr,
+                                          chunk=chunk, passes=passes) + (dh0,)
+
+
+#: (B, S, H, P, N, chunk, b/c dtype, h0, decay): float32 and bf16 b/c, an
+#: initial state, strong decay (a below, at and above the 1e-20 clamp), and
+#: a chunk of 20 with P = 20, N = 12 (tiles of 16 x 8 cut at every edge).
+SPLIT_CASES = [(2, 64, 3, 16, 16, 32, "float32", False, "normal"),
+               (2, 64, 3, 16, 16, 16, "bfloat16", True, "normal"),
+               (2, 64, 2, 16, 8, 32, "float32", True, "strong"),
+               (1, 60, 3, 20, 12, 20, "float32", True, "strong")]
+
+
+def split_inputs(case, seed):
+    """numpy float32 (x, a, b, c, h0, dy, dhf); bf16 b/c hold bf16 values."""
+    bsz, s, h, p, n, _, dtype, with_h0, decay = case
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((bsz, s, h, p)) * 0.5).astype(np.float32)
+    if decay == "strong":
+        a = np.exp(-rng.uniform(2.0, 46.0, (bsz, s, h))).astype(np.float32)
+        a[:, ::7] = 1e-30
+        a[:, 5::9] = np.float32(1e-20)
+    else:
+        a = (1 / (1 + np.exp(-rng.standard_normal((bsz, s, h)))) * 0.5
+             + 0.45).astype(np.float32)
+    b, c = ((rng.standard_normal((bsz, s, n)) * 0.3).astype(np.float32)
+            for _ in range(2))
+    if dtype == "bfloat16":
+        b, c = (torch.from_numpy(t).bfloat16().float().numpy() for t in (b, c))
+    h0 = (rng.standard_normal((bsz, h, p, n)).astype(np.float32) if with_h0
+          else np.zeros((bsz, h, p, n), np.float32))
+    dy = rng.standard_normal((bsz, s, h, p)).astype(np.float32)
+    dhf = rng.standard_normal((bsz, h, p, n)).astype(np.float32)
+    return x, a, b, c, h0, dy, dhf
+
+
+@pytest.fixture(scope="module")
+def split_reference():
+    """Per case: the inputs and jax.vjp of the reference's ssd_chunked
+    (float32; bf16 b/c as their float32 values), compiled once here."""
+    out = {}
+    for k, case in enumerate(SPLIT_CASES):
+        x, a, b, c, h0, dy, dhf = split_inputs(case, seed=40 + k)
+        _, vjp = jax.vjp(lambda *t: RS.ssd_chunked(*t[:4], None,
+                                                   chunk=case[5], h0=t[4]),
+                         x, a, b, c, h0)
+        grads = vjp((jnp.asarray(dy), jnp.asarray(dhf)))
+        out[case] = ((x, a, b, c, h0, dy, dhf),
+                     [np.asarray(gr, np.float64) for gr in grads])
+    return out
+
+
+def split_errors(case, inputs, want, passes=3):
+    """{gradient: max abs error over its max}, da as da * max(a, 1e-20)."""
+    x, a, b, c, h0, dy, dhf = (torch.from_numpy(v) for v in inputs)
+    if case[6] == "bfloat16":
+        b, c = b.bfloat16(), c.bfloat16()
+    got = ssd_bwd_split_tf32(x, a, b, c, dy, dhf, h0, chunk=case[5],
+                             passes=passes)
+    scale = np.maximum(inputs[1], np.float32(1e-20)).astype(np.float64)
+    errs = {}
+    for name, gt, wt in zip(("dx", "da", "db", "dc", "dh0"), got, want):
+        gt = gt.float().numpy().astype(np.float64)
+        if name == "da":
+            gt, wt = gt * scale, wt * scale
+        errs[name] = float(np.abs(gt - wt).max() / np.abs(wt).max())
+    return errs
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=lambda c: (
+    "B{}-S{}-H{}-P{}-N{}-L{}-{}-h0{}-{}".format(*c)))
+def test_ssd_bwd_split_tf32_matches_jax_vjp(split_reference, case):
+    """chunk_bwd's split-TF32 arithmetic, composed into the backward, within
+    GRAD_TOL of jax.vjp's every gradient."""
+    inputs, want = split_reference[case]
+    errs = split_errors(case, inputs, want)
+    assert all(v <= GRAD_TOL for v in errs.values()), errs
+
+
+def test_ssd_bwd_single_tf32_loses_the_split_accuracy(split_reference):
+    """hi.hi alone (single TF32) is at least ten times further from
+    jax.vjp than the split, on a float32 case: the lo passes carry the
+    accuracy the tolerance asks for."""
+    case = SPLIT_CASES[0]
+    inputs, want = split_reference[case]
+    split = max(split_errors(case, inputs, want).values())
+    single = max(split_errors(case, inputs, want, passes=1).values())
+    assert single > 10 * split
+
+
+def test_tf32_split_rounds_to_nearest_ties_away_and_bf16_is_exact():
+    """TF32 rounding on the 13 dropped bits: ties go away from zero, below
+    a tie down; hi + lo carries 22 bits.  Every finite bf16 value (all 2^16
+    bit patterns but infinities and NaNs) is its own hi, with lo exactly 0:
+    why a product with a bf16 B or C skips the pass with its lo."""
+    one = 0x3F800000
+    vals = torch.tensor([one + 0x1000, one + 0xFFF, one + 0x3000,
+                         (one + 0x1000) | -0x80000000], dtype=torch.int32)
+    hi = tf32_round(vals.view(torch.float32)).view(torch.int32)
+    assert hi.tolist() == [one + 0x2000, one, one + 0x4000,
+                           (one + 0x2000) | -0x80000000]
+    v = torch.tensor([1 / 3, -2.718281828, 1e-30, 6.5e4], dtype=torch.float32)
+    h, lo = tf32_split(v)
+    assert torch.all(torch.abs((h + lo) - v) <= torch.abs(v) * 2.0 ** -21)
+    bits = torch.arange(2 ** 16, dtype=torch.int32) << 16
+    bf = bits.view(torch.float32)
+    finite = torch.isfinite(bf)
+    h, lo = tf32_split(bf[finite])
+    assert torch.equal(h.view(torch.int32), bits[finite])
+    assert torch.equal(lo, torch.zeros_like(lo))
 
 
 # -- the WKV passes ----------------------------------------------------------

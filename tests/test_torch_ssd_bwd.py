@@ -292,19 +292,30 @@ def test_step_decay_function_on_the_cpu():
 
 
 def test_backward_takes_the_forward_geometry():
-    """The backward kernel's shared memory fits wherever the forward's
-    does with P and N up to 128 (multiples of 4) and chunks up to 256;
-    the geometries it refuses beyond that raise by name (ROADMAP section
-    3, fault 1)."""
-    refused = []
-    for chunk in range(4, 257, 4):
-        for p in range(4, 129, 4):
-            for n in range(4, 129, 4):
-                if ops.smem_bytes(chunk, p, n) > ops.MAX_SMEM:
-                    continue
-                if ops.bwd_smem_bytes(chunk, p, n) > ops.MAX_SMEM:
-                    refused.append((chunk, p, n))
-    assert not refused, refused[:10]
-    assert ops.bwd_smem_bytes(128, 64, 64) <= ops.MAX_SMEM   # zamba2
-    with pytest.raises(ValueError, match="backward kernel.*fault 1"):
-        ops._check_bwd_kernel(24, 984, 4)
+    """chunk_bwd's shared memory fits wherever the forward's does, over
+    chunks up to 256 and P, N up to 1024 and 256 (multiples of 4), with b
+    and c in float32 or bf16: for each geometry the forward takes, one of
+    the backward's layouts (P in slices, rows padded or not, M1^T stored or
+    formed from the Gram) fits.  zamba2's training layer takes 32-column
+    slices in bf16 with every buffer padded, and chunk 24 with P = 984,
+    N = 4 (refused by the layout before P was sliced) is taken."""
+    chunk = np.arange(4, 257, 4)[:, None, None]
+    p = np.arange(4, 1025, 4)[None, :, None]
+    n = np.arange(4, 257, 4)[None, None, :]
+    taken = ops.smem_bytes(chunk, p, n) <= ops.MAX_SMEM
+    assert int(taken.sum()) > 70000
+    p8 = -(-p // 8) * 8
+    for itemsize in (4, 2):
+        fits = np.zeros(taken.shape, dtype=bool)
+        for m1, pad, ps in ops.BWD_LAYOUTS:
+            size = 4 * ops._bwd_layout_floats(chunk, n, ps, pad, m1,
+                                              itemsize)
+            fits |= (size <= ops.MAX_SMEM) & ((ps <= p8) | (ps == 8))
+        refused = np.argwhere(taken & ~fits)
+        assert refused.size == 0, [(4 * (c + 1), 4 * (q + 1), 4 * (m + 1))
+                                   for c, q, m in refused[:10]]
+    assert ops.bwd_layout(128, 64, 64, 2) == {
+        "ps": 32, "pad": 4, "m1": True,
+        "bytes": ops.bwd_smem_bytes(128, 64, 64, 2)}
+    layout = ops.bwd_layout(24, 984, 4)
+    assert layout["ps"] == 64 and layout["bytes"] <= ops.MAX_SMEM

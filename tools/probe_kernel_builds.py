@@ -21,7 +21,10 @@ the float32 edge band), then timed at the shapes of ``chip_smoke.py``
 (flash: danube's GQA and zamba2's MHA shape, bf16, then the backward at
 danube's and qwen3-moe's training shapes, with each build's backward
 occupancy read from the CUDA runtime; mamba2_ssd: zamba2's
-layer, bf16 b/c; wkv6: rwkv6's layer, bf16 r/k/v; token_select and
+layer, bf16 b/c, then the backward (mamba2_ssd_bwd and step_decay_bwd) at
+zamba2's training layer with the new chunk_bwd's occupancy readout and
+each build's count of HMMA instructions in chunk_bwd (cuobjdump -sass);
+wkv6: rwkv6's layer, bf16 r/k/v; token_select and
 tick_step: the fleet's S=128, J=1024, W=4, token_select at the scan path's
 W=1, float32 shares, then bf16 shares for the builds that take them), the
 builds in turns, forward then backward, each time the median of CUDA-event
@@ -100,6 +103,26 @@ EDITS = {
     const float q0 = __fmul_rn(n, rcp);
     const float q = __fmaf_rn(__fmaf_rn(-d, q0, n), rcp, q0);""",
             """    const float q = __fdiv_rn(n, d);""")],
+        # chunk_bwd: TF32 rounding by cvt.rna.tf32.f32 (its finiteness test
+        # kept) in place of the add and mask.
+        "cvt_rna": [(
+            "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+            """  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;""")],
+        # chunk_bwd: the gates by the accurate expf.
+        "gate_expf": [(
+            """  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;""", """  y = expf(x);
+  return y;""")],
+        # chunk_bwd: the head groups of before (set-up 0.5 heads, at most
+        # 16 heads: 10 at zamba2's training shape, four waves).
+        "bwd_heads_10": [(
+            "  return heads_per_block(B, S / L, H, 1, 2.0, H);",
+            "  return heads_per_block(B, S / L, H, 1, 0.5);")],
+        # step_decay_bwd: two row tiles an SM in place of one.
+        "step_bwd_tiles_2x": [(
+            "std::min(rows, sm_count())", "std::min(rows, 2 * sm_count())")],
     },
     "wkv6": {
         # Accurate expf for every exponential, in place of ex2.approx.ftz.
@@ -191,10 +214,11 @@ extern "C" int flash_bwd_occupancy(int D, int* out) {
   return (int)cudaErrorInvalidValue;
 }
 """
-#: Appended to every build of mamba2_ssd.cu that has the backward: the
-#: registers, local (spilled) bytes, dynamic shared memory and resident
-#: blocks an SM of the backward's kernels (bf16 b/c) at (P, N, L), read from
-#: the CUDA runtime.
+#: Appended to every build of mamba2_ssd.cu whose chunk_bwd runs on the
+#: tensor cores: the registers, local (spilled) bytes, dynamic shared
+#: memory and resident blocks an SM of the backward's kernels (bf16 b/c) at
+#: (P, N, L), chunk_bwd in the build that geometry takes, read from the CUDA
+#: runtime.
 SSD_BWD_OCCUPANCY_SRC = r"""
 namespace {
 int kernel_occupancy(const void* fn, int threads, size_t smem, int* out) {
@@ -218,21 +242,70 @@ int kernel_occupancy(const void* fn, int threads, size_t smem, int* out) {
 
 extern "C" int ssd_bwd_occupancy(int P, int N, int L, int* out) {
   using T = __nv_bfloat16;
-  const void* fns[5] = {(const void*)chunk_dstate_kernel<T>,
-                        (const void*)state_pass_bwd_kernel,
-                        (const void*)chunk_bwd_kernel<T>,
-                        (const void*)sum_groups_kernel<T>,
-                        (const void*)step_decay_bwd_kernel<T>};
+  BwdLayout ly;
+  if (!bwd_layout(P, N, L, 2, ly)) return (int)cudaErrorInvalidValue;
+  const void* fns[5] = {
+      (const void*)chunk_dstate_kernel<T>, (const void*)state_pass_bwd_kernel,
+      bwd_small(ly.nb, ly.nq)
+          ? (const void*)chunk_bwd_kernel<T, kSmallUnits, kSmallLower>
+          : (const void*)chunk_bwd_kernel<T, kLargeUnits, kLargeLower>,
+      (const void*)sum_groups_kernel<T>,
+      (const void*)step_decay_bwd_kernel<T, 4>};
   const int threads[5] = {kStateThreads, kPassThreads, kBwdThreads,
                           kPassThreads, kStepThreads};
   const size_t smem[5] = {
       sizeof(float) * ((size_t)L * (N + 4) + (size_t)L * (P + 4) + L), 0,
-      sizeof(float) * bwd_smem_floats(P, N, L), 0, 0};
+      sizeof(float) * ly.floats, 0, 0};
   for (int i = 0; i < 5; ++i) {
     const int rc = kernel_occupancy(fns[i], threads[i], smem[i], out + 4 * i);
     if (rc) return rc;
   }
   return 0;
+}
+"""
+#: A build of mamba2_ssd.cu with chunk_bwd's tensor cores, "clocks", whose
+#: warps add up clock64() between the points below; warp w of block (0, 0)
+#: leaves its sums in g_clocks[w][phase] (ssd_bwd_clocks reads them).
+SSD_BWD_CLOCK_PHASES = ("sums, da and head start", "slice loads",
+                        "dx", "dB and dC state terms", "D products",
+                        "D gates", "<R, S>", "after the last head")
+SSD_BWD_CLOCK_EDITS = [
+    ("namespace {", "__device__ long long g_clocks[16 * 8];\nnamespace {"),
+    ("  int band0, band_last;\n",
+     "  int band0, band_last;\n  long long clk[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+     "  long long clk_t = clock64();\n#define CLOCK(k) { const long long n_ = "
+     "clock64(); clk[k] += n_ - clk_t; clk_t = n_; }\n"),
+    ("    for (int s = 0; s < nsl; ++s) {\n      const int p0 = s * ps;\n",
+     "    CLOCK(0)\n    for (int s = 0; s < nsl; ++s) {\n"
+     "      const int p0 = s * ps;\n"),
+    ("        async_copy::wait<0>();\n      }\n      __syncthreads();\n\n"
+     "      // dx = M1^T dy",
+     "        async_copy::wait<0>();\n      }\n      __syncthreads();\n"
+     "      CLOCK(1)\n\n      // dx = M1^T dy"),
+    ("      // dB += (w o x) R^T and dC",
+     "      CLOCK(2)\n      // dB += (w o x) R^T and dC"),
+    ("      // D = dy x^T on this warp's lower tiles",
+     "      CLOCK(3)\n      // D = dy x^T on this warp's lower tiles"),
+    ("        }\n#pragma unroll\n        for (int k = 0; k < KL; ++k) {\n"
+     "          const bool live = k < n_mine;",
+     "        }\n        CLOCK(4)\n#pragma unroll\n"
+     "        for (int k = 0; k < KL; ++k) {\n"
+     "          const bool live = k < n_mine;"),
+    ("      {  // <R, S>: each thread's elements in order, then by warp",
+     "      CLOCK(5)\n      {  // <R, S>: each thread's elements in order, "
+     "then by warp"),
+    ("        if (lane == 0) red[warp] = s ? red[warp] + acc : acc;\n"
+     "      }\n    }\n",
+     "        if (lane == 0) red[warp] = s ? red[warp] + acc : acc;\n"
+     "      }\n      CLOCK(6)\n    }\n"),
+    ("  __syncthreads();  // the Gram and M1^T are done with\n",
+     "  CLOCK(7)\n  if (blockIdx.x == 0 && blockIdx.y == 0 && lane == 0)\n"
+     "    for (int k = 0; k < 8; ++k) g_clocks[warp * 8 + k] = clk[k];\n"
+     "  __syncthreads();  // the Gram and M1^T are done with\n"),
+]
+SSD_BWD_CLOCK_SRC = r"""
+extern "C" int ssd_bwd_clocks(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_clocks, sizeof(g_clocks));
 }
 """
 #: The backward kernels the readout covers, in its order.
@@ -277,9 +350,21 @@ def sources(kernel, other):
         out = {name: t + BWD_OCCUPANCY_SRC if "namespace bwd_tc" in t else t
                for name, t in out.items()}
     if kernel == "mamba2_ssd":
-        out = {name: t + SSD_BWD_OCCUPANCY_SRC if "chunk_bwd_kernel" in t
+        out = {name: t + SSD_BWD_OCCUPANCY_SRC if "namespace tf32x3" in t
                else t for name, t in out.items()}
     return out
+
+
+def clocks_source(text):
+    """mamba2_ssd.cu's text with chunk_bwd's clock edits and the readout
+    (SSD_BWD_CLOCK_EDITS, SSD_BWD_CLOCK_SRC); each edit must find its text
+    once."""
+    for old, new in SSD_BWD_CLOCK_EDITS:
+        if text.count(old) != 1:
+            raise SystemExit(f"clock edit of mamba2_ssd.cu no longer "
+                             f"applies: {old[:60]!r}")
+        text = text.replace(old, new)
+    return text + SSD_BWD_CLOCK_SRC
 
 
 def build_all(kernels, other, tmp: Path) -> dict:
@@ -291,7 +376,11 @@ def build_all(kernels, other, tmp: Path) -> dict:
     from repro_torch.kernels import _build
     procs = {}
     for kernel in kernels:
-        for name, text in sources(kernel, other).items():
+        builds = sources(kernel, other)
+        if kernel == "mamba2_ssd" and "namespace tf32x3" in builds["checkout"]:
+            builds["clocks"] = clocks_source(
+                (CSRC / f"{kernel}.cu").read_text())
+        for name, text in builds.items():
             # Next to the checkout's headers (or the other checkout's).
             inc = (CSRC if name != "other" else
                    other / "src" / "repro_torch" / "kernels" / "csrc")
@@ -308,6 +397,7 @@ def build_all(kernels, other, tmp: Path) -> dict:
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {key}:\n{log}")
         libs[key] = ctypes.CDLL(str(so))
+        libs[key].path = so
         libs[key].takes_share_dtype = "int dtype" in text
         # A flash build whose forward launcher takes the row statistics.
         libs[key].takes_stats = "(m == nullptr) != (l == nullptr)" in text
@@ -733,7 +823,27 @@ def probe_ssd_bwd(libs, cs) -> None:
         print(f"mamba2_ssd_bwd {tuple(x.shape)} chunk {chunk} b/c bf16: "
               + ", ".join(f"{n} {t:.3f} ms" for n, t in best.items()),
               flush=True)
+    clocked = libs.get(("mamba2_ssd", "clocks"))
+    if clocked is not None and "clocks" in calls:
+        import torch
+        calls["clocks"]()
+        torch.cuda.synchronize()
+        got = (ctypes.c_longlong * 128)()
+        if clocked.ssd_bwd_clocks(got):
+            raise SystemExit("clocks build's readout failed")
+        mean = [sum(got[8 * w + k] for w in range(16)) / 16 for k in range(8)]
+        total = sum(mean)
+        print("mamba2_ssd_bwd chunk_bwd clocks, block (0, 0), mean of its 16 "
+              f"warps, {total:.0f} cycles: " + "; ".join(
+                  f"{name} {m:.0f} ({m / total:.1%})" for name, m
+                  in zip(SSD_BWD_CLOCK_PHASES, mean)), flush=True)
     for (kernel, name), lib in libs.items():
+        if kernel == "mamba2_ssd":
+            print(f"mamba2_ssd_bwd {name} chunk_bwd SASS: "
+                  + "; ".join(f"{fn} {count} HMMA ({tf32} TF32)"
+                              for fn, (count, tf32)
+                              in chunk_bwd_hmma(lib.path).items()),
+                  flush=True)
         if kernel != "mamba2_ssd" or not hasattr(lib, "ssd_bwd_occupancy"):
             continue
         fn = lib.ssd_bwd_occupancy
@@ -751,6 +861,94 @@ def probe_ssd_bwd(libs, cs) -> None:
               flush=True)
 
 
+def chunk_bwd_hmma(so) -> dict:
+    """{chunk_bwd instantiation: (HMMA instructions, those on TF32)} in a
+    build's SASS (cuobjdump -sass)."""
+    import re
+    sass = subprocess.run(["cuobjdump", "-sass", str(so)],
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "chunk_bwd_kernel" in m.group(1) else None
+            if fn:
+                # chunk_bwd_kernelI<T>Li<KU>ELi<KL>E...: name it by T and slots
+                t = "bf16" if "nv_bfloat16" in fn else "f32"
+                slots = re.findall(r"Li(\d+)E", fn)
+                fn = f"<{t}{', ' + ', '.join(slots) if slots else ''}>"
+                counts[fn] = [0, 0]
+            continue
+        if fn and "HMMA" in line:
+            counts[fn][0] += 1
+            counts[fn][1] += "TF32" in line
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def step_decay_bwd_call(lib, args, part, outs):
+    """One call of a build's step_decay_bwd launcher on [rows, H] inputs."""
+    import torch
+    g_dt, g_a, raw, bias, a_log, dt, a = args
+    fn = lib.mamba2_step_decay_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    rows = raw.reshape(-1, raw.shape[-1])
+    rc = fn(g_dt.data_ptr(), g_a.data_ptr(), rows.data_ptr(), dt.data_ptr(),
+            a.data_ptr(), bias.data_ptr(), a_log.data_ptr(),
+            outs[0].data_ptr(), part.data_ptr(), outs[1].data_ptr(),
+            outs[2].data_ptr(), rows.shape[0], rows.shape[1], rows.stride(0),
+            int(raw.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"step_decay_bwd launch failed: CUDA error {rc}")
+
+
+def probe_step_decay_bwd(libs, cs) -> None:
+    """Every build's step_decay_bwd at zamba2's training shape (dt_raw a
+    bf16 view of the projection, [2, 4096, 80]), held to the plain version
+    (chip_smoke.grads_held) and timed in turns with one launch of a
+    one-element add_, 50 launches a timing."""
+    import torch
+    from repro_torch.kernels.mamba2.ref import (step_and_decay_bwd_ref,
+                                                step_and_decay_ref)
+    gen = torch.Generator().manual_seed(0)
+    proj = (torch.randn(2, 4096, ZAMBA2_PROJ, generator=gen) * 3).to(
+        torch.bfloat16).cuda()
+    raw = proj[..., ZAMBA2_DT_COL:]
+    bias = torch.randn(raw.shape[-1], generator=gen).cuda()
+    a_log = (torch.rand(raw.shape[-1], generator=gen) * 6 - 3).cuda()
+    dt, a = step_and_decay_ref(raw, bias, a_log)
+    g_dt, g_a = (torch.randn(dt.shape, generator=gen).cuda()
+                 for _ in range(2))
+    args = (g_dt, g_a, raw, bias, a_log, dt, a)
+    want = step_and_decay_bwd_ref(*args)
+    calls = {}
+    for (kernel, name), lib in libs.items():
+        if kernel != "mamba2_ssd" or not hasattr(
+                lib, "mamba2_step_decay_bwd_launch"):
+            continue
+        lib.mamba2_step_decay_bwd_tiles.argtypes = [ctypes.c_int]
+        tiles = lib.mamba2_step_decay_bwd_tiles(raw.numel() // raw.shape[-1])
+        part = torch.empty((tiles, 2, raw.shape[-1]), device="cuda")
+        outs = (torch.empty(raw.shape, dtype=raw.dtype, device="cuda"),
+                torch.empty(raw.shape[-1], device="cuda"),
+                torch.empty(raw.shape[-1], device="cuda"))
+        step_decay_bwd_call(lib, args, part, outs)
+        cs.grads_held(f"{name} build's step_decay_bwd", cs.STEP_DECAY_GRADS,
+                      outs, want)
+        calls[name] = lambda lib=lib, part=part, outs=outs: (
+            step_decay_bwd_call(lib, args, part, outs))
+    one = torch.zeros(1, device="cuda")
+    calls["empty launch"] = lambda: one.add_(1)
+    names = list(calls)
+    times = {name: [] for name in names}
+    for order in (names, names[::-1]) * 2:
+        for name in order:
+            times[name].append(cs.time_ms(calls[name], reps=50))
+    print(f"step_decay_bwd {tuple(raw.shape)} bf16 view: " + ", ".join(
+        f"{n} {min(t) * 1e3:.2f} us" for n, t in times.items()), flush=True)
+
+
 PROBES = {"token_select": lambda libs, cs: probe_draws(libs, cs,
                                                       "token_select"),
           "tick_step": lambda libs, cs: probe_draws(libs, cs, "tick_step"),
@@ -758,7 +956,8 @@ PROBES = {"token_select": lambda libs, cs: probe_draws(libs, cs,
                                                probe_flash_bwd(libs, cs)),
           "mamba2_ssd": lambda libs, cs: (probe_mamba2(libs, cs),
                                           probe_step_decay(libs, cs),
-                                          probe_ssd_bwd(libs, cs)),
+                                          probe_ssd_bwd(libs, cs),
+                                          probe_step_decay_bwd(libs, cs)),
           "wkv6": probe_wkv6}
 
 
