@@ -3795,13 +3795,22 @@ def phase_step_decay(device, layer0, *, reps=50):
 #: 32, 64 and 128, bf16 b/c, an initial state, strong decay, strided b/c
 #: views), a chunk of 16, P and N not multiples of 4 (padded by
 #: kernel_layout), chunk 24 with P = 984 and N = 4 (P in sixteen slices),
-#: and a chunk of 20 with P = 20, N = 12 (tiles of 16 x 8 cut at every
-#: edge).
+#: a chunk of 20 with P = 20, N = 12 (tiles of 16 x 8 cut at every edge),
+#: and the large build (ops.bwd_layout's "build" 1: sum_h M2 in
+#: registers) in each of its layouts: chunk 220 with M1^T formed from the
+#: Gram, chunk 164 in bf16 and 84 with N = 180 (more 16 x 32 units than
+#: the small build holds) with M1^T stored, chunk 180 in float32 and 196
+#: in bf16 with unpadded rows; 80 heads, so its blocks take two heads each.
 SSD_BWD_CASES = MAMBA2_CASES + [
     (2, 64, 4, 16, 16, 16, "float32", True, "normal", False),
     (1, 128, 3, 18, 30, 32, "bfloat16", True, "strong", True),
     (1, 48, 2, 984, 4, 24, "float32", False, "normal", False),
     (1, 120, 3, 20, 12, 20, "float32", True, "strong", False),
+    (1, 440, 80, 4, 4, 220, "float32", True, "strong", False),
+    (1, 328, 80, 4, 44, 164, "bfloat16", True, "normal", False),
+    (1, 168, 80, 4, 180, 84, "float32", False, "normal", False),
+    (1, 360, 80, 4, 12, 180, "float32", True, "normal", False),
+    (1, 392, 80, 4, 4, 196, "bfloat16", False, "strong", False),
 ]
 #: Each gradient of the backward kernels against the plain version: max abs
 #: error over the gradient's max.  da is compared as da * max(a, 1e-20),
@@ -3937,11 +3946,12 @@ def ssd_bwd_layout_held(x, b, chunk, tag) -> dict:
     with torch.cuda.device(x.device):
         got = ssd_ops._ask("chunk_bwd_smem", p, n, chunk,
                            int(b.dtype == torch.bfloat16), out)
-    if (got, out[0], out[1], bool(out[2])) != (want["bytes"], want["ps"],
-                                               want["pad"], want["m1"]):
+    if (got, out[0], out[1], bool(out[2]), out[3]) != (
+            want["bytes"], want["ps"], want["pad"], want["m1"],
+            want["build"]):
         raise AssertionError(f"chunk_bwd layout {tag}: kernel {got} B, "
-                             f"slice {out[0]}, pad {out[1]}, M1^T {out[2]}; "
-                             f"mirror {want}")
+                             f"slice {out[0]}, pad {out[1]}, M1^T {out[2]}, "
+                             f"build {out[3]}; mirror {want}")
     return want
 
 
@@ -4025,12 +4035,12 @@ def phase_ssd_bwd(device, layer0, *, cases=SSD_BWD_CASES, reps=5):
     fma_bound, _, _ = pipe_bound(*work)
     nbytes, ops, exps = work
     import torch
-    hpb = 10  # what the launcher picks at zamba2's training shape
+    split = None  # the kernel's own count: its head groups are the card's
     if torch.device(x.device).type == "cuda":
         with torch.cuda.device(x.device):
             hpb = ssd_ops._ask("chunk_bwd_heads", x.shape[0], x.shape[1],
                                x.shape[2], chunk)
-    split = mamba2_bwd_split_ops(x, b, chunk, -(-x.shape[2] // hpb))
+        split = mamba2_bwd_split_ops(x, b, chunk, -(-x.shape[2] // hpb))
     say("ssd_bwd", f"{tag}: device ms per pass " + ", ".join(
         f"{k} {v:.3f}" for k, v in passes.items()))
     say("ssd_bwd", f"{tag}: kernels {ms:.3f} ms, bound {bound:.4f} ms "
@@ -4038,16 +4048,20 @@ def phase_ssd_bwd(device, layer0, *, cases=SSD_BWD_CASES, reps=5):
         f"{exps / 1e9:.3f} G exponentials; on the FMA pipes "
         f"{fma_bound:.4f} ms), plain {plain:.3f} ms; kernels / bound "
         f"{ms / bound:.1f}; no PyTorch call computes this function")
-    say("ssd_bwd", f"{tag}: chunk_bwd's split TF32 takes {split / 1e9:.1f} "
-        f"GFLOP of TF32 ({split / TF32_OPS_PER_S * 1e3:.4f} ms at "
-        f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s); layout: P slices of "
-        f"{layout['ps']}, rows padded by {layout['pad']}, M1^T "
+    if split is not None:
+        say("ssd_bwd", f"{tag}: chunk_bwd's split TF32 takes "
+            f"{split / 1e9:.1f} GFLOP of TF32 "
+            f"({split / TF32_OPS_PER_S * 1e3:.4f} ms at "
+            f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s)")
+    say("ssd_bwd", f"{tag}: layout: P slices of {layout['ps']}, rows padded "
+        f"by {layout['pad']}, M1^T "
         f"{'stored' if layout['m1'] else 'formed from the Gram'}, "
-        f"{layout['bytes']} B of shared memory")
+        f"{layout['bytes']} B of shared memory, the "
+        f"{('small', 'large')[layout['build']]} build")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                 bound_pipe=pipe, library_ms=None, max_abs_err=worst,
                 pass_ms=passes, fma_bound_ms=fma_bound,
-                split_tf32_gflop=split / 1e9)
+                split_tf32_gflop=None if split is None else split / 1e9)
 
 
 STEP_DECAY_GRADS = ("g_dt_raw", "g_dt_bias", "g_a_log")

@@ -73,6 +73,15 @@ MAX_SMEM = 232448
 #: memory); the launcher picks 1 to this many.
 MAX_HEADS_PER_BLOCK = 16
 
+#: Column ranges one step_decay_bwd launch takes (``kStepBwdMaxRanges``),
+#: each with a counter of the row tiles done.
+STEP_BWD_MAX_RANGES = 64
+
+#: step_decay_bwd's counters, one zeroed set per (device, stream): launches
+#: on one stream run in order and share a set (each leaves it zero);
+#: launches on two streams may overlap, and get a set each.
+_STEP_BWD_DONE: dict = {}
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -93,7 +102,7 @@ def _launcher(name: str):
         "step_decay": [_PTR] * 5 + [_INT] * 2 + [_LL, _INT, _PTR],
         "step_decay_sweep": [_PTR] * 3,
         "step_decay_bwd_tiles": [_INT],
-        "step_decay_bwd": [_PTR] * 11 + [_INT] * 2 + [_LL, _INT, _PTR],
+        "step_decay_bwd": [_PTR] * 12 + [_INT] * 2 + [_LL, _INT, _PTR],
         "chunk_dstate": [_PTR] * 4 + [_INT] * 6 + [_LL] * 2 + [_INT, _PTR],
         "state_pass_bwd": [_PTR] * 4 + [_INT] * 6 + [_PTR],
         "chunk_bwd_heads": [_INT] * 4,
@@ -148,12 +157,29 @@ def _bwd_layout_floats(chunk, n, ps, pad, m1, itemsize):
     lp, np_ = -(-chunk // 16) * 16, -(-n // 8) * 8
     nb, nq = lp // 16, -(-np_ // 32)
     banded = 128 * nb * (nb + 1) + 16 * pad * nb
-    small = (nb * nq <= 16) & (nb * (nb + 1) <= 80)  # sum_h M2 stored
+    small = _bwd_build(chunk, n) == 0  # sum_h M2 stored
     return (2 * r4(lp * (ps + pad)) + 2 * r4(np_ * (ps + pad))
             + 2 * r4(-(-lp * (np_ + pad) * itemsize // 4))
             + r4(banded) * (1 + small + m1) + 6 * r4(lp)
             + r4(512 // 32 + 1) + r4(24 * nb * (nb + 1)) + r4(16 * nb * nq)
             + r4(16 * nb * ps // 8))
+
+#: chunk_bwd's builds, (16 x 32 units of dB and dC, lower 16 x 8 tiles of
+#: C B^T) its 16 warps hold (``kSmallUnits``, ``kSmallLower``,
+#: ``kLargeUnits``, ``kLargeLower`` times 16): the small one holds sum_h M2
+#: in shared memory, the large one in registers.
+BWD_BUILDS = ((16, 80), (48, 224))
+
+
+def _bwd_build(chunk, n):
+    """chunk_bwd's build at (chunk, N): 0 small, 1 large, 2 past both (the
+    kernel refuses); elementwise for numpy arrays."""
+    nb = -(-chunk // 16)
+    nq = -(-(-(-n // 8) * 8) // 32)
+    fits = [(nb * nq <= units) & (nb * (nb + 1) <= lower)
+            for units, lower in BWD_BUILDS]
+    return np.where(fits[0], 0, np.where(fits[1], 1, 2))
+
 
 #: chunk_bwd's layouts in the order ``bwd_layout`` tries them: (M1^T
 #: stored, row padding, P slice).
@@ -167,8 +193,14 @@ def bwd_layout(chunk: int, p: int, n: int, itemsize: int = 4) -> dict:
     widest P slice (64, 32, 16 or 8 columns, no wider than P rounded up to
     8) that fits ``MAX_SMEM``, rows padded by 4 elements where that fits,
     else by none, and M1^T stored where that fits, else formed from the
-    Gram as the kernel reads it.  Returns {"ps", "pad", "m1", "bytes"};
-    raises where no layout fits (no geometry the forward takes)."""
+    Gram as the kernel reads it, and the build that holds its accumulators
+    (``BWD_BUILDS``).  Returns {"ps", "pad", "m1", "bytes", "build"};
+    raises where no layout fits or neither build holds the tiles (no
+    geometry the forward takes)."""
+    build = int(_bwd_build(chunk, n))
+    if build == 2:
+        raise ValueError(f"mamba2_ssd backward kernel: chunk {chunk} with "
+                         f"N={n} has more tiles than its builds hold")
     p8 = -(-p // 8) * 8
     for m1, pad, ps in BWD_LAYOUTS:
         if ps > p8 and ps > 8:
@@ -176,7 +208,8 @@ def bwd_layout(chunk: int, p: int, n: int, itemsize: int = 4) -> dict:
         nbytes = int(4 * _bwd_layout_floats(chunk, n, ps, pad, m1,
                                             itemsize))
         if nbytes <= MAX_SMEM:
-            return {"ps": ps, "pad": pad, "m1": m1, "bytes": nbytes}
+            return {"ps": ps, "pad": pad, "m1": m1, "bytes": nbytes,
+                    "build": build}
     raise ValueError(f"mamba2_ssd backward kernel: no shared-memory layout "
                      f"fits chunk {chunk}, P={p}, N={n}")
 
@@ -528,10 +561,21 @@ def step_and_decay_bwd(g_dt: torch.Tensor, g_a: torch.Tensor,
     _call("step_decay_bwd", dev, g_dt.data_ptr(), g_a.data_ptr(),
           raw.data_ptr(), dt.data_ptr(), a.data_ptr(), bias.data_ptr(),
           a_log.data_ptr(), g_raw.data_ptr(), part.data_ptr(),
-          g_bias.data_ptr(), g_alog.data_ptr(), rows, h, raw.stride(0),
-          _DTYPES[raw.dtype])
+          _step_bwd_done(dev).data_ptr(), g_bias.data_ptr(),
+          g_alog.data_ptr(), rows, h, raw.stride(0), _DTYPES[raw.dtype])
     STEP_DECAY_BWD_LAUNCHES += 1
     return g_raw.view(dt_raw.shape), g_bias, g_alog
+
+
+def _step_bwd_done(dev) -> torch.Tensor:
+    """The current stream's step_decay_bwd counters on ``dev``."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    done = _STEP_BWD_DONE.get(key)
+    if done is None:  # zeroed on the stream that launches with it
+        done = torch.zeros(STEP_BWD_MAX_RANGES, dtype=torch.int32,
+                           device=dev)
+        _STEP_BWD_DONE[key] = done
+    return done
 
 
 def _bwd_launch(name: str, device, *args) -> None:
@@ -641,6 +685,7 @@ def _run_chunk_bwd(x, a, b, c, dy, cum, h_in, r, chunk):
     bsz, s, h, p = x.shape
     n = b.shape[-1]
     dev = x.device
+    bwd_layout(chunk, p, n, b.element_size())  # refuses by name
     with torch.cuda.device(dev):
         hpb = _ask("chunk_bwd_heads", bsz, s, h, chunk)
     groups = -(-h // hpb)

@@ -178,7 +178,9 @@ def test_step_decay_bwd_kernel_matches_plain_version(card, dtype):
     finite, a bf16 g_dt_raw one bf16 step apart at most) on
     chip_smoke's edge-value cases, dt_raw in float32 and bf16; a second
     run equal bit for bit; one counted call each, one device launch a call
-    (the profiler sees one kernel: the last block sums the tiles)."""
+    (the profiler sees one kernel: the last block sums the tiles); calls on
+    two streams at once give the same bits (each stream has counters of its
+    own)."""
     from repro_torch.kernels.mamba2 import ops as ssd_ops
     from repro_torch.kernels.mamba2.ref import (step_and_decay_bwd_ref,
                                                 step_and_decay_ref)
@@ -204,16 +206,24 @@ def test_step_decay_bwd_kernel_matches_plain_version(card, dtype):
         kernels = [e.name for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         assert len(kernels) == 1 and "step_decay_bwd" in kernels[0], kernels
+        side = torch.cuda.Stream(card)
+        side.wait_stream(torch.cuda.current_stream(card))
+        with torch.cuda.stream(side):
+            on_side = ssd_ops.step_and_decay_bwd(*args)
+        on_main = ssd_ops.step_and_decay_bwd(*args)
+        torch.cuda.synchronize()
+        assert smoke.same_bits(on_side, got) and smoke.same_bits(on_main, got)
 
 
 def test_chunk_bwd_layout_matches_its_mirror(card):
     """chunk_bwd's shared-memory layout as the kernel chooses it
     (mamba2_chunk_bwd_smem) = ops.bwd_layout, the mirror the CPU tests
     sweep over every geometry the forward takes: zamba2's, the case list's,
-    the forward's largest chunks and widths, b and c in both dtypes."""
+    the forward's largest chunks and widths, b and c in both dtypes, and
+    the build that holds its tiles."""
     geoms = [(128, 64, 64), (24, 984, 4), (20, 20, 12), (16, 16, 16),
              (220, 4, 4), (84, 4, 180), (164, 4, 44), (64, 100, 60),
-             (32, 1024, 8), (128, 8, 32)]
+             (32, 1024, 8), (128, 8, 32), (180, 4, 12), (196, 4, 4)]
     for chunk, p, n in geoms:
         for t in (torch.float32, torch.bfloat16):
             x = torch.empty((1, chunk, 1, p), device=card)

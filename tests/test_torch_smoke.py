@@ -345,21 +345,6 @@ def test_probe_edits_still_apply():
         assert all(builds[name] != builds["checkout"] for name in edits)
 
 
-def test_probe_clock_edits_still_apply():
-    """tools/probe_kernel_builds.py's "clocks" build of mamba2_ssd.cu (the
-    SSD backward's per-phase cycle readout) finds each text it edits, once,
-    and adds its readout."""
-    root = Path(__file__).resolve().parent.parent
-    spec = importlib.util.spec_from_file_location(
-        "probe_kernel_builds", root / "tools" / "probe_kernel_builds.py")
-    probe = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(probe)
-    text = (probe.CSRC / "mamba2_ssd.cu").read_text()
-    clocked = probe.clocks_source(text)
-    assert clocked.count("CLOCK(") == len(probe.SSD_BWD_CLOCK_PHASES) + 1
-    assert clocked.endswith(probe.SSD_BWD_CLOCK_SRC)
-
-
 @pytest.mark.parametrize("name", ("rows", "sections"))
 def test_plane_process_refuses_without_a_card(tmp_path, name):
     """``chip_smoke.py --plane NAME OUT`` exits 2 and writes nothing where

@@ -296,9 +296,11 @@ def test_backward_takes_the_forward_geometry():
     chunks up to 256 and P, N up to 1024 and 256 (multiples of 4), with b
     and c in float32 or bf16: for each geometry the forward takes, one of
     the backward's layouts (P in slices, rows padded or not, M1^T stored or
-    formed from the Gram) fits.  zamba2's training layer takes 32-column
-    slices in bf16 with every buffer padded, and chunk 24 with P = 984,
-    N = 4 (refused by the layout before P was sliced) is taken."""
+    formed from the Gram) fits, and one of its builds holds the tiles (the
+    kernel refuses past them).  zamba2's training layer takes 32-column
+    slices in bf16 with every buffer padded and the small build, and chunk
+    24 with P = 984, N = 4 (refused by the layout before P was sliced) is
+    taken."""
     chunk = np.arange(4, 257, 4)[:, None, None]
     p = np.arange(4, 1025, 4)[None, :, None]
     n = np.arange(4, 257, 4)[None, None, :]
@@ -311,11 +313,29 @@ def test_backward_takes_the_forward_geometry():
             size = 4 * ops._bwd_layout_floats(chunk, n, ps, pad, m1,
                                               itemsize)
             fits |= (size <= ops.MAX_SMEM) & ((ps <= p8) | (ps == 8))
+        fits &= ops._bwd_build(chunk, n) < 2
         refused = np.argwhere(taken & ~fits)
         assert refused.size == 0, [(4 * (c + 1), 4 * (q + 1), 4 * (m + 1))
                                    for c, q, m in refused[:10]]
     assert ops.bwd_layout(128, 64, 64, 2) == {
         "ps": 32, "pad": 4, "m1": True,
-        "bytes": ops.bwd_smem_bytes(128, 64, 64, 2)}
+        "bytes": ops.bwd_smem_bytes(128, 64, 64, 2), "build": 0}
     layout = ops.bwd_layout(24, 984, 4)
     assert layout["ps"] == 64 and layout["bytes"] <= ops.MAX_SMEM
+
+
+def test_backward_names_its_builds():
+    """chunk_bwd's two builds by the tiles they hold (ops.BWD_BUILDS, as
+    the kernel's dispatcher picks them): zamba2's geometry and chunk 24
+    with P = 984 take the small one; chunks 164 and 220 (more lower tiles
+    than it holds) and N = 180 at chunk 84 (more 16 x 32 units) the large
+    one; a geometry past both (chunk 256, which the forward refuses too)
+    raises by name, where the kernel would return a bare CUDA error."""
+    got = {g: ops.bwd_layout(*g)["build"] for g in
+           [(128, 64, 64), (24, 984, 4), (164, 4, 44), (220, 4, 4),
+            (84, 4, 180)]}
+    assert got == {(128, 64, 64): 0, (24, 984, 4): 0, (164, 4, 44): 1,
+                   (220, 4, 4): 1, (84, 4, 180): 1}
+    assert ops.smem_bytes(256, 4, 4) > ops.MAX_SMEM
+    with pytest.raises(ValueError, match="more tiles than its builds hold"):
+        ops.bwd_layout(256, 4, 4)

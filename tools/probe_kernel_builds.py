@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time builds of the port's kernels side by side, on one card.
 
-    python3 tools/probe_kernel_builds.py [--other DIR] [KERNEL ...]
+    python3 tools/probe_kernel_builds.py [--other DIR ...] [KERNEL ...]
 
 Compiles, with the flags of ``kernels/_build.py``, these builds of each
 ``csrc/<kernel>.cu`` named (default: every kernel of ``EDITS``) into a
@@ -10,9 +10,9 @@ temporary directory, all started together:
   checkout       the sources as they are;
   <edit name>    the sources with one design choice undone by a text edit
                  (``EDITS``), to measure what that choice buys;
-  other          the sources under ``DIR/src/repro_torch/kernels/csrc``
+  <DIR's name>   the sources under ``DIR/src/repro_torch/kernels/csrc``
                  (another checkout, e.g. the parent commit unpacked with
-                 ``git archive``), when ``--other`` is given.
+                 ``git archive``), for each ``--other DIR`` given.
 
 Each build's output is first held to the checkout's plain version (flash:
 ``chip_smoke.FLASH_TOL``; the scans: ``chip_smoke.prefix_tol``, output and
@@ -103,26 +103,6 @@ EDITS = {
     const float q0 = __fmul_rn(n, rcp);
     const float q = __fmaf_rn(__fmaf_rn(-d, q0, n), rcp, q0);""",
             """    const float q = __fdiv_rn(n, d);""")],
-        # chunk_bwd: TF32 rounding by cvt.rna.tf32.f32 (its finiteness test
-        # kept) in place of the add and mask.
-        "cvt_rna": [(
-            "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
-            """  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;""")],
-        # chunk_bwd: the gates by the accurate expf.
-        "gate_expf": [(
-            """  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
-  return y;""", """  y = expf(x);
-  return y;""")],
-        # chunk_bwd: the head groups of before (set-up 0.5 heads, at most
-        # 16 heads: 10 at zamba2's training shape, four waves).
-        "bwd_heads_10": [(
-            "  return heads_per_block(B, S / L, H, 1, 2.0, H);",
-            "  return heads_per_block(B, S / L, H, 1, 0.5);")],
-        # step_decay_bwd: two row tiles an SM in place of one.
-        "step_bwd_tiles_2x": [(
-            "std::min(rows, sm_count())", "std::min(rows, 2 * sm_count())")],
     },
     "wkv6": {
         # Accurate expf for every exponential, in place of ex2.approx.ftz.
@@ -263,51 +243,6 @@ extern "C" int ssd_bwd_occupancy(int P, int N, int L, int* out) {
   return 0;
 }
 """
-#: A build of mamba2_ssd.cu with chunk_bwd's tensor cores, "clocks", whose
-#: warps add up clock64() between the points below; warp w of block (0, 0)
-#: leaves its sums in g_clocks[w][phase] (ssd_bwd_clocks reads them).
-SSD_BWD_CLOCK_PHASES = ("sums, da and head start", "slice loads",
-                        "dx", "dB and dC state terms", "D products",
-                        "D gates", "<R, S>", "after the last head")
-SSD_BWD_CLOCK_EDITS = [
-    ("namespace {", "__device__ long long g_clocks[16 * 8];\nnamespace {"),
-    ("  int band0, band_last;\n",
-     "  int band0, band_last;\n  long long clk[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
-     "  long long clk_t = clock64();\n#define CLOCK(k) { const long long n_ = "
-     "clock64(); clk[k] += n_ - clk_t; clk_t = n_; }\n"),
-    ("    for (int s = 0; s < nsl; ++s) {\n      const int p0 = s * ps;\n",
-     "    CLOCK(0)\n    for (int s = 0; s < nsl; ++s) {\n"
-     "      const int p0 = s * ps;\n"),
-    ("        async_copy::wait<0>();\n      }\n      __syncthreads();\n\n"
-     "      // dx = M1^T dy",
-     "        async_copy::wait<0>();\n      }\n      __syncthreads();\n"
-     "      CLOCK(1)\n\n      // dx = M1^T dy"),
-    ("      // dB += (w o x) R^T and dC",
-     "      CLOCK(2)\n      // dB += (w o x) R^T and dC"),
-    ("      // D = dy x^T on this warp's lower tiles",
-     "      CLOCK(3)\n      // D = dy x^T on this warp's lower tiles"),
-    ("        }\n#pragma unroll\n        for (int k = 0; k < KL; ++k) {\n"
-     "          const bool live = k < n_mine;",
-     "        }\n        CLOCK(4)\n#pragma unroll\n"
-     "        for (int k = 0; k < KL; ++k) {\n"
-     "          const bool live = k < n_mine;"),
-    ("      {  // <R, S>: each thread's elements in order, then by warp",
-     "      CLOCK(5)\n      {  // <R, S>: each thread's elements in order, "
-     "then by warp"),
-    ("        if (lane == 0) red[warp] = s ? red[warp] + acc : acc;\n"
-     "      }\n    }\n",
-     "        if (lane == 0) red[warp] = s ? red[warp] + acc : acc;\n"
-     "      }\n      CLOCK(6)\n    }\n"),
-    ("  __syncthreads();  // the Gram and M1^T are done with\n",
-     "  CLOCK(7)\n  if (blockIdx.x == 0 && blockIdx.y == 0 && lane == 0)\n"
-     "    for (int k = 0; k < 8; ++k) g_clocks[warp * 8 + k] = clk[k];\n"
-     "  __syncthreads();  // the Gram and M1^T are done with\n"),
-]
-SSD_BWD_CLOCK_SRC = r"""
-extern "C" int ssd_bwd_clocks(long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_clocks, sizeof(g_clocks));
-}
-"""
 #: The backward kernels the readout covers, in its order.
 SSD_BWD_KERNELS = ("chunk_dstate", "state_pass_bwd", "chunk_bwd",
                    "sum_groups", "step_decay_bwd")
@@ -331,8 +266,9 @@ MAMBA2_SHAPE = (2, 6016, 80, 64, 64, 128, "bfloat16", False, "normal", True)
 WKV6_SHAPE = (2, 6016, 64, 64, 64, "bfloat16", False, "normal")
 
 
-def sources(kernel, other):
-    """{build name: source text} of one kernel."""
+def sources(kernel, others):
+    """{build name: source text} of one kernel; ``others`` {build name:
+    root of another checkout} (or None)."""
     text = (CSRC / f"{kernel}.cu").read_text()
     out = {"checkout": text}
     for name, edits in EDITS[kernel].items():
@@ -343,9 +279,9 @@ def sources(kernel, other):
                                  f"longer applies: {old[:60]!r}")
             edited = edited.replace(old, new)
         out[name] = edited
-    if other is not None:
-        out["other"] = (other / "src" / "repro_torch" / "kernels" / "csrc"
-                        / f"{kernel}.cu").read_text()
+    for name, root in (others or {}).items():
+        out[name] = (root / "src" / "repro_torch" / "kernels" / "csrc"
+                     / f"{kernel}.cu").read_text()
     if kernel == "flash_attention":
         out = {name: t + BWD_OCCUPANCY_SRC if "namespace bwd_tc" in t else t
                for name, t in out.items()}
@@ -355,35 +291,23 @@ def sources(kernel, other):
     return out
 
 
-def clocks_source(text):
-    """mamba2_ssd.cu's text with chunk_bwd's clock edits and the readout
-    (SSD_BWD_CLOCK_EDITS, SSD_BWD_CLOCK_SRC); each edit must find its text
-    once."""
-    for old, new in SSD_BWD_CLOCK_EDITS:
-        if text.count(old) != 1:
-            raise SystemExit(f"clock edit of mamba2_ssd.cu no longer "
-                             f"applies: {old[:60]!r}")
-        text = text.replace(old, new)
-    return text + SSD_BWD_CLOCK_SRC
-
-
-def build_all(kernels, other, tmp: Path) -> dict:
+def build_all(kernels, others, tmp: Path) -> dict:
     """{(kernel, build name): ctypes library}; the builds run together.  A
     draw kernel's library carries ``takes_share_dtype``: whether its
     launcher takes the share dtype (builds before bf16 shares do not); a
     flash build's ``takes_stats``: whether its forward launcher takes the
-    row statistics' pointers (builds before the backward do not)."""
+    row statistics' pointers (builds before the backward do not); an SSD
+    build's ``takes_done``: whether its step_decay_bwd launcher takes the
+    caller's counters (builds with a global counter or two launches do
+    not)."""
     from repro_torch.kernels import _build
     procs = {}
     for kernel in kernels:
-        builds = sources(kernel, other)
-        if kernel == "mamba2_ssd" and "namespace tf32x3" in builds["checkout"]:
-            builds["clocks"] = clocks_source(
-                (CSRC / f"{kernel}.cu").read_text())
+        builds = sources(kernel, others)
         for name, text in builds.items():
             # Next to the checkout's headers (or the other checkout's).
-            inc = (CSRC if name != "other" else
-                   other / "src" / "repro_torch" / "kernels" / "csrc")
+            inc = (others[name] / "src" / "repro_torch" / "kernels" / "csrc"
+                   if name in (others or {}) else CSRC)
             src = tmp / f"{kernel}-{name}.cu"
             src.write_text(text)
             so = tmp / f"{kernel}-{name}.so"
@@ -401,6 +325,7 @@ def build_all(kernels, other, tmp: Path) -> dict:
         libs[key].takes_share_dtype = "int dtype" in text
         # A flash build whose forward launcher takes the row statistics.
         libs[key].takes_stats = "(m == nullptr) != (l == nullptr)" in text
+        libs[key].takes_done = "void* part, void* done" in text
     return libs
 
 
@@ -781,7 +706,9 @@ def probe_step_decay(libs, cs) -> None:
 def probe_ssd_bwd(libs, cs) -> None:
     """Every build's SSD backward at SSD_BWD_SHAPE (bf16 b/c, the forward's
     scratch given), held to the plain version (chip_smoke.ssd_bwd_held),
-    timed in turns; then each build's occupancy readout."""
+    timed in turns; then each build's occupancy readout.  A build whose
+    gradients are off is named, left out of the timing, and makes the
+    probe fail after the readouts."""
     from repro_torch.kernels.mamba2 import ops
     from repro_torch.kernels.mamba2.ref import mamba2_ssd_bwd_ref
     bsz, s, h, p, n, chunk = SSD_BWD_SHAPE
@@ -789,7 +716,7 @@ def probe_ssd_bwd(libs, cs) -> None:
     args, kw = cs.ssd_bwd_inputs(case, "cuda", seed=0)
     x, a = args[:2]
     want = mamba2_ssd_bwd_ref(*args, **kw)
-    calls = {}
+    calls, wrong = {}, []
     for (kernel, name), lib in libs.items():
         if kernel != "mamba2_ssd" or not hasattr(lib,
                                                  "mamba2_chunk_bwd_launch"):
@@ -798,8 +725,14 @@ def probe_ssd_bwd(libs, cs) -> None:
         saved = ops._build._LIBS.get("mamba2_ssd")
         ops._build._LIBS["mamba2_ssd"] = lib
         try:
-            cs.ssd_bwd_held(ops.mamba2_ssd_bwd(*args, **kw), want, a,
-                            f"{name} build")
+            try:
+                cs.ssd_bwd_held(ops.mamba2_ssd_bwd(*args, **kw), want, a,
+                                f"{name} build")
+            except AssertionError as err:
+                print(f"mamba2_ssd_bwd {name} build WRONG, not timed: {err}",
+                      flush=True)
+                wrong.append(name)
+                continue
             fns = {fn: ops._launcher(fn) for fn in
                    ("chunk_dstate", "state_pass_bwd", "chunk_bwd",
                     "chunk_bwd_heads", "sum_groups")}
@@ -823,20 +756,6 @@ def probe_ssd_bwd(libs, cs) -> None:
         print(f"mamba2_ssd_bwd {tuple(x.shape)} chunk {chunk} b/c bf16: "
               + ", ".join(f"{n} {t:.3f} ms" for n, t in best.items()),
               flush=True)
-    clocked = libs.get(("mamba2_ssd", "clocks"))
-    if clocked is not None and "clocks" in calls:
-        import torch
-        calls["clocks"]()
-        torch.cuda.synchronize()
-        got = (ctypes.c_longlong * 128)()
-        if clocked.ssd_bwd_clocks(got):
-            raise SystemExit("clocks build's readout failed")
-        mean = [sum(got[8 * w + k] for w in range(16)) / 16 for k in range(8)]
-        total = sum(mean)
-        print("mamba2_ssd_bwd chunk_bwd clocks, block (0, 0), mean of its 16 "
-              f"warps, {total:.0f} cycles: " + "; ".join(
-                  f"{name} {m:.0f} ({m / total:.1%})" for name, m
-                  in zip(SSD_BWD_CLOCK_PHASES, mean)), flush=True)
     for (kernel, name), lib in libs.items():
         if kernel == "mamba2_ssd":
             print(f"mamba2_ssd_bwd {name} chunk_bwd SASS: "
@@ -859,6 +778,9 @@ def probe_ssd_bwd(libs, cs) -> None:
                           f"{got[4 * i + 3]} blocks an SM"
                           for i, k in enumerate(SSD_BWD_KERNELS)),
               flush=True)
+    if wrong:
+        raise SystemExit(f"mamba2_ssd_bwd: builds {wrong} gave wrong "
+                         f"gradients")
 
 
 def chunk_bwd_hmma(so) -> dict:
@@ -885,17 +807,19 @@ def chunk_bwd_hmma(so) -> dict:
     return {k: tuple(v) for k, v in counts.items()}
 
 
-def step_decay_bwd_call(lib, args, part, outs):
-    """One call of a build's step_decay_bwd launcher on [rows, H] inputs."""
+def step_decay_bwd_call(lib, args, part, done, outs):
+    """One call of a build's step_decay_bwd launcher on [rows, H] inputs
+    (``done``: its counters, where the build takes them)."""
     import torch
     g_dt, g_a, raw, bias, a_log, dt, a = args
     fn = lib.mamba2_step_decay_bwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 2
+    ptrs = [part.data_ptr()] + ([done.data_ptr()] if lib.takes_done else [])
+    fn.argtypes = ([ctypes.c_void_p] * (10 + len(ptrs)) + [ctypes.c_int] * 2
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     rows = raw.reshape(-1, raw.shape[-1])
     rc = fn(g_dt.data_ptr(), g_a.data_ptr(), rows.data_ptr(), dt.data_ptr(),
             a.data_ptr(), bias.data_ptr(), a_log.data_ptr(),
-            outs[0].data_ptr(), part.data_ptr(), outs[1].data_ptr(),
+            outs[0].data_ptr(), *ptrs, outs[1].data_ptr(),
             outs[2].data_ptr(), rows.shape[0], rows.shape[1], rows.stride(0),
             int(raw.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
@@ -930,14 +854,15 @@ def probe_step_decay_bwd(libs, cs) -> None:
         lib.mamba2_step_decay_bwd_tiles.argtypes = [ctypes.c_int]
         tiles = lib.mamba2_step_decay_bwd_tiles(raw.numel() // raw.shape[-1])
         part = torch.empty((tiles, 2, raw.shape[-1]), device="cuda")
+        done = torch.zeros(64, dtype=torch.int32, device="cuda")
         outs = (torch.empty(raw.shape, dtype=raw.dtype, device="cuda"),
                 torch.empty(raw.shape[-1], device="cuda"),
                 torch.empty(raw.shape[-1], device="cuda"))
-        step_decay_bwd_call(lib, args, part, outs)
+        step_decay_bwd_call(lib, args, part, done, outs)
         cs.grads_held(f"{name} build's step_decay_bwd", cs.STEP_DECAY_GRADS,
                       outs, want)
-        calls[name] = lambda lib=lib, part=part, outs=outs: (
-            step_decay_bwd_call(lib, args, part, outs))
+        calls[name] = lambda lib=lib, part=part, done=done, outs=outs: (
+            step_decay_bwd_call(lib, args, part, done, outs))
     one = torch.zeros(1, device="cuda")
     calls["empty launch"] = lambda: one.add_(1)
     names = list(calls)
@@ -964,8 +889,9 @@ PROBES = {"token_select": lambda libs, cs: probe_draws(libs, cs,
 def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser()
-    ap.add_argument("--other", type=Path, default=None,
-                    help="root of another checkout whose kernels to time")
+    ap.add_argument("--other", type=Path, action="append", default=[],
+                    help="root of another checkout whose kernels to time "
+                    "(repeatable; each build is named by its directory)")
     ap.add_argument("kernels", nargs="*", default=list(EDITS),
                     choices=list(EDITS), help="kernels to probe (default: "
                     "all)")
@@ -976,7 +902,11 @@ def main(argv=None) -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke as cs
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_all(args.kernels, args.other, Path(tmp))
+        others = {path.resolve().name: path for path in args.other}
+        if len(others) != len(args.other) or "checkout" in others:
+            raise SystemExit("--other directories need distinct names, "
+                             "not 'checkout'")
+        libs = build_all(args.kernels, others, Path(tmp))
         for kernel in args.kernels:
             PROBES[kernel](libs, cs)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
