@@ -292,14 +292,39 @@ each printing its lines before the last:
   step_decay_bwd  the step and decay's backward kernel (one launch) the
                 same way, on train_zamba2's layer-0 inputs and edge values;
                 its time beside its bound and the plain version's
-  train_card_vs_cpu  danube at full width cut to 2 layers and zamba2 cut to
-                a mamba block and the shared block, float32, 512 tokens
-                (tiles of 256, so through the flash kernels, and zamba2's
-                scan and step and decay kernels forward and backward): one
+  train_rwkv6   rwkv6-7b at full width cut to 10 of its 32 layers (the
+                whole model's weights, gradients and AdamW moments, 90.4
+                GB, do not fit the card; 16 layers ran out of memory in
+                AdamW, which holds old and new moments at once, and 12 in
+                one of two runs) through
+                the train CLI, bf16, remat
+                "block", 2 x 4096 tokens, 3 steps: finite losses, step-0
+                cross-entropy within 35 % of ln(vocab), 2 wkv6 and 1
+                wkv6_bwd launches a layer a step, grad norm finite and
+                above 0; ms/step, tokens/s, peak memory
+  wkv6_bwd      the WKV backward kernels against their plain version over
+                WKV6_BWD_CASES (chunk 16-192, K 16-128, float32 and bf16,
+                s0 and the final state's gradient or not, strong decay, a
+                padded tail, K padded by the wrapper): each gradient within
+                1e-4 of its max (bf16 one rounding apart), each pass
+                against its plain version, a second run bit for bit equal,
+                chunk_bwd's layout = the wrapper's mirror; then on the
+                inputs layer 0 of train_rwkv6 gave them, with their time,
+                each pass's, the bound and the plain version's
+  train_card_vs_cpu  danube at full width cut to 2 layers, zamba2 cut to a
+                mamba block and the shared block and rwkv6 to 2 layers,
+                float32, 512 tokens (tiles of 256, so through the flash
+                kernels, and the scans' kernels forward and backward): one
                 train step on the card and on the CPU from the same
                 weights and batch; loss to rel 1e-5, every gradient,
                 updated parameter and moment within 1e-4 of its leaf's max
-                (zamba2's within 3e-4: the scan's sums in other orders)
+                (zamba2's within 3e-4: the scan's sums in other orders);
+                rwkv6's loss and gradients within 3e-4 of the CPU's, and
+                its whole step within 3e-4 of the same step on the card
+                with the WKV backward's plain version (two of its updated
+                leaves miss the CPU's by the step's float32 noise outside
+                the backward kernels, whichever backward runs: PERF.md,
+                PR 27)
   train_blocks  two train steps at full width, bf16, B = 2 of gemma3-4b (6
                 layers, one 5:1 period, D = 256, window 1024; S = 4096),
                 minicpm3-4b (2 layers, MLA's folded flash; 4096),
@@ -310,8 +335,7 @@ each printing its lines before the last:
                 gemma3's tied, sqrt(d)-scaled embedding 0.02 d_model,
                 the logit a random model gives its input token), a
                 finite grad norm
-                above 0, flash launches per step; rwkv6 refuses a train
-                step on the card, naming the next slice
+                above 0, flash launches per step
   train_restart the reference's examples/quickstart.py on the card: danube
                 reduced (tiles of 32, through the flash kernels), its data
                 shards and checkpoints through a size-fair 2-server burst
@@ -4113,6 +4137,188 @@ def phase_step_decay_bwd(device, layer0, *, reps=50):
                 bound_pipe=pipe, library_ms=None, max_abs_err=worst)
 
 
+#: (B, S, H, K, chunk, r/k/v dtype, s0, dsf, decay, tail): chunk 16, 32, 64
+#: and 192; K 16, 32, 64 and 128 (60: padded to the bf16 quantum by the
+#: wrapper); float32 and bf16 r, k, v; with and without s0 and the final
+#: state's gradient; lw down to -20 per step ("strong"); a tail of 13 steps
+#: with r = k = v = lw = 0 and dy = 0, as rwkv6_timemix pads a sequence to
+#: the chunk.  chunk_bwd stages dy, dS' and S where they fit: K = 128 reads
+#: S (and at chunk 64 in bf16 also dS') from device memory, chunk 192 with
+#: K = 16 all three.
+WKV6_BWD_CASES = [
+    (2, 128, 3, 32, 16, "float32", True, True, "normal", False),
+    (2, 256, 4, 32, 32, "bfloat16", False, False, "normal", False),
+    (1, 256, 4, 64, 64, "float32", True, True, "strong", False),
+    (2, 320, 8, 64, 64, "bfloat16", False, True, "normal", True),
+    (1, 256, 4, 64, 32, "bfloat16", True, False, "strong", False),
+    (1, 128, 2, 128, 64, "bfloat16", True, True, "normal", False),
+    (1, 128, 2, 128, 32, "float32", False, True, "strong", False),
+    (1, 384, 2, 16, 192, "float32", True, True, "normal", False),
+    (1, 128, 2, 60, 32, "bfloat16", True, True, "normal", True),
+]
+#: The WKV backward's gradients, in wkv6_bwd's order.
+WKV6_GRADS = ("dr", "dk", "dv", "dlw", "du", "ds0")
+#: The last steps of a "tail" case that are padding.
+WKV6_TAIL = 13
+
+
+def wkv6_bwd_inputs(case, device, seed):
+    """(args, kw) of a WKV6_BWD_CASES entry: (r, k, v, lw, u, dy, dsf), dy
+    and dsf (None where the case has none) normal from ``seed``, and
+    (chunk, cwl, s_in, sf), the scratch and final state of the forward
+    (``wkv6(keep=True)``, from the case's s0) that the backward reads."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    bsz, s, h, kd, chunk, dtype, with_s0, with_dsf, decay, tail = case
+    r, k, v, lw, u, s0 = wkv6_inputs(
+        (bsz, s, h, kd, chunk, dtype, with_s0, decay), device, seed)
+    rng = np.random.default_rng(seed + 1000)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=device)  # noqa
+    dy = t(rng.standard_normal((bsz, s, h, kd)))
+    dsf = t(rng.standard_normal((bsz, h, kd, kd))) if with_dsf else None
+    if tail:
+        for x in (r, k, v, lw, dy):
+            x[:, -WKV6_TAIL:] = 0
+    _, sf, cwl, s_in = wkv_ops.wkv6(r, k, v, lw, u, chunk=chunk, s0=s0,
+                                    keep=True)
+    return (r, k, v, lw, u, dy, dsf), dict(chunk=chunk, cwl=cwl, s_in=s_in,
+                                           sf=sf)
+
+
+def wkv6_bwd_check(args, kw, tag, phase) -> float:
+    """The WKV backward kernels against their plain version on the same
+    card tensors (grads_held: each gradient within SSD_BWD_TOL of its max,
+    a bf16 one one bf16 step apart at most), and a second run bit for bit
+    equal (no atomics); then, where K needs no padding, each pass against
+    its plain version on the plain outputs of the passes before it.
+    Returns the worst error."""
+    import torch
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    r, k, v, lw, u, dy, dsf = args
+    got = wkv_ops.wkv6_bwd(*args, **kw)
+    again = wkv_ops.wkv6_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    if not same_bits(got, again):
+        raise AssertionError(f"wkv6_bwd {tag}: two runs differ")
+    want = wkv_ref.wkv6_bwd_ref(*args, **kw)
+    worst = grads_held(f"wkv6_bwd {tag}", WKV6_GRADS, got, want)
+    passes = 0.0
+    if r.shape[-1] % (16 // r.element_size()) == 0:
+        chunk, cwl, s_in, sf = kw["chunk"], kw["cwl"], kw["s_in"], kw["sf"]
+        q = wkv_ref.chunk_dstate_ref(r, dy, lw, chunk=chunk)
+        got_q = wkv_ops.chunk_dstate(r, dy, lw, chunk=chunk)
+        ds, ds0 = wkv_ref.state_pass_bwd_ref(q.clone(), cwl, dsf=dsf)
+        got_ds, got_ds0 = wkv_ops.state_pass_bwd(q.clone(), cwl, dsf=dsf)
+        passes = grads_held(f"passes {tag}", ("chunk_dstate q",
+                                              "state_pass_bwd dS'",
+                                              "state_pass_bwd ds0"),
+                            (got_q, got_ds, got_ds0), (q, ds, ds0))
+        want = wkv_ref.chunk_bwd_ref(r, k, v, lw, u, dy, s_in, sf, ds,
+                                     chunk=chunk)
+        got = wkv_ops.chunk_bwd(r, k, v, lw, u, dy, s_in, sf, ds,
+                                chunk=chunk)
+        passes = max(passes, grads_held(f"chunk_bwd {tag}", WKV6_GRADS[:5],
+                                        got, want))
+    say(phase, f"{tag}: max error over each gradient's max {worst:.3g}, "
+        f"passes {passes:.3g} (tolerance {SSD_BWD_TOL:g}; bf16 one step "
+        "apart); a second run equal bit for bit")
+    return max(worst, passes)
+
+
+def wkv6_bwd_layout_held(r, chunk, tag) -> dict:
+    """chunk_bwd's shared-memory layout at this geometry as the kernel
+    chooses it (wkv6_chunk_bwd_smem) = the wrapper's mirror
+    (ops.bwd_layout), in the kernel's layout of K.  Returns the layout."""
+    import torch
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    quantum = 16 // r.element_size()
+    kd = -(-r.shape[-1] // quantum) * quantum
+    want = wkv_ops.bwd_layout(chunk, kd, r.element_size())
+    if torch.device(r.device).type != "cuda":
+        return want
+    got = wkv_ops.ask_bwd_layout(chunk, kd, r.dtype, r.device)
+    if got != want:
+        raise AssertionError(f"wkv6 chunk_bwd layout {tag}: kernel {got}, "
+                             f"mirror {want}")
+    return want
+
+
+def wkv6_bwd_work(r, chunk):
+    """(bytes, fp32 operations, exponentials) the WKV backward needs on
+    these inputs: r, k, v, lw, dy, the final state's gradient and the
+    state entering each chunk read, and dr, dk, dv, dlw, du and ds0
+    written once; per (b, h, chunk) the gate of each strictly lower pair
+    and channel (a subtraction and an exponential) entering the three
+    products that reduce it (A over k, P over j, Q over i: a multiply and
+    a multiply-add each), dy . v over the lower pairs and the diagonal, the
+    attention's product with dy, the four state products (q, S dy, dS' v,
+    (exp(cwl - cwe - lw) k) dS': L K^2 multiply-adds each), <dS', S'>, the
+    state pass, and an exponential per step and channel for exp(cwe) and
+    exp(cwl - cwe - lw)."""
+    bsz, s, h, kd = r.shape
+    nc, tri = s // chunk, chunk * (chunk - 1) // 2
+    n = r.numel()
+    nbytes = (3 * n * r.element_size() + 2 * n * 4 + 2 * bsz * h * kd * kd * 4
+              + bsz * nc * h * kd * kd * 4
+              + 3 * n * r.element_size() + n * 4 + h * kd * 4)
+    ops = bsz * nc * h * (10 * tri * kd + 2 * (tri + chunk) * kd
+                          + 2 * tri * kd + 4 * 2 * chunk * kd * kd
+                          + 2 * kd * kd + 2 * kd * kd + 12 * chunk * kd)
+    exps = bsz * nc * h * (tri * kd + 2 * chunk * kd + kd)
+    return nbytes, ops, exps
+
+
+def phase_wkv6_bwd(device, layer0, *, cases=WKV6_BWD_CASES, reps=5):
+    """The WKV backward kernels against their plain version over
+    WKV6_BWD_CASES and on the inputs layer 0 of train_rwkv6 gave them
+    (with the forward's scratch, as the autograd Function passes it);
+    chunk_bwd's layout = its Python mirror; then the time there beside the
+    bound, the plain version's, and each pass's.  Returns the record for
+    the kernels line."""
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref
+    worst = 0.0
+    for n, case in enumerate(cases):
+        args, kw = wkv6_bwd_inputs(case, device, seed=n)
+        tag = ("B={} S={} H={} K={} chunk={} r/k/v {} s0={} dsf={} "
+               "decay={} tail={}".format(*case))
+        worst = max(worst, wkv6_bwd_check(args, kw, tag, "wkv6_bwd"))
+        layout = wkv6_bwd_layout_held(args[0], case[4], tag)
+        say("wkv6_bwd", f"{tag}: chunk_bwd layout {layout}")
+    args, kw = layer0["args"], layer0["kw"]
+    r, k, v, lw, u, dy, dsf = args
+    chunk, cwl, s_in, sf = kw["chunk"], kw["cwl"], kw["s_in"], kw["sf"]
+    tag = (f"train layer 0 inputs r {tuple(r.shape)} {r.dtype} chunk "
+           f"{chunk}, the forward's scratch")
+    worst = max(worst, wkv6_bwd_check(args, kw, tag, "wkv6_bwd"))
+    layout = wkv6_bwd_layout_held(r, chunk, tag)
+    ms = time_ms(lambda: wkv_ops.wkv6_bwd(*args, **kw), reps=reps)
+    plain = time_ms(lambda: wkv6_bwd_ref(*args, **kw), reps=2)
+    q = wkv_ops.chunk_dstate(r, dy, lw, chunk=chunk)
+    passes = {
+        "chunk_dstate": time_ms(lambda: wkv_ops.chunk_dstate(
+            r, dy, lw, chunk=chunk), reps=reps),
+        "state_pass_bwd": time_ms(lambda: wkv_ops.state_pass_bwd(
+            q, cwl, dsf=dsf), reps=reps),
+        "chunk_bwd + sum_du": time_ms(lambda: wkv_ops.chunk_bwd(
+            r, k, v, lw, u, dy, s_in, sf, q, chunk=chunk), reps=reps)}
+    work = wkv6_bwd_work(r, chunk)
+    bound, by, pipe = pipe_bound(*work)
+    nbytes, ops, exps = work
+    say("wkv6_bwd", f"{tag}: device ms per pass " + ", ".join(
+        f"{k} {v:.3f}" for k, v in passes.items()))
+    say("wkv6_bwd", f"{tag}: kernels {ms:.3f} ms, bound {bound:.4f} ms "
+        f"({by}, {pipe}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP fp32, "
+        f"{exps / 1e9:.3f} G exponentials), plain {plain:.3f} ms; kernels / "
+        f"bound {ms / bound:.1f}; layout {layout}; no PyTorch call computes "
+        "this function")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                bound_pipe=pipe, library_ms=None, max_abs_err=worst,
+                pass_ms=passes)
+
+
 def model_card_vs_cpu(device, cfg, *, phase, seq, steps):
     """``cfg`` (float32) on the card and on the CPU from the same
     parameters: one ``seq``-token prompt and ``steps`` decode steps, logits
@@ -4359,6 +4565,18 @@ TRAIN_ARGS = dict(seq=4096, batch=2, steps=5)
 #: layers and the shared block, bf16, remat "block"), the same sequence and
 #: batch, 3 AdamW steps.
 TRAIN_ZAMBA2_ARGS = dict(seq=4096, batch=2, steps=3)
+#: The train_rwkv6 phase: rwkv6-7b at full width (d_model 4096, 64 heads of
+#: 64, d_ff 14336, vocab 65536, chunk 64) cut to 10 of its 32 layers, bf16,
+#: remat "block", the same sequence and batch, 3 AdamW steps.  Its 7.53 B
+#: parameters at 12 bytes each (bf16 weights and gradients, float32 AdamW
+#: moments) are 90.4 GB, and optimizer.apply makes the new moments while
+#: the old ones live, 20 bytes a parameter at its peak: on an H100 80GB, 16
+#: layers (4.04 B) ran out of memory in their first step, and 12 (3.16 B)
+#: peaked at 69.27 GB and in one of two runs ran out on their fourth, with
+#: 14.06 GiB of the allocator's pool free in pieces (PERF.md, PR 27).  10
+#: layers hold 2.72 B.
+TRAIN_RWKV6_ARGS = dict(seq=4096, batch=2, steps=3)
+RWKV6_TRAIN_CUT = dict(n_layers=10, pattern=((10, ("rwkv",)),))
 #: The reference smoke test's bound (tests/test_models_smoke.py:30-33): a
 #: random model's first cross-entropy within 35 % of ln(vocab).
 CE_SPREAD = 0.35
@@ -4414,9 +4632,9 @@ def capture_last_calls(store):
     """Patch the model modules' backward wrappers so that ``store[name]``
     holds the inputs of each one's latest call (``args`` cloned, ``kw``;
     the last layer a backward reaches is layer 0): flash_attention_bwd,
-    mamba2_ssd_bwd and step_and_decay_bwd.  Returns the undo."""
+    mamba2_ssd_bwd, step_and_decay_bwd and wkv6_bwd.  Returns the undo."""
     import torch
-    from repro_torch.models import attention, ssm
+    from repro_torch.models import attention, rwkv, ssm
     saved = []
 
     def copy(a):
@@ -4424,7 +4642,8 @@ def capture_last_calls(store):
 
     for module, name in ((attention, "flash_attention_bwd"),
                          (ssm, "mamba2_ssd_bwd"),
-                         (ssm, "step_and_decay_bwd")):
+                         (ssm, "step_and_decay_bwd"),
+                         (rwkv, "wkv6_bwd")):
         real = getattr(module, name)
 
         def wrapper(*args, _real=real, _name=name, **kw):
@@ -4441,52 +4660,67 @@ def capture_last_calls(store):
     return undo
 
 
-def mamba_layers(cfg) -> int:
-    return sum(k == "mamba" for rep, ks in cfg.pattern for _ in range(rep)
+def layers_of(cfg, kind) -> int:
+    return sum(k == kind for rep, ks in cfg.pattern for _ in range(rep)
                for k in ks)
 
 
 def scan_counts() -> dict:
-    """The SSD scan's and the step and decay's launch counts, forward and
-    backward, and the backward's passes."""
+    """The SSD scan's, the step and decay's and the WKV scan's launch
+    counts, forward and backward, and the backwards' passes."""
     from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
     return {"mamba2_ssd": ssd_ops.LAUNCHES,
             "step_decay": ssd_ops.STEP_DECAY_LAUNCHES,
             "mamba2_ssd_bwd": ssd_ops.SSD_BWD_LAUNCHES,
             "step_decay_bwd": ssd_ops.STEP_DECAY_BWD_LAUNCHES,
-            **{f"bwd {k}": v for k, v in ssd_ops.BWD_PASS_LAUNCHES.items()}}
+            **{f"bwd {k}": v for k, v in ssd_ops.BWD_PASS_LAUNCHES.items()},
+            "wkv6": wkv_ops.LAUNCHES, "wkv6_bwd": wkv_ops.WKV_BWD_LAUNCHES,
+            **{f"wkv6_bwd {k}": v
+               for k, v in wkv_ops.BWD_PASS_LAUNCHES.items()}}
 
 
 def zero_scan_counts() -> None:
     from repro_torch.kernels.mamba2 import ops as ssd_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
     ssd_ops.LAUNCHES = ssd_ops.STEP_DECAY_LAUNCHES = 0
     ssd_ops.SSD_BWD_LAUNCHES = ssd_ops.STEP_DECAY_BWD_LAUNCHES = 0
     for k in ssd_ops.BWD_PASS_LAUNCHES:
         ssd_ops.BWD_PASS_LAUNCHES[k] = 0
+    wkv_ops.LAUNCHES = wkv_ops.WKV_BWD_LAUNCHES = 0
+    for k in wkv_ops.BWD_PASS_LAUNCHES:
+        wkv_ops.BWD_PASS_LAUNCHES[k] = 0
 
 
 def scan_train_launches(cfg, steps=1) -> dict:
     """scan_counts of ``steps`` train steps: each mamba block's scan and
-    step and decay run forward twice under remat "block" (forward and
-    recompute) and backward once (the backward's four passes once each)."""
-    n = mamba_layers(cfg) * steps
+    step and decay, and each rwkv block's WKV scan, run forward twice under
+    remat "block" (forward and recompute) and backward once (each
+    backward's four passes once)."""
+    n = layers_of(cfg, "mamba") * steps
+    w = layers_of(cfg, "rwkv") * steps
     f = 2 if cfg.remat == "block" else 1
     return {"mamba2_ssd": n * f, "step_decay": n * f, "mamba2_ssd_bwd": n,
             "step_decay_bwd": n, "bwd chunk_dstate": n,
             "bwd state_pass_bwd": n, "bwd chunk_bwd": n,
-            "bwd sum_groups": n}
+            "bwd sum_groups": n, "wkv6": w * f, "wkv6_bwd": w,
+            "wkv6_bwd chunk_dstate": w, "wkv6_bwd state_pass_bwd": w,
+            "wkv6_bwd chunk_bwd": w, "wkv6_bwd sum_du": w}
 
 
 def phase_train(device, *, arch=SERVE_ARCH, full=True, tag="train",
-                **args):
+                cut=None, **args):
     """``repro_torch.launch.train``'s entry point at TRAIN_ARGS (or
-    ``args``): every loss finite, the step-0 cross-entropy within CE_SPREAD
-    of initial_ce, the flash kernels (and a hybrid's scan kernels, forward
-    and backward) launched as train_launches and scan_train_launches say.
-    Then one more step with the backward wrappers' inputs captured (layer
-    0's: flash_bwd, ssd_bwd, step_decay_bwd), whose gradient norm must be
-    finite and above 0.  Returns (forward launches, backward launches,
-    the captures by wrapper name, metrics)."""
+    ``args``), its config cut in depth by ``cut`` (overrides of the config
+    ``launch.train`` builds) if given: every loss finite, the step-0
+    cross-entropy within CE_SPREAD of initial_ce, the flash kernels (and
+    the scan kernels, forward and backward) launched as train_launches and
+    scan_train_launches say.  Then one more step with the backward
+    wrappers' inputs captured (layer 0's: flash_bwd, ssd_bwd,
+    step_decay_bwd, wkv6_bwd), whose gradient norm must be finite and above
+    0.  Returns (forward launches, backward launches, the captures by
+    wrapper name, metrics)."""
+    import dataclasses
     import math
     import statistics
     import torch
@@ -4501,9 +4735,16 @@ def phase_train(device, *, arch=SERVE_ARCH, full=True, tag="train",
         torch.cuda.reset_peak_memory_stats()
     zero_flash_counts()
     zero_scan_counts()
-    t0 = synced(device)
-    trainer = train.main(argv)
-    wall = synced(device) - t0
+    real_config = train.get_config
+    if cut:
+        train.get_config = lambda *a, **kw: dataclasses.replace(
+            real_config(*a, **kw), **cut)
+    try:
+        t0 = synced(device)
+        trainer = train.main(argv)
+        wall = synced(device) - t0
+    finally:
+        train.get_config = real_config
     fwd, bwd = flash_counts()
     scans = scan_counts()
     cfg = trainer.cfg
@@ -4517,7 +4758,8 @@ def phase_train(device, *, arch=SERVE_ARCH, full=True, tag="train",
     expect_launches(tag, device, (fwd, bwd),
                     (per_step[0] * steps, per_step[1] * steps))
     expect_launches(tag, device, scans, scan_train_launches(cfg, steps))
-    if cuda and per_step[1] + scans["mamba2_ssd_bwd"] == 0:
+    if cuda and per_step[1] + scans["mamba2_ssd_bwd"] \
+            + scans["wkv6_bwd"] == 0:
         raise AssertionError(f"{tag}: no backward kernel on the main path")
     ms = [1e3 * h["dt"] for h in hist]
     steady = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
@@ -4567,24 +4809,78 @@ TRAIN_F32_TOL = dict(loss=1e-5, leaf=1e-4)
 #: (tests/test_torch_train.py's SCAN_GRAD_TOL against the reference, for
 #: the same reason).
 TRAIN_F32_SCAN_TOL = dict(loss=1e-5, leaf=3e-4)
-#: The archs of train_card_vs_cpu: (cut in depth, tolerances).
+#: The archs of train_card_vs_cpu: (cut in depth, tolerances, the run the
+#: updated parameters and AdamW's moments are held to: the CPU's, or the
+#: same step on the card with the WKV backward's plain version).  rwkv6's
+#: loss and gradients are held to the CPU's, and its whole step to that
+#: card step: the float32 noise of the step outside the backward kernels
+#: (the card's and the CPU's GEMMs and elementwise kernels sum in other
+#: orders, and the forward kernel's exponentials are not torch.exp's)
+#: takes two of its updated leaves past 3e-4 of their max whichever WKV
+#: backward the card runs (PERF.md, PR 27): AdamW's nu of tm.u (nu grows
+#: as g^2, so twice du's error; du sums r k (dy . v) of both signs over
+#: every token) and ln1.bias (AdamW divides its gradient elements near eps
+#: by sqrt(nu) + eps).
 TRAIN_CARD_VS_CPU = {
     SERVE_ARCH: (lambda n: dict(n_layers=n, pattern=((n, ("attn",)),)),
-                 TRAIN_F32_TOL),
-    "zamba2-2.7b": (lambda n: SSM_CUTS["zamba2-2.7b"], TRAIN_F32_SCAN_TOL),
+                 TRAIN_F32_TOL, "cpu"),
+    "zamba2-2.7b": (lambda n: SSM_CUTS["zamba2-2.7b"], TRAIN_F32_SCAN_TOL,
+                    "cpu"),
+    "rwkv6-7b": (lambda n: SSM_CUTS["rwkv6-7b"], TRAIN_F32_SCAN_TOL,
+                 "card plain backward"),
 }
+
+
+def plain_wkv_bwd():
+    """A context in which the model's WKV scan takes its backward's plain
+    version, on whatever device its tensors lie (no backward launch)."""
+    import contextlib
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    from repro_torch.models import rwkv
+
+    @contextlib.contextmanager
+    def swapped():
+        real = rwkv.wkv6_bwd
+        rwkv.wkv6_bwd = wkv_ref.wkv6_bwd_ref
+        try:
+            yield
+        finally:
+            rwkv.wkv6_bwd = real
+    return swapped()
+
+
+def step_leaf_errors(a, b, whats=("grad", "param", "mu", "nu")) -> dict:
+    """{"<what> <leaf path>": max abs error over the leaf's max} between two
+    train steps' (loss, grads, params, opt) of the same parameters, taken
+    in float64 on the device of ``a``'s leaves."""
+    from repro_torch.train import optimizer as O
+    trees = {"grad": (a[1], b[1]), "param": (a[2], b[2]),
+             "mu": (a[3].mu, b[3].mu), "nu": (a[3].nu, b[3].nu)}
+    worst = {}
+    for what in whats:
+        ta, tb = trees[what]
+        for path, x in O.leaves(ta):
+            x = x.detach().double()
+            y = O.get_path(tb, path).detach().to(x.device).double()
+            err = float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+            worst[f"{what} {'.'.join(path)}"] = err
+    return worst
 
 
 def phase_train_card_vs_cpu(device, *, reduced=False, n_layers=2, seq=512,
                             archs=tuple(TRAIN_CARD_VS_CPU)):
-    """danube at full width cut to ``n_layers`` and zamba2 cut as SSM_CUTS
-    (a mamba block and the shared block), float32, tiles of 256 (so the
-    512 tokens go through the flash kernels, and zamba2's through the SSD
-    kernels and their backward): one train step's loss, gradients and AdamW
-    update on the card and on the CPU from the same weights and batch,
-    within each arch's tolerance.  Returns {arch: (loss error, worst
-    leaf)}."""
+    """danube at full width cut to ``n_layers``, zamba2 cut as SSM_CUTS (a
+    mamba block and the shared block) and rwkv6 (2 layers), float32, tiles
+    of 256 (so the 512 tokens go through the flash kernels, zamba2's
+    through the SSD kernels and rwkv6's through the WKV kernels, and their
+    backwards): one train step's loss, gradients and AdamW update on the
+    card and on the CPU from the same weights and batch; the loss and
+    every gradient leaf within each arch's tolerance of the CPU's, and the
+    updated parameters and moments within it of the run TRAIN_CARD_VS_CPU
+    names (rwkv6: the same step on the card with the WKV backward's plain
+    version, the loss and every leaf).  Returns {arch: errors}."""
     import copy
+    from contextlib import nullcontext
     import numpy as np
     import torch
     from repro_torch.models import model as M
@@ -4595,58 +4891,70 @@ def phase_train_card_vs_cpu(device, *, reduced=False, n_layers=2, seq=512,
                              "them off")
     results = {}
     for arch in archs:
-        cut_of, tol = TRAIN_CARD_VS_CPU[arch]
+        cut_of, tol, partner = TRAIN_CARD_VS_CPU[arch]
         cfg = serve_config(reduced, arch, dtype="float32",
                            param_dtype="float32", block_q=256, block_k=256,
                            loss_chunk=256,
                            **({} if reduced else cut_of(n_layers)))
         card = M.init_params(cfg, seed=2, device=device).requires_grad_(True)
-        cpu = copy.deepcopy(card).to("cpu")
+        runs = [("card", card), ("cpu", copy.deepcopy(card).to("cpu"))]
+        if partner != "cpu":
+            runs.append((partner, copy.deepcopy(card)))
         ids = np.random.default_rng(2).integers(0, cfg.vocab, (1, seq + 1))
         ocfg = O.OptConfig(lr=1e-3, warmup_steps=1, eps=1e-5)
         zero_flash_counts()
         zero_scan_counts()
         out = {}
-        for name, params in (("card", card), ("cpu", cpu)):
+        for name, params in runs:
             dev = O.leaves(params)[0][1].device
             batch = T.to_device({"tokens": ids[:, :-1],
                                  "labels": ids[:, 1:]}, dev)
-            loss, _, grads = T._grads(params, cfg, batch)
+            with (plain_wkv_bwd() if name == "card plain backward"
+                  else nullcontext()):
+                loss, _, grads = T._grads(params, cfg, batch)
             params, opt, om = O.apply(ocfg, params, grads, O.init(params))
             out[name] = (loss, grads, params, opt)
-        fwd, bwd = flash_counts()
+            if name == "card":  # the launches of the card's own step
+                fwd, bwd = flash_counts()
+                scans = scan_counts()
         expect_launches(f"train_card_vs_cpu {arch}", device, (fwd, bwd),
                         train_launches(cfg, seq))
-        scans = scan_counts()
         expect_launches(f"train_card_vs_cpu {arch}", device, scans,
                         scan_train_launches(cfg))
-        (l_card, g_card, p_card, o_card), (l_cpu, g_cpu, p_cpu, o_cpu) = \
-            out["card"], out["cpu"]
-        loss_err = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
-        worst = {}
-        for what, a, b in (("grad", g_card, g_cpu), ("param", p_card, p_cpu),
-                           ("mu", o_card.mu, o_cpu.mu),
-                           ("nu", o_card.nu, o_cpu.nu)):
-            for path, x in O.leaves(a):
-                y = O.get_path(b, path)
-                err = float((x.detach().cpu().double() - y.detach().double())
-                            .abs().max() / y.detach().double().abs().max()
-                            .clamp_min(1e-30))
-                worst[f"{what} {'.'.join(path)}"] = err
-        bad = {k: v for k, v in worst.items() if not v <= tol["leaf"]}
-        if not loss_err <= tol["loss"] or bad:
-            raise AssertionError(f"train_card_vs_cpu {arch}: loss rel err "
-                                 f"{loss_err:.3g}, leaves over "
-                                 f"{tol['leaf']}: {bad}")
-        top = max(worst, key=worst.get)
-        say("train_card_vs_cpu", f"{arch} {cfg.n_layers} layers float32, "
-            f"{seq} tokens: loss {float(l_card):.6f} (card) vs "
-            f"{float(l_cpu):.6f} (cpu), rel err {loss_err:.3g}; worst leaf "
-            f"{top} {worst[top]:.3g} of its max over {len(worst)} leaves "
-            f"(tolerance {tol['leaf']:g}); flash forward {fwd}, backward "
-            f"{bwd}; scan launches {({k: v for k, v in scans.items() if v})}")
-        results[arch] = dict(loss_rel_err=loss_err, worst_leaf=worst[top])
-        del card, cpu, out
+        losses = {name: float(r[0]) for name, r in out.items()}
+        errs = {}
+        for other in dict.fromkeys(("cpu", partner)):
+            whats = (("grad", "param", "mu", "nu") if other == partner
+                     else ("grad",))
+            worst = step_leaf_errors(out["card"], out[other], whats)
+            loss_err = abs(losses["card"] - losses[other]) / abs(
+                losses[other])
+            bad = {k: v for k, v in worst.items() if not v <= tol["leaf"]}
+            if not loss_err <= tol["loss"] or bad:
+                raise AssertionError(f"train_card_vs_cpu {arch} against "
+                                     f"{other}: loss rel err {loss_err:.3g}, "
+                                     f"leaves over {tol['leaf']}: {bad}")
+            top = max(worst, key=worst.get)
+            say("train_card_vs_cpu", f"{arch} {cfg.n_layers} layers float32, "
+                f"{seq} tokens, card against {other}: loss "
+                f"{losses['card']:.6f} vs {losses[other]:.6f}, rel err "
+                f"{loss_err:.3g}; worst of {len(worst)} leaves "
+                f"({', '.join(whats)}) {top} {worst[top]:.3g} of its max "
+                f"(tolerance "
+                f"{tol['leaf']:g})")
+            errs[other] = dict(loss_rel_err=loss_err, worst_leaf=worst[top])
+        if partner != "cpu":
+            update = step_leaf_errors(out["card"], out["cpu"],
+                                      ("param", "mu", "nu"))
+            top = max(update, key=update.get)
+            say("train_card_vs_cpu", f"{arch}: the update against the CPU's "
+                f"(not held: the step's float32 noise outside the backward "
+                f"kernels): worst {top} {update[top]:.3g}")
+        say("train_card_vs_cpu", f"{arch}: flash forward {fwd}, backward "
+            f"{bwd}; scan launches "
+            f"{({k: v for k, v in scans.items() if v})}")
+        results[arch] = errs
+        del card, runs, out
     return results
 
 
@@ -4664,9 +4972,6 @@ TRAIN_BLOCKS = {
                              4096),
     "musicgen-medium": (dict(n_layers=2, pattern=((2, ("attn",)),)), 4096),
 }
-#: Trained on the CPU only: its scan kernel has no backward yet.
-SCAN_ARCHS = ("rwkv6-7b",)
-
 
 def phase_train_blocks(device, *, reduced=False, steps=2, seq=None,
                        batch=2):
@@ -4675,8 +4980,7 @@ def phase_train_blocks(device, *, reduced=False, steps=2, seq=None,
     CE_SPREAD of initial_ce, a finite gradient norm above 0, the flash
     kernels launched as train_launches says; then the flash backward of
     the last step's layer 0, on the inputs it was given (bf16), against
-    the plain version (flash_bwd_check), outside the counts.  rwkv6 must
-    refuse a train step on the card, naming the next slice.
+    the plain version (flash_bwd_check), outside the counts.
     Returns (forward, backward launches, {arch: metrics}, the worst
     backward error)."""
     import math
@@ -4742,24 +5046,6 @@ def phase_train_blocks(device, *, reduced=False, steps=2, seq=None,
         del state, step
         if cuda:
             torch.cuda.empty_cache()
-    for arch in SCAN_ARCHS:
-        cfg = serve_config(True, arch)
-        state = T.init_state(cfg, seed=3, device=device)
-        step = T.make_train_step(cfg, O.OptConfig())
-        batch_ = random_batch(torch.Generator().manual_seed(3), cfg, 64, 1)
-        if not cuda:
-            step(state, batch_)
-            continue
-        try:
-            step(state, batch_)
-        except NotImplementedError as e:
-            if "next slice" not in str(e):
-                raise
-            say("train_blocks", f"{arch} refuses a train step on the card: "
-                f"{e}")
-        else:
-            raise AssertionError(f"{arch} trained on the card; its scan "
-                                 "kernel has no backward")
     return total_fwd, total_bwd, metrics, worst
 
 
@@ -5111,6 +5397,20 @@ def main() -> int:
     records["step_decay_bwd"] = timed("step_decay_bwd", phase_step_decay_bwd,
                                       device, layer0["step_and_decay_bwd"])
     del layer0
+    # rwkv6 at full width cut to 16 layers through the train CLI: the WKV
+    # scan forward and backward on the card, every counter zeroed before
+    # it; then its backward kernels against their plain version.
+    fwd, bwd, layer0, train_metrics = timed(
+        "train_rwkv6", phase_train, device, arch="rwkv6-7b",
+        tag="train_rwkv6", cut=RWKV6_TRAIN_CUT, **TRAIN_RWKV6_ARGS)
+    say("train_rwkv6", "metrics " + json.dumps(train_metrics))
+    per_step = train_metrics["steps"]
+    for name in ("wkv6", "wkv6_bwd"):
+        launches[name] = launches.get(name, 0) + round(
+            train_metrics["scan_launches"][name] * per_step)
+    records["wkv6_bwd"] = timed("wkv6_bwd", phase_wkv6_bwd, device,
+                                layer0["wkv6_bwd"])
+    del layer0
     timed("train_card_vs_cpu", phase_train_card_vs_cpu, device)
     fwd, bwd, _, bwd_err = timed("train_blocks", phase_train_blocks, device)
     launches["flash_attention"] += fwd
@@ -5134,15 +5434,18 @@ def main() -> int:
                 # Not Pallas kernels: jax.vjp of ssd_chunked and jax.grad of
                 # the softplus and exp fusion.
                 "mamba2_ssd_bwd": "src/repro/models/ssm.py:66",
-                "step_decay_bwd": "src/repro/models/ssm.py:131"}
+                "step_decay_bwd": "src/repro/models/ssm.py:131",
+                # Not a Pallas kernel: jax.grad through wkv6_chunked's scan.
+                "wkv6_bwd": "src/repro/models/rwkv.py:64"}
     kernels = []
     for name in ("tick_step[themis]", "tick_step[fifo]", "token_select",
                  "flash_attention", "mamba2_ssd", "wkv6", "step_decay",
-                 "flash_attention_bwd", "mamba2_ssd_bwd", "step_decay_bwd"):
+                 "flash_attention_bwd", "mamba2_ssd_bwd", "step_decay_bwd",
+                 "wkv6_bwd"):
         r = records[name]
         base = name.split("[")[0]
         source = {"step_decay": "mamba2_ssd", "mamba2_ssd_bwd": "mamba2_ssd",
-                  "step_decay_bwd": "mamba2_ssd",
+                  "step_decay_bwd": "mamba2_ssd", "wkv6_bwd": "wkv6",
                   "flash_attention_bwd": "flash_attention"}.get(base, base)
         kernels.append(dict(
             name=name, route="cuda",

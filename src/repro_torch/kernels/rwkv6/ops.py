@@ -12,6 +12,16 @@ tiled ``u``; ``wkv6`` first brings other layouts to it
 (``kernel_layout``: K zero-padded to 16 bytes, strided or misaligned
 tensors copied).  ``LAUNCHES`` counts calls of ``wkv6`` on the card (one per
 rwkv layer), ``PASS_LAUNCHES`` the launches of each pass, from any wrapper.
+
+The backward: ``wkv6_bwd`` runs four passes, each with a wrapper of its own
+(``chunk_dstate``, ``state_pass_bwd``, and ``chunk_bwd``, which runs the
+per-chunk kernel and the sum of its du partials over the batch and the
+chunks); it reads the forward's scratch (``wkv6(..., keep=True)``).
+``WKV_BWD_LAUNCHES`` counts its calls on the card, ``BWD_PASS_LAUNCHES``
+each pass's launches.  ``bwd_layout`` mirrors the shared memory of
+chunk_bwd's block: dy, the gradient of the state leaving the chunk and the
+state entering it are staged where they fit, else read from device memory,
+so the backward takes every geometry the forward takes.
 """
 from __future__ import annotations
 
@@ -22,13 +32,22 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .ref import chunk_scan_ref, chunk_state_ref, state_pass_ref, wkv6_ref
+from .ref import (chunk_bwd_ref, chunk_dstate_ref, chunk_scan_ref,
+                  chunk_state_ref, state_pass_bwd_ref, state_pass_ref,
+                  wkv6_bwd_ref, wkv6_ref)
 
 #: Calls of :func:`wkv6` on the card in this process.
 LAUNCHES = 0
 
 #: Kernel launches of each pass in this process.
 PASS_LAUNCHES = {"chunk_state": 0, "state_pass": 0, "chunk_scan": 0}
+
+#: Calls of :func:`wkv6_bwd` on the card in this process.
+WKV_BWD_LAUNCHES = 0
+
+#: Kernel launches of each backward pass in this process.
+BWD_PASS_LAUNCHES = {"chunk_dstate": 0, "state_pass_bwd": 0, "chunk_bwd": 0,
+                     "sum_du": 0}
 
 #: Shared memory one block may use on the H100 (bytes).
 MAX_SMEM = 232448
@@ -40,17 +59,24 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _launcher(name: str):
     lib = _build.load("wkv6")
-    fn = getattr(lib, f"wkv6_{name}_launch")
+    fn = getattr(lib, f"wkv6_{name}" if name == "chunk_bwd_smem"
+                 else f"wkv6_{name}_launch")
     fn.argtypes = {
         "chunk_state": [_PTR] * 5 + [_INT] * 6 + [_PTR],
         "state_pass": [_PTR] * 4 + [_INT] * 4 + [_PTR],
         "chunk_scan": [_PTR] * 7 + [_INT] * 6 + [_PTR],
+        "chunk_dstate": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+        "state_pass_bwd": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+        "chunk_bwd": [_PTR] * 14 + [_INT] * 6 + [_PTR],
+        "sum_du": [_PTR] * 2 + [_INT] * 4 + [_PTR],
+        "chunk_bwd_smem": [_INT] * 3 + [_PTR],
     }[name]
-    fn.restype = ctypes.c_int
+    fn.restype = (ctypes.c_longlong if name == "chunk_bwd_smem"
+                  else ctypes.c_int)
     return fn
 
 
-def _launch(name: str, device, *args) -> None:
+def _call(name: str, device, *args) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     # The C launcher runs on the current device: make it the tensors'.
     with torch.cuda.device(device):
@@ -58,7 +84,26 @@ def _launch(name: str, device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"wkv6 {name} kernel launch failed: CUDA error "
                            f"{rc}")
+
+
+def _launch(name: str, device, *args) -> None:
+    _call(name, device, *args)
     PASS_LAUNCHES[name] += 1
+
+
+def _bwd_launch(name: str, device, *args) -> None:
+    _call(name, device, *args)
+    BWD_PASS_LAUNCHES[name] += 1
+
+
+def ask_bwd_layout(chunk: int, kd: int, dtype, device) -> dict:
+    """chunk_bwd's layout as the kernel's source chooses it (a query of the
+    built library: no launch), in ``bwd_layout``'s form."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        nbytes = _launcher("chunk_bwd_smem")(kd, chunk, _DTYPES[dtype], out)
+    return {"bytes": int(nbytes), "dy": bool(out[0]), "ds": bool(out[1]),
+            "s": bool(out[2])}
 
 
 def smem_bytes(chunk: int, kd: int, itemsize: int = 4) -> int:
@@ -70,6 +115,31 @@ def smem_bytes(chunk: int, kd: int, itemsize: int = 4) -> int:
     scan = 3 * staged + 4 * (2 * chunk * (kd + 4) + kd * (kd + 4)
                              + chunk * (chunk + 4) + chunk)
     return max(state, scan)
+
+
+def bwd_layout(chunk, kd: int, itemsize: int = 4) -> dict:
+    """chunk_bwd's shared memory at (chunk, K) with r, k, v of ``itemsize``
+    bytes, as ``csrc/wkv6.cu`` lays it out (``bwd_smem``): r, k, v in
+    their type, lw (then cwe + lw), cwe (then exp(cwl - cwe - lw) k), the
+    L x L matrix (dy v^T, then the forward's attention), the bonus, cwl,
+    <dS', S'>, the row tiles' sums of dlw's terms; then, each where it
+    still fits, dy, the gradient of the state leaving the chunk and the
+    state entering it (else read from device memory).  Returns {"bytes",
+    "dy", "ds", "s"}."""
+    base = (itemsize * 3 * chunk * (kd + 16 // itemsize)
+            + 4 * (2 * chunk * (kd + 4) + chunk * (chunk + 4) + chunk
+                   + 2 * kd + chunk * kd // 4))
+    out = {"bytes": base}
+    for name, size in (("dy", 4 * chunk * (kd + 4)), ("ds", 4 * kd * (kd + 4)),
+                       ("s", 4 * kd * (kd + 4))):
+        out[name] = out["bytes"] + size <= MAX_SMEM
+        out["bytes"] += size if out[name] else 0
+    return out
+
+
+def bwd_smem_bytes(chunk, kd: int, itemsize: int = 4) -> int:
+    """Shared memory of the backward's chunk_bwd block (``bwd_layout``)."""
+    return bwd_layout(chunk, kd, itemsize)["bytes"]
 
 
 def _check_devices(name, tensors) -> None:
@@ -256,18 +326,20 @@ def chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          lw: torch.Tensor, u: torch.Tensor, *, chunk: int,
-         s0: torch.Tensor | None = None):
+         s0: torch.Tensor | None = None, keep: bool = False):
     """Chunked RWKV-6 recurrence: r, k, v [B,S,H,K] float32 or bfloat16, lw
     [B,S,H,K] float32 log decay (<= 0), u [H,K] float32 bonus, s0
     [B,H,K,K] float32 or None (zeros); S a multiple of ``chunk``.  Returns
-    (y [B,S,H,K], final state [B,H,K,K] k-major), both float32.  On the
+    (y [B,S,H,K], final state [B,H,K,K] k-major), both float32, and with
+    ``keep`` also the scratch the backward reads (cwl, the state entering
+    each chunk; on the card in ``kernel_layout``).  On the
     card: the inputs in ``kernel_layout``, then ``chunk_state``,
     ``state_pass``, ``chunk_scan``, three launches with float32 scratch of
     K / chunk + 1 / chunk times y's size."""
     global LAUNCHES
     check_inputs(r, k, v, lw, u, chunk, s0)
     if r.device.type == "cpu":
-        return wkv6_ref(r, k, v, lw, u, chunk=chunk, s0=s0)
+        return wkv6_ref(r, k, v, lw, u, chunk=chunk, s0=s0, keep=keep)
     (r, k, v, lw, u, s0), k_real = kernel_layout(r, k, v, lw, u, s0)
     _check_kernel([r, k, v, lw, u, s0], k.shape[-1], chunk, k.dtype)
     bsz, s, h, kd = r.shape
@@ -280,4 +352,173 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _run_state_pass(states, cwl, s0, sf)
     _run_chunk_scan(r, k, v, lw, u, states, chunk, y)
     LAUNCHES += 1
-    return from_kernel_layout(y, sf, k_real)
+    y, sf = from_kernel_layout(y, sf, k_real)
+    return (y, sf, cwl, states) if keep else (y, sf)
+
+
+def _check_grad(name, t, shape) -> None:
+    if t is not None and (t.dtype != torch.float32
+                          or tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"wkv6_bwd: {name} must be float32 {tuple(shape)}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+
+
+def chunk_dstate(r: torch.Tensor, dy: torch.Tensor, lw: torch.Tensor, *,
+                 chunk: int):
+    """Backward pass 1: q [B,nc,H,K,K], each chunk's sum_i (r_i *
+    exp(cwe_i)) (x) dy_i (k-major, float32), from r, dy [B,S,H,K] (dy
+    float32) and lw."""
+    check_inputs(r, r, r, lw, None, chunk, None)
+    _check_grad("dy", dy, r.shape)
+    _check_devices("chunk_dstate", [r, dy, lw])
+    if r.device.type == "cpu":
+        return chunk_dstate_ref(r, dy, lw, chunk=chunk)
+    _check_kernel([r, dy, lw], r.shape[-1], chunk, r.dtype)
+    q = torch.empty(_scratch_shapes(r, chunk)[1], dtype=torch.float32,
+                    device=r.device)
+    _run_chunk_dstate(r, dy, lw, chunk, q)
+    return q
+
+
+def _run_chunk_dstate(r, dy, lw, chunk, q) -> None:
+    bsz, s, h, kd = r.shape
+    _bwd_launch("chunk_dstate", r.device, r.data_ptr(), lw.data_ptr(),
+                dy.data_ptr(), q.data_ptr(), bsz, s, h, kd, chunk,
+                _DTYPES[r.dtype])
+
+
+def state_pass_bwd(q: torch.Tensor, cwl: torch.Tensor, *,
+                   dsf: torch.Tensor | None = None):
+    """Backward pass 2: overwrites ``q`` ([B,nc,H,K,K], k-major) with the
+    gradient of the state leaving each chunk, carried backwards from
+    ``dsf`` [B,H,K,K] (or zeros) by ``dS <- exp(cwl) dS' + q_c``; returns
+    (q, the initial state's gradient [B,H,K,K])."""
+    bsz, nc, h, kd, _ = q.shape
+    if q.dtype != torch.float32 or cwl.dtype != torch.float32 \
+            or tuple(q.shape[3:]) != (kd, kd) \
+            or tuple(cwl.shape) != (bsz, nc, h, kd):
+        raise ValueError(f"state_pass_bwd takes float32 q [B,nc,H,K,K] and "
+                         f"cwl [B,nc,H,K], got {q.dtype} {tuple(q.shape)}, "
+                         f"{cwl.dtype} {tuple(cwl.shape)}")
+    _check_grad("dsf", dsf, (bsz, h, kd, kd))
+    _check_devices("state_pass_bwd", [q, cwl, dsf])
+    if q.device.type == "cpu":
+        return state_pass_bwd_ref(q, cwl, dsf=dsf)
+    if kd % 4 or not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                         for t in (q, cwl, dsf) if t is not None):
+        raise ValueError("state_pass_bwd kernel takes contiguous, 16-byte "
+                         "aligned q, cwl and dsf, and K a multiple of 4")
+    ds0 = torch.empty((bsz, h, kd, kd), dtype=torch.float32, device=q.device)
+    _run_state_pass_bwd(q, cwl, dsf, ds0)
+    return q, ds0
+
+
+def _run_state_pass_bwd(q, cwl, dsf, ds0) -> None:
+    bsz, nc, h, kd, _ = q.shape
+    _bwd_launch("state_pass_bwd", q.device, cwl.data_ptr(), q.data_ptr(),
+                dsf.data_ptr() if dsf is not None else None, ds0.data_ptr(),
+                bsz, nc, h, kd)
+
+
+def _check_bwd_smem(chunk, kd, dtype) -> None:
+    """Raises where chunk_bwd's block cannot hold what it always stages (no
+    geometry the forward takes: tests/test_torch_wkv_bwd.py sweeps them)."""
+    need = bwd_smem_bytes(chunk, kd, dtype.itemsize)
+    if need > MAX_SMEM:
+        raise ValueError(f"wkv6 backward kernel: chunk {chunk} with K={kd} "
+                         f"needs {need} bytes of shared memory, more than "
+                         f"{MAX_SMEM}")
+
+
+def _check_states(name, t, want) -> None:
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(want):
+        raise ValueError(f"{name} must be float32 {tuple(want)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def chunk_bwd(r, k, v, lw, u, dy, s_in, sf, ds, *, chunk: int):
+    """Backward passes 3 and 4: (dr, dk, dv in r's dtype, dlw [B,S,H,K]
+    float32, du [H,K] float32) from the forward's inputs, dy, the state
+    entering each chunk ``s_in`` and the gradient of the state leaving it
+    ``ds`` (both [B,nc,H,K,K]) and the final state ``sf`` [B,H,K,K].  On
+    the card: the per-chunk kernel over groups of heads, then the sum of
+    its du partials over (b, chunk) in order."""
+    check_inputs(r, k, v, lw, u, chunk, None)
+    _check_grad("dy", dy, r.shape)
+    bsz, s, h, kd = r.shape
+    for name, t in (("s_in", s_in), ("ds", ds)):
+        _check_states(f"chunk_bwd: {name}", t, _scratch_shapes(r, chunk)[1])
+    _check_states("chunk_bwd: sf", sf, (bsz, h, kd, kd))
+    _check_devices("chunk_bwd", [r, k, v, lw, u, dy, s_in, sf, ds])
+    if r.device.type == "cpu":
+        return chunk_bwd_ref(r, k, v, lw, u, dy, s_in, sf, ds, chunk=chunk)
+    _check_kernel([r, k, v, lw, u, dy, s_in, sf, ds], kd, chunk, r.dtype)
+    _check_bwd_smem(chunk, kd, r.dtype)
+    return _run_chunk_bwd(r, k, v, lw, u, dy, s_in, sf, ds, chunk)
+
+
+def _run_chunk_bwd(r, k, v, lw, u, dy, s_in, sf, ds, chunk):
+    bsz, s, h, kd = r.shape
+    dev = r.device
+    dr, dk, dv = (torch.empty(r.shape, dtype=r.dtype, device=dev)
+                  for _ in range(3))
+    dlw = torch.empty(r.shape, dtype=torch.float32, device=dev)
+    part = torch.empty(_scratch_shapes(r, chunk)[0], dtype=torch.float32,
+                       device=dev)
+    _bwd_launch("chunk_bwd", dev, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                lw.data_ptr(), u.data_ptr(), dy.data_ptr(), s_in.data_ptr(),
+                sf.data_ptr(), ds.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), dlw.data_ptr(), part.data_ptr(), bsz, s, h,
+                kd, chunk, _DTYPES[r.dtype])
+    du = torch.empty((h, kd), dtype=torch.float32, device=dev)
+    _bwd_launch("sum_du", dev, part.data_ptr(), du.data_ptr(), bsz,
+                s // chunk, h, kd)
+    return dr, dk, dv, dlw, du
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             lw: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+             dsf: torch.Tensor | None = None, *, chunk: int,
+             cwl: torch.Tensor, s_in: torch.Tensor, sf: torch.Tensor):
+    """The gradient of :func:`wkv6`'s (y, final state) with respect to (r,
+    k, v, lw, u, s0), given dy [B,S,H,K] and dsf [B,H,K,K] (float32; None:
+    zeros), the forward's scratch ``cwl`` and ``s_in`` (``keep=True``; s0
+    entered them) and its final state ``sf``.  Returns (dr, dk, dv in r's
+    dtype, dlw float32, du [H,K] float32, ds0 [B,H,K,K] float32).  On the
+    card: the inputs in ``kernel_layout``, then ``chunk_dstate``,
+    ``state_pass_bwd``, ``chunk_bwd`` and its du sum, four launches,
+    deterministic (no atomics)."""
+    global WKV_BWD_LAUNCHES
+    check_inputs(r, k, v, lw, u, chunk, None)
+    bsz, s, h, kd = r.shape
+    _check_grad("dy", dy, r.shape)
+    _check_grad("dsf", dsf, (bsz, h, kd, kd))
+    _check_devices("wkv6_bwd", [r, k, v, lw, u, dy, dsf, cwl, s_in, sf])
+    if r.device.type == "cpu":
+        return wkv6_bwd_ref(r, k, v, lw, u, dy, dsf, chunk=chunk, cwl=cwl,
+                            s_in=s_in, sf=sf)
+    (r, k, v, lw, u, _), k_real = kernel_layout(r, k, v, lw, u, None)
+    pad = r.shape[-1] - kd
+    if pad:
+        dy = F.pad(dy, (0, pad))
+        sf = F.pad(sf, (0, pad, 0, pad))
+        dsf = None if dsf is None else F.pad(dsf, (0, pad, 0, pad))
+    dy, sf = dy.contiguous(), sf.contiguous()
+    dsf = None if dsf is None else dsf.contiguous()
+    _check_kernel([r, k, v, lw, u, dy, sf, dsf, cwl, s_in], r.shape[-1],
+                  chunk, r.dtype)
+    _check_bwd_smem(chunk, r.shape[-1], r.dtype)
+    shape_cwl, shape_states = _scratch_shapes(r, chunk)
+    _check_states("wkv6_bwd: cwl", cwl, shape_cwl)
+    _check_states("wkv6_bwd: s_in", s_in, shape_states)
+    q = torch.empty(shape_states, dtype=torch.float32, device=r.device)
+    ds0 = torch.empty(sf.shape, dtype=torch.float32, device=r.device)
+    _run_chunk_dstate(r, dy, lw, chunk, q)
+    _run_state_pass_bwd(q, cwl, dsf, ds0)
+    dr, dk, dv, dlw, du = _run_chunk_bwd(r, k, v, lw, u, dy, s_in, sf, q,
+                                         chunk)
+    WKV_BWD_LAUNCHES += 1
+    if pad:
+        dr, dk, dv, dlw = (t[..., :kd].contiguous() for t in (dr, dk, dv, dlw))
+        du, ds0 = du[:, :kd].contiguous(), ds0[..., :kd, :kd].contiguous()
+    return dr, dk, dv, dlw, du, ds0

@@ -7,9 +7,12 @@ The port of ``repro.launch.train``: the arch's reduced config unless
 ``--full``, AdamW (lr 3e-4, 20 warmup steps, cosine to ``--steps``), the
 synthetic zipf corpus through the port's ``DataLoader``, a checkpoint every
 50 steps into ``--ckpt-dir`` if given.  Runs on the card by default;
-``--device cpu`` runs the plain path.  Every arch but rwkv6-7b trains on
-either (zamba2-2.7b's SSD scan and step and decay have backward kernels);
-rwkv6-7b trains on the CPU only (its WKV kernel has no backward yet).
+``--device cpu`` runs the plain path.  Every arch trains on either
+(zamba2-2.7b's SSD scan and step and decay and rwkv6-7b's WKV scan have
+backward kernels).  ``--full`` rwkv6-7b does not fit one 80 GB card: its
+7.53 B parameters at 12 bytes each (bf16 weights and gradients, float32
+AdamW moments) take 90.4 GB before any activation; half its depth (16
+layers, 48.4 GB) does.
 """
 from __future__ import annotations
 

@@ -6,7 +6,9 @@ The port of ``repro.models.rwkv``.  Per head (head dim K = V):
 with w_t = exp(-exp(w0 + LoRA(x̃_t))).  The sequence path is the chunked
 WKV recurrence (:func:`wkv6_chunked`): the ``wkv6`` kernel on the card, its
 plain version (the reference's ``wkv6_chunked``) on the CPU; it returns the
-final state, which fills the decode cache.  Decode carries (S, prev-token)
+final state, which fills the decode cache.  Under a gradient it is an
+autograd Function whose backward is ``wkv6_bwd`` (the backward kernels on
+the card, their plain version on the CPU).  Decode carries (S, prev-token)
 per layer.  The reference's simplifications are kept: static per-stream
 token-shift mixes μ, a per-head LayerNorm in place of GroupNorm.
 """
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.rwkv6.ops import wkv6
+from ..kernels.rwkv6.ops import wkv6, wkv6_bwd
 from .layers import Init, layernorm, layernorm_init, linear, linear_init
 
 
@@ -56,21 +58,46 @@ def _shift(x, prev=None):
     return torch.cat([prev, x[:, :-1]], dim=1)
 
 
+class _WKV(torch.autograd.Function):
+    """``wkv6`` under a gradient.  The forward keeps the scratch its passes
+    leave (each chunk's total log decay and the state entering each chunk)
+    and the final state, so the backward ``wkv6_bwd`` does not run the
+    forward's passes again: under remat "block" the forward already runs
+    twice, and the scratch lives only while its block's backward does."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, s0, chunk):
+        y, sf, cwl, s_in = wkv6(r, k, v, lw, u, chunk=chunk, s0=s0,
+                                keep=True)
+        ctx.chunk = chunk
+        ctx.has_s0 = s0 is not None
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, lw, u, cwl, s_in, sf)
+        return y, sf
+
+    @staticmethod
+    def backward(ctx, dy, dsf):
+        r, k, v, lw, u, cwl, s_in, sf = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        dr, dk, dv, dlw, du, ds0 = wkv6_bwd(
+            r, k, v, lw, u, dy.contiguous(),
+            None if dsf is None else dsf.contiguous(), chunk=ctx.chunk,
+            cwl=cwl, s_in=s_in, sf=sf)
+        return dr, dk, dv, dlw, du, (ds0 if ctx.has_s0 else None), None
+
+
 def wkv6_chunked(r, k, v, lw, u, *, chunk: int, s0=None):
     """Chunked RWKV-6 recurrence.
 
     r,k,v: [B,S,H,K]; lw: [B,S,H,K] log-decay (<= 0); u: [H,K] bonus.
     Returns y [B,S,H,K] and final state [B,H,K,K] (k-major, v-minor), both
     float32: the ``wkv6`` kernel for CUDA tensors, its plain version for CPU
-    tensors.  The kernel has no backward yet: a CUDA input that requires grad
-    is refused (the plain version differentiates)."""
+    tensors; under a gradient through ``_WKV``, whose backward is the
+    backward kernels on the card and their plain version on the CPU."""
     if torch.is_grad_enabled() and any(
-            t is not None and t.is_cuda and t.requires_grad
-            for t in (r, k, v, lw, u, s0)):
-        raise NotImplementedError(
-            "wkv6_chunked has no backward on the card yet: the WKV backward "
-            "kernel comes with the next slice of the port (rwkv6 training "
-            "on the card); train on the CPU meanwhile")
+            t is not None and t.requires_grad for t in (r, k, v, lw, u, s0)):
+        return _WKV.apply(r, k, v, lw, u, s0, chunk)
     return wkv6(r, k, v, lw, u, chunk=chunk, s0=s0)
 
 

@@ -119,25 +119,37 @@ def test_fused_tick_equals_scan_at_fleet_shape(card, dtype):
 
 
 def test_scans_refuse_grad_on_the_card(card):
-    """The WKV kernel has no backward yet: a CUDA input that requires grad
-    is refused, naming the next slice, and the same call without grad runs
-    the kernel.  The SSD scan under a gradient runs its forward kernel's
-    three passes and, in the backward, the backward kernels once, with
-    gradients within ssd_bwd_held's tolerance of the plain backward's."""
+    """Both scans train on the card: under a gradient the WKV scan runs its
+    forward kernel's three passes and, in the backward, the WKV backward
+    kernels once, with gradients within grads_held's tolerance of the plain
+    backward's, and the same call without grad runs the forward alone; the
+    SSD scan under a gradient runs its forward kernel's three passes and,
+    in the backward, the backward kernels once, with gradients within
+    ssd_bwd_held's tolerance of the plain backward's."""
     from repro_torch.kernels.mamba2 import ops as ssd_ops
     from repro_torch.kernels.mamba2 import ref as ssd_ref
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
     from repro_torch.models import rwkv, ssm
     x, a, b, c, _ = smoke.mamba2_inputs(smoke.MAMBA2_CASES[0], card, seed=0)
     r, k, v, lw, u, _ = smoke.wkv6_inputs(smoke.WKV6_CASES[0], card, seed=0)
-    lw.requires_grad_()
-    with pytest.raises(NotImplementedError,
-                       match="wkv6_chunked.*WKV backward kernel"):
-        rwkv.wkv6_chunked(r, k, v, lw, u, chunk=32)
-    before = wkv_ops.LAUNCHES
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, lw, u)]
+    before = wkv_ops.LAUNCHES, wkv_ops.WKV_BWD_LAUNCHES
+    y, sf = rwkv.wkv6_chunked(*leaves, chunk=32)
+    dy, dsf = torch.randn_like(y), torch.randn_like(sf)
+    got = torch.autograd.grad((y * dy).sum() + (sf * dsf).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (wkv_ops.LAUNCHES, wkv_ops.WKV_BWD_LAUNCHES) == (before[0] + 1,
+                                                            before[1] + 1)
+    _, sf_, cwl, s_in = wkv_ops.wkv6(r, k, v, lw, u, chunk=32, keep=True)
+    want = wkv_ref.wkv6_bwd_ref(r, k, v, lw, u, dy, dsf, chunk=32, cwl=cwl,
+                                s_in=s_in, sf=sf_)
+    smoke.grads_held("wkv6_chunked", smoke.WKV6_GRADS[:5], got, want[:5])
+    before = wkv_ops.LAUNCHES, wkv_ops.WKV_BWD_LAUNCHES
     with torch.no_grad():
-        rwkv.wkv6_chunked(r, k, v, lw, u, chunk=32)
-    assert wkv_ops.LAUNCHES == before + 1
+        rwkv.wkv6_chunked(*leaves, chunk=32)
+    assert (wkv_ops.LAUNCHES, wkv_ops.WKV_BWD_LAUNCHES) == (before[0] + 1,
+                                                            before[1])
     leaves = [t.clone().requires_grad_() for t in (x, a, b, c)]
     before = ssd_ops.LAUNCHES, ssd_ops.SSD_BWD_LAUNCHES
     y, hf = ssm.ssd_chunked(*leaves, chunk=32)
@@ -150,6 +162,60 @@ def test_scans_refuse_grad_on_the_card(card):
     want = ssd_ref.mamba2_ssd_bwd_ref(x, a, b, c, dy, dhf, chunk=32, cum=cum,
                                       h_in=h_in)
     smoke.ssd_bwd_held(tuple(got) + (want[4],), want, a, "ssd_chunked")
+
+
+@pytest.mark.parametrize("case", smoke.WKV6_BWD_CASES, ids=lambda c: (
+    "B{}-S{}-H{}-K{}-L{}-{}-s0{}-dsf{}-{}-tail{}".format(*c)))
+def test_wkv6_bwd_kernels_match_plain_version(card, case):
+    """The WKV backward kernels against their plain version on the same
+    card tensors over chip_smoke's WKV6_BWD_CASES (wkv6_bwd_check: each
+    gradient within 1e-4 of its max, bf16 dr, dk, dv one rounding apart at
+    most; each pass against its plain version where K needs no padding; a
+    second run equal bit for bit); each call launches the four passes
+    once; chunk_bwd's layout as the kernel chooses it = ops.bwd_layout."""
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    args, kw = smoke.wkv6_bwd_inputs(case, card, seed=case[1] + case[3])
+    before = wkv_ops.WKV_BWD_LAUNCHES, dict(wkv_ops.BWD_PASS_LAUNCHES)
+    smoke.wkv6_bwd_check(args, kw, str(case), "test")
+    assert wkv_ops.WKV_BWD_LAUNCHES == before[0] + 2
+    passes = 2 + (case[3] % (16 // args[0].element_size()) == 0)
+    assert all(wkv_ops.BWD_PASS_LAUNCHES[k] == before[1][k] + passes
+               for k in before[1])
+    smoke.wkv6_bwd_layout_held(args[0], case[4], str(case))
+
+
+def test_rwkv6_train_step_on_card(card):
+    """rwkv6 reduced (float32, loss chunks of 32) through make_train_step
+    on the card, 150 tokens (not a multiple of the WKV chunk, so the padded
+    tail runs): the WKV kernels launch as scan_train_launches says, the
+    gradient norm is finite and above 0, and the loss and every gradient
+    leaf equal the CPU's on a copy of the same parameters within 1e-5 and
+    3e-4 of the leaf's max (TRAIN_F32_SCAN_TOL)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.configs.inputs import random_batch
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as T
+    cfg = dataclasses.replace(get_config("rwkv6-7b", reduced=True),
+                              loss_chunk=30)
+    batch = random_batch(torch.Generator().manual_seed(1), cfg, 150, 2)
+    params = T.init_state(cfg, seed=0, device=card).params
+    cpu_params = copy.deepcopy(params).to("cpu")
+    smoke.zero_scan_counts()
+    loss, _, grads = T._grads(params, cfg, T.to_device(batch, card))
+    assert smoke.scan_counts() == smoke.scan_train_launches(cfg)
+    want_loss, _, want = T._grads(cpu_params, cfg, T.to_device(batch, "cpu"))
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    tol = smoke.TRAIN_F32_SCAN_TOL["leaf"]
+    total = 0.0
+    for path, g in O.leaves(grads):
+        w = O.get_path(want, path)
+        total += float(g.float().pow(2).sum())
+        err = float((g.cpu().double() - w.double()).abs().max()
+                    / w.double().abs().max().clamp_min(1e-30))
+        assert err <= tol, (path, err)
+    assert np.isfinite(total) and total > 0
 
 
 @pytest.mark.parametrize("case", smoke.SSD_BWD_CASES, ids=lambda c: (

@@ -412,10 +412,10 @@ def test_params_from_numpy_round_trip_with_bf16():
 
 def test_unported_entry_points_raise():
     """What the training slices ported runs (loss_fn, blocked_attention's
-    backward, the SSD scan's autograd Function); what they left (the WKV
-    backward on the card) raises, naming the next slice.  A tensor that
-    reports itself on the card stands in for a CUDA input: the SSD scan
-    takes it into its Function, the WKV scan refuses it."""
+    backward, the SSD and the WKV scans' autograd Functions); none of it
+    is left unported.  A tensor that reports itself on the card stands in
+    for a CUDA input: both scans take it into their Functions (the WKV
+    scan refused it before its backward kernel was ported)."""
     from repro_torch.models import rwkv as TR
     from repro_torch.models import ssm as TS
     cfg = tcfg.get_config("qwen3-32b", reduced=True)
@@ -437,10 +437,10 @@ def test_unported_entry_points_raise():
                            card(1, 8, 4), chunk=4)
     assert type(y.grad_fn).__name__ == "_SSDBackward"
     assert y.grad_fn is hf.grad_fn
-    with pytest.raises(NotImplementedError,
-                       match="WKV backward kernel comes with the next slice"):
-        TR.wkv6_chunked(*(card(1, 8, 2, 4) for _ in range(4)), card(2, 4),
-                        chunk=4)
+    y, sf = TR.wkv6_chunked(*(card(1, 8, 2, 4) for _ in range(4)),
+                            card(2, 4), chunk=4)
+    assert type(y.grad_fn).__name__ == "_WKVBackward"
+    assert y.grad_fn is sf.grad_fn
 
 
 @pytest.fixture

@@ -217,6 +217,56 @@ def test_scan_bounds_and_counts():
         pytest.approx(4 * 2000 * 2.0 ** -24)
 
 
+def test_wkv6_bwd_work_and_train_counts():
+    """The WKV backward's work at rwkv6's training layer 0 (0.94 GB, 32.6
+    GFLOP on the FMA pipes, 1.12 G exponentials: the FMA pipes bound it)
+    and the launches scan_train_launches expects of rwkv6 cut to
+    train_rwkv6's 10 layers under remat "block" for 3 steps: 2 wkv6 and 1
+    wkv6_bwd a layer a step, each backward pass once; none of the SSD's."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    r = torch.empty(2, 4096, 64, 64, dtype=torch.bfloat16, device="meta")
+    nbytes, ops, exps = smoke.wkv6_bwd_work(r, 64)
+    n = r.numel()
+    assert nbytes == 6 * n * 2 + 3 * n * 4 + 2 * 2 * 64 * 64 * 64 * 4 \
+        + 2 * 64 * 64 * 64 * 64 * 4 + 64 * 64 * 4
+    assert exps == 2 * 64 * 64 * (2016 * 64 + 2 * 64 * 64 + 64)
+    assert ops == 32581353472
+    bound, by, pipe = smoke.pipe_bound(nbytes, ops, exps)
+    assert (by, pipe) == ("operations", "FMA")
+    assert bound == pytest.approx(0.4863, abs=1e-4)
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), **smoke.RWKV6_TRAIN_CUT)
+    want = smoke.scan_train_launches(cfg, steps=3)
+    assert {k: v for k, v in want.items() if v} == {
+        "wkv6": 60, "wkv6_bwd": 30, "wkv6_bwd chunk_dstate": 30,
+        "wkv6_bwd state_pass_bwd": 30, "wkv6_bwd chunk_bwd": 30,
+        "wkv6_bwd sum_du": 30}
+    smoke.zero_scan_counts()
+    assert set(smoke.scan_counts()) == set(want)
+    assert not any(smoke.scan_counts().values())
+
+
+def test_rwkv6_train_phases_rehearse_on_the_cpu(monkeypatch):
+    """train_rwkv6 at the reduced config cut to 2 layers on the CPU (the
+    plain scans, no launch; the cut reaches the config launch.train
+    builds), its layer-0 backward inputs captured, and the wkv6_bwd phase
+    on them with two cases (the plain version against itself)."""
+    monkeypatch.setattr(smoke, "time_ms", lambda fn, reps=1: (fn(), 1.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    _, _, layer0, metrics = smoke.phase_train(
+        "cpu", arch="rwkv6-7b", full=False, tag="train_rwkv6",
+        cut=dict(n_layers=2, pattern=((2, ("rwkv",)),)), seq=128, batch=2,
+        steps=2)
+    assert metrics["layers"] == 2 and set(layer0) == {"wkv6_bwd"}
+    assert layer0["wkv6_bwd"]["args"][0].shape == (2, 128, 4, 32)
+    record = smoke.phase_wkv6_bwd("cpu", layer0["wkv6_bwd"],
+                                  cases=[smoke.WKV6_BWD_CASES[1],
+                                         smoke.WKV6_BWD_CASES[-1]])
+    assert record["max_abs_err"] == 0.0 and record["library_ms"] is None
+    assert set(record["pass_ms"]) == {"chunk_dstate", "state_pass_bwd",
+                                      "chunk_bwd + sum_du"}
+
+
 def test_block_phases_rehearse_on_the_cpu(monkeypatch):
     """serve_blocks and blocks_card_vs_cpu at the reduced width on the CPU
     (no launch; 600 tokens, past block_q and MLA's 512): every arch of

@@ -145,8 +145,16 @@ void cwe_buffer(size_t n) {
       ds[i * lk + kk] = c + ds[i * lk + kk];
     }
 """),
-            ("""  const int hpb = heads_per_block(B, S / L, H, per_sm, 0.0);
-""", """  const int hpb = heads_per_block(B, S / L, H, per_sm, 0.0);
+            ("""  const size_t smem = state_smem<T>(K, L);
+  int per_sm = 0;
+  cudaError_t e = prepare(kernel, smem, &per_sm);
+  if (e != cudaSuccess) return e;
+  const int hpb = heads_per_block(B, S / L, H, per_sm, 0.0);
+""", """  const size_t smem = state_smem<T>(K, L);
+  int per_sm = 0;
+  cudaError_t e = prepare(kernel, smem, &per_sm);
+  if (e != cudaSuccess) return e;
+  const int hpb = heads_per_block(B, S / L, H, per_sm, 0.0);
   cwe_buffer((size_t)B * S * H * K);
 """)],
     },

@@ -10,10 +10,10 @@ tokens).  After one warm-up step it times the forward and backward
 (``train_step._grads``) and the AdamW update (``optimizer.apply``) of one
 step with the device synchronised, then profiles one whole step with
 ``torch.profiler`` and prints the device's busy time and idle share, its
-kernel time by kind (the SSD scan's backward and forward, the step and
-decay forward and backward, flash backward, flash forward, bf16 GEMMs,
-float32 GEMMs, the rest) and the kernels that take the most.  Exits 2
-without a card.
+kernel time by kind (the WKV scan's backward, the SSD scan's backward,
+the scan's forward (SSD or WKV, by the arch), the step and decay forward
+and backward, flash backward, flash forward, bf16 GEMMs, float32 GEMMs,
+the rest) and the kernels that take the most.  Exits 2 without a card.
 """
 from __future__ import annotations
 
@@ -28,8 +28,12 @@ ROOT = Path(__file__).resolve().parent.parent
 
 #: Kernel kinds by name: the first pattern a kernel's name contains (the
 #: float32 head's GEMMs are CUTLASS SIMT and xmma f32 kernels; cuBLASLt
-#: names its bf16 GEMMs ``nvjet_*`` on Hopper).
-KINDS = (("SSD backward", ("chunk_dstate_kernel", "state_pass_bwd_kernel",
+#: names its bf16 GEMMs ``nvjet_*`` on Hopper).  The two scans' forward
+#: kernels share their names (``kind_of`` names them by the arch).
+KINDS = (("WKV backward", ("wkv_chunk_dstate_kernel",
+                           "wkv_state_pass_bwd_kernel",
+                           "wkv_chunk_bwd_kernel", "wkv_sum_du_kernel")),
+         ("SSD backward", ("chunk_dstate_kernel", "state_pass_bwd_kernel",
                            "chunk_bwd_kernel", "sum_groups_kernel")),
          ("SSD forward", ("chunk_state_kernel", "state_pass_kernel",
                           "chunk_scan_kernel")),
@@ -40,9 +44,11 @@ KINDS = (("SSD backward", ("chunk_dstate_kernel", "state_pass_bwd_kernel",
          ("bf16 GEMM", ("nvjet", "bf16", "gemm", "xmma", "cutlass")))
 
 
-def kind_of(name: str) -> str:
+def kind_of(name: str, arch: str = "") -> str:
     for kind, pats in KINDS:
         if any(p in name for p in pats):
+            if kind == "SSD forward" and arch.startswith("rwkv"):
+                return "WKV forward"
             return kind
     return "other"
 
@@ -112,7 +118,7 @@ def main(argv=None) -> int:
     by_kind, by_name = defaultdict(float), defaultdict(lambda: [0, 0.0])
     for e in kernels:
         us = e.time_range.elapsed_us()
-        by_kind[kind_of(e.name)] += us / 1e3
+        by_kind[kind_of(e.name, args.arch)] += us / 1e3
         by_name[e.name][0] += 1
         by_name[e.name][1] += us / 1e3
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
