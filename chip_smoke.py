@@ -303,14 +303,17 @@ each printing its lines before the last:
                 wkv6_bwd launches a layer a step, grad norm finite and
                 above 0; ms/step, tokens/s, peak memory
   wkv6_bwd      the WKV backward kernels against their plain version over
-                WKV6_BWD_CASES (chunk 16-192, K 16-128, float32 and bf16,
-                s0 and the final state's gradient or not, strong decay, a
-                padded tail, K padded by the wrapper): each gradient within
-                1e-4 of its max (bf16 one rounding apart), each pass
-                against its plain version, a second run bit for bit equal,
-                chunk_bwd's layout = the wrapper's mirror; then on the
-                inputs layer 0 of train_rwkv6 gave them, with their time,
-                each pass's, the bound and the plain version's
+                WKV6_BWD_CASES (chunk 16-192 and 20, K 16-128 and 44,
+                float32 and bf16, s0 and the final state's gradient or
+                not, strong decay, a padded tail, K padded by the
+                wrapper): each gradient within 1e-4 of its max (bf16 one
+                rounding apart), each pass against its plain version, a
+                second run bit for bit equal, chunk_bwd's layout = the
+                wrapper's mirror (printed); then on the inputs layer 0 of
+                train_rwkv6 gave them, with their time, each pass's, the
+                bound (TF32 tensor cores, the FMA bound beside it, the
+                split's own TF32 operations and the exponentials the
+                kernels take) and the plain version's
   train_card_vs_cpu  danube at full width cut to 2 layers, zamba2 cut to a
                 mamba block and the shared block and rwkv6 to 2 layers,
                 float32, 512 tokens (tiles of 256, so through the flash
@@ -4138,13 +4141,16 @@ def phase_step_decay_bwd(device, layer0, *, reps=50):
 
 
 #: (B, S, H, K, chunk, r/k/v dtype, s0, dsf, decay, tail): chunk 16, 32, 64
-#: and 192; K 16, 32, 64 and 128 (60: padded to the bf16 quantum by the
-#: wrapper); float32 and bf16 r, k, v; with and without s0 and the final
-#: state's gradient; lw down to -20 per step ("strong"); a tail of 13 steps
-#: with r = k = v = lw = 0 and dy = 0, as rwkv6_timemix pads a sequence to
-#: the chunk.  chunk_bwd stages dy, dS' and S where they fit: K = 128 reads
-#: S (and at chunk 64 in bf16 also dS') from device memory, chunk 192 with
-#: K = 16 all three.
+#: and 192, and 20 (the last 16-row block of the chunk cut at 4 rows); K 16,
+#: 32, 64 and 128, 44 in float32 (the last 8-channel tile cut at 4; 60:
+#: padded to the bf16 quantum by the wrapper); float32 and bf16 r, k, v;
+#: with and without s0 and the final state's gradient; lw down to -20 per
+#: step ("strong"); a tail of 13 steps with r = k = v = lw = 0 and dy = 0,
+#: as rwkv6_timemix pads a sequence to the chunk.  chunk_bwd's layouts
+#: (ops.bwd_layout): two blocks an SM at K = 64 in bf16 (S read from
+#: device memory) and at K = 128, chunk 32 in float32 (dS' and S); one
+#: block with all three staged at K = 64 in float32; chunk 192 with K = 16
+#: reads dy from device memory.
 WKV6_BWD_CASES = [
     (2, 128, 3, 32, 16, "float32", True, True, "normal", False),
     (2, 256, 4, 32, 32, "bfloat16", False, False, "normal", False),
@@ -4155,6 +4161,7 @@ WKV6_BWD_CASES = [
     (1, 128, 2, 128, 32, "float32", False, True, "strong", False),
     (1, 384, 2, 16, 192, "float32", True, True, "normal", False),
     (1, 128, 2, 60, 32, "bfloat16", True, True, "normal", True),
+    (2, 160, 3, 44, 20, "float32", True, True, "strong", True),
 ]
 #: The WKV backward's gradients, in wkv6_bwd's order.
 WKV6_GRADS = ("dr", "dk", "dv", "dlw", "du", "ds0")
@@ -4270,6 +4277,49 @@ def wkv6_bwd_work(r, chunk):
     return nbytes, ops, exps
 
 
+def wkv6_bwd_split_ops(r, chunk):
+    """TF32 operations the WKV backward's split-TF32 products take on these
+    inputs (two per multiply-add of each pass, on the kernels' tiles: rows
+    padded to 16, channels to 8; chunk_dstate's channels as rows to 16).
+    Per (b, h, chunk): D = dy v^T on the lower tiles and the state term dS'
+    v of Q (2 passes with bf16 v, else 3); every other product 3: A^T's
+    anchored blocks, the state term S dy of P, P's and Q's anchored terms,
+    dv's (exp(cwl - cwe - lw) k) dS' and A^T dy, and chunk_dstate's (r
+    exp(cwe))^T dy."""
+    bsz, s, h, kd = r.shape
+    lp, kp, km = -(-chunk // 16) * 16, -(-kd // 8) * 8, -(-kd // 16) * 16
+    nb, nc = lp // 16, s // chunk
+    pv = 2 if r.element_size() == 2 else 3
+    macs = (pv * 128 * nb * (nb + 1) * kp                   # D
+            + 3 * 256 * kp * nb * (nb - 1) // 2             # A^T anchored
+            + (3 + pv) * lp * kp * kp                        # S dy, dS' v
+            + 3 * sum(16 * kp * (16 * a + (lp - 16 * (a + 1))
+                                 + (lp - 16 * a))
+                      for a in range(nb))                    # P, Q, A^T dy
+            + 3 * lp * kp * kp                               # dv's state term
+            + 3 * km * kp * lp)                              # chunk_dstate
+    return 2 * bsz * nc * h * macs
+
+
+def wkv6_bwd_design_exps(r, chunk):
+    """Exponentials the WKV backward's kernels take on these inputs (on
+    their padded tiles), per (b, h, chunk): A^T's anchored operands (32
+    rows of kp a block pair), its diagonal blocks (120 pairs of a block), P's
+    and Q's diagonal blocks (the same pairs, each gate taken once for both),
+    their anchored operands, their row scales (exp(cwe), exp(cwl - cwe -
+    lw), which dv's product reuses, and the anchored blocks' factors), and
+    chunk_dstate's exp(cwe)."""
+    bsz, s, h, kd = r.shape
+    lp, kp = -(-chunk // 16) * 16, -(-kd // 8) * 8
+    nb, nc = lp // 16, s // chunk
+    per = (32 * kp * nb * (nb - 1) // 2 + 2 * 120 * nb * kp
+           + sum(16 * a * kp + (lp - 16 * (a + 1)) * kp
+                 + 16 * kp * (2 + (a > 0) + (a < nb - 1))
+                 for a in range(nb))
+           + chunk * kd)
+    return bsz * nc * h * per
+
+
 def phase_wkv6_bwd(device, layer0, *, cases=WKV6_BWD_CASES, reps=5):
     """The WKV backward kernels against their plain version over
     WKV6_BWD_CASES and on the inputs layer 0 of train_rwkv6 gave them
@@ -4305,18 +4355,29 @@ def phase_wkv6_bwd(device, layer0, *, cases=WKV6_BWD_CASES, reps=5):
         "chunk_bwd + sum_du": time_ms(lambda: wkv_ops.chunk_bwd(
             r, k, v, lw, u, dy, s_in, sf, q, chunk=chunk), reps=reps)}
     work = wkv6_bwd_work(r, chunk)
-    bound, by, pipe = pipe_bound(*work)
+    bound, by, pipe = pipe_bound(*work, ops_per_s=TF32_OPS_PER_S,
+                                 ops_pipe="TF32 tensor")
+    fma_bound, _, _ = pipe_bound(*work)
     nbytes, ops, exps = work
+    split = wkv6_bwd_split_ops(r, chunk)
+    taken = wkv6_bwd_design_exps(r, chunk)
     say("wkv6_bwd", f"{tag}: device ms per pass " + ", ".join(
         f"{k} {v:.3f}" for k, v in passes.items()))
     say("wkv6_bwd", f"{tag}: kernels {ms:.3f} ms, bound {bound:.4f} ms "
-        f"({by}, {pipe}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP fp32, "
-        f"{exps / 1e9:.3f} G exponentials), plain {plain:.3f} ms; kernels / "
-        f"bound {ms / bound:.1f}; layout {layout}; no PyTorch call computes "
-        "this function")
+        f"({by}, {pipe}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP, "
+        f"{exps / 1e9:.3f} G exponentials; on the FMA pipes "
+        f"{fma_bound:.4f} ms), plain {plain:.3f} ms; kernels / bound "
+        f"{ms / bound:.1f}; no PyTorch call computes this function")
+    say("wkv6_bwd", f"{tag}: the split TF32 takes {split / 1e9:.1f} GFLOP "
+        f"of TF32 ({split / TF32_OPS_PER_S * 1e3:.4f} ms at "
+        f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s); the kernels take "
+        f"{taken / 1e9:.3f} G exponentials "
+        f"({taken / SFU_OPS_PER_S * 1e3:.4f} ms on the SFUs); layout "
+        f"{layout}")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                 bound_pipe=pipe, library_ms=None, max_abs_err=worst,
-                pass_ms=passes)
+                pass_ms=passes, fma_bound_ms=fma_bound,
+                split_tf32_gflop=split / 1e9, exps_taken=taken)
 
 
 def model_card_vs_cpu(device, cfg, *, phase, seq, steps):

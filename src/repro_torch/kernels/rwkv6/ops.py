@@ -19,9 +19,11 @@ per-chunk kernel and the sum of its du partials over the batch and the
 chunks); it reads the forward's scratch (``wkv6(..., keep=True)``).
 ``WKV_BWD_LAUNCHES`` counts its calls on the card, ``BWD_PASS_LAUNCHES``
 each pass's launches.  ``bwd_layout`` mirrors the shared memory of
-chunk_bwd's block: dy, the gradient of the state leaving the chunk and the
-state entering it are staged where they fit, else read from device memory,
-so the backward takes every geometry the forward takes.
+chunk_bwd's block: two blocks an SM where the fixed buffers and dy fit half
+an SM's shared memory, else one; dy, the gradient of the state leaving the
+chunk and the state entering it staged where they fit that budget, else
+read from device memory; the rows padded and v staged where that fits, so
+the backward takes every geometry the forward takes.
 """
 from __future__ import annotations
 
@@ -51,6 +53,10 @@ BWD_PASS_LAUNCHES = {"chunk_dstate": 0, "state_pass_bwd": 0, "chunk_bwd": 0,
 
 #: Shared memory one block may use on the H100 (bytes).
 MAX_SMEM = 232448
+#: An SM's shared memory on the H100; each resident block reserves 1 KB.
+SM_SMEM = 233472
+#: chunk_bwd's blocks an SM where its layout fits their share (``bwd_layout``).
+BWD_BLOCKS = 2
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -99,10 +105,11 @@ def _bwd_launch(name: str, device, *args) -> None:
 def ask_bwd_layout(chunk: int, kd: int, dtype, device) -> dict:
     """chunk_bwd's layout as the kernel's source chooses it (a query of the
     built library: no launch), in ``bwd_layout``'s form."""
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 6)()
     with torch.cuda.device(device):
         nbytes = _launcher("chunk_bwd_smem")(kd, chunk, _DTYPES[dtype], out)
-    return {"bytes": int(nbytes), "dy": bool(out[0]), "ds": bool(out[1]),
+    return {"bytes": int(nbytes), "blocks": int(out[3]), "pad": bool(out[4]),
+            "v": bool(out[5]), "dy": bool(out[0]), "ds": bool(out[1]),
             "s": bool(out[2])}
 
 
@@ -119,22 +126,42 @@ def smem_bytes(chunk: int, kd: int, itemsize: int = 4) -> int:
 
 def bwd_layout(chunk, kd: int, itemsize: int = 4) -> dict:
     """chunk_bwd's shared memory at (chunk, K) with r, k, v of ``itemsize``
-    bytes, as ``csrc/wkv6.cu`` lays it out (``bwd_smem``): r, k, v in
-    their type, lw (then cwe + lw), cwe (then exp(cwl - cwe - lw) k), the
-    L x L matrix (dy v^T, then the forward's attention), the bonus, cwl,
-    <dS', S'>, the row tiles' sums of dlw's terms; then, each where it
-    still fits, dy, the gradient of the state leaving the chunk and the
-    state entering it (else read from device memory).  Returns {"bytes",
-    "dy", "ds", "s"}."""
-    base = (itemsize * 3 * chunk * (kd + 16 // itemsize)
-            + 4 * (2 * chunk * (kd + 4) + chunk * (chunk + 4) + chunk
-                   + 2 * kd + chunk * kd // 4))
-    out = {"bytes": base}
-    for name, size in (("dy", 4 * chunk * (kd + 4)), ("ds", 4 * kd * (kd + 4)),
-                       ("s", 4 * kd * (kd + 4))):
-        out[name] = out["bytes"] + size <= MAX_SMEM
-        out["bytes"] += size if out[name] else 0
-    return out
+    bytes, as ``csrc/wkv6.cu`` chooses it (``bwd_layout``).  With lp the
+    chunk rounded up to 16 and kp K up to 8: r, k and v (v where staged)
+    [lp][kp] in their type, lw and cwe [lp][kp], the [lp][lp] matrix (dy
+    v^T below its diagonal, the attention's transpose above), the bonus
+    [lp], cwl [kp]; rows padded by 16 bytes (4 floats
+    in the float32 buffers) and v staged where that fits, else the rows
+    padded and v read from device memory, else neither.  The budget is half
+    an SM's shared memory less 1 KB (two blocks an SM, ``BWD_BLOCKS``)
+    where the fixed buffers and dy fit it, else ``MAX_SMEM``; then dy
+    [lp][kp], the gradient of the state leaving the chunk and the state
+    entering it ([kp][kp] each) are staged where each still fits the
+    budget (else read from device memory).  Returns {"bytes", "blocks",
+    "pad", "v", "dy", "ds", "s"}; "bytes" past ``MAX_SMEM`` where no layout
+    fits (no geometry the forward takes)."""
+    lp, kp = -(-chunk // 16) * 16, -(-kd // 8) * 8
+    for pad in (True, False):
+        lk, la = kp + 4 * pad, lp + 4 * pad
+        lt = kp + (16 // itemsize) * pad
+        for v in (True, False):
+            base = (itemsize * (2 + v) * lp * lt
+                    + 4 * (2 * lp * lk + lp * la + lp + kp))
+            sizes = (("dy", 4 * lp * lk), ("ds", 4 * kp * lk),
+                     ("s", 4 * kp * lk))
+            for blocks in range(BWD_BLOCKS, 0, -1):
+                budget = SM_SMEM // blocks - 1024
+                if blocks > 1 and base + sizes[0][1] > budget:
+                    continue
+                if base > budget:
+                    break
+                out = {"bytes": base, "blocks": blocks, "pad": pad, "v": v}
+                for name, size in sizes:
+                    out[name] = out["bytes"] + size <= budget
+                    out["bytes"] += size if out[name] else 0
+                return out
+    return {"bytes": base, "blocks": 0, "pad": False, "v": False,
+            "dy": False, "ds": False, "s": False}
 
 
 def bwd_smem_bytes(chunk, kd: int, itemsize: int = 4) -> int:

@@ -33,7 +33,16 @@ JAX package is their arithmetic, written out in PyTorch:
   products hi.hi + hi.lo + lo.hi summed in float32 (one or two of them
   where an operand is a bf16 B or C, exact in TF32), composed with the
   plain first two passes into the whole backward, within ``GRAD_TOL`` of
-  each gradient's max of ``jax.vjp`` of the reference's ``ssd_chunked``.
+  each gradient's max of ``jax.vjp`` of the reference's ``ssd_chunked``;
+* the WKV backward's ``chunk_dstate`` and ``chunk_bwd`` on the tensor
+  cores: the same split TF32, the chunk cut into 16-row blocks anchored at
+  the cwe of their first rows (A's, P's and Q's off-diagonal blocks as
+  products of r exp(cwe - c_a) and k exp(c_a - cwi), the exact gates on
+  the diagonal blocks), composed into the backward within ``GRAD_TOL`` of
+  ``jax.vjp`` of ``wkv6_chunked`` on tests/test_torch_wkv_bwd.py's
+  strong-decay and bf16 cases (lw down to -40 a step); single TF32 leaves
+  that tolerance; every anchored factor is finite and at most 1 up to the
+  prefix's rounding.
 """
 import math
 
@@ -59,6 +68,8 @@ from repro_torch.kernels.mamba2.ref import (chunk_dstate_ref, chunk_scan_ref,
                                             state_pass_ref)
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
+from test_torch_wkv_bwd import to_torch as wkv_bwd_torch
+from test_torch_wkv_bwd import wkv_inputs as wkv_bwd_inputs
 
 #: tests/test_kernels.py:129: bf16 against float32 references.
 BF16_TOL = 2e-2
@@ -824,3 +835,229 @@ def test_wkv6_pass_wrappers_take_the_cpu_path_and_refuse_bad_input():
     assert wkv_ops.smem_bytes(128, 64, 2) <= wkv_ops.MAX_SMEM
     assert wkv_ops.smem_bytes(128, 64) > wkv_ops.MAX_SMEM
     assert wkv_ops.smem_bytes(256, 64, 2) > wkv_ops.MAX_SMEM
+
+
+# -- the WKV backward in split TF32 ------------------------------------------
+
+#: (B, S, H, K, chunk, r/k/v dtype, s0, dsf, decay, tail) of
+#: tests/test_torch_wkv_bwd.py's strong-decay and bf16 cases (lw down to
+#: -40 a step), and chunk 20 with K = 12 (a 16-row block cut at 4 rows).
+WKV_SPLIT_CASES = [
+    (2, 64, 3, 16, 16, "float32", False, True, "strong", False),
+    (2, 64, 4, 32, 32, "bfloat16", True, False, "normal", False),
+    (2, 48, 2, 16, 16, "bfloat16", False, False, "normal", True),
+    (2, 96, 2, 32, 32, "float32", True, True, "strong", False),
+    (2, 60, 2, 12, 20, "float32", True, True, "strong", True),
+]
+WKV_SPLIT_IDS = ["L16-strong-dsf", "L32-bf16-s0", "L16-bf16-tail",
+                 "L32-strong-s0-dsf", "L20-K12-strong-tail"]
+
+
+def wkv_gate(x):
+    """A gate or anchored factor as chunk_bwd takes it: exp(x), the
+    exponent capped at 64 only so zero-padded rows stay finite."""
+    return torch.exp(torch.clamp_max(x, 64.0))
+
+
+def wkv_chunk_bwd_split_tf32_emulation(r, k, v, lw, u, dy, s_in, sf, ds, *,
+                                       chunk, passes=3):
+    """What chunk_bwd (``csrc/wkv6.cu``) computes, in its arrangement: the
+    chunk cut into blocks of 16 rows, each anchored at the cwe of its first
+    row c_a; A's, P's and Q's off-diagonal blocks as split-TF32 products of
+    the scaled operands r exp(cwe - c_a) and k exp(c_a - cwi) with the row
+    scales exp(cwe - c_a) (P) and exp(c_{a+1} - cwi) (Q); the diagonal 16 x
+    16 blocks with the exact per-pair gates in float32; the state terms S
+    dy, dS' v and (exp(cwl - cwe - lw) k) dS', D = dy v^T and A^T dy in split
+    TF32, a product with a bf16 v taking two passes.  dr, dk and dlw from P
+    and Q as chunk_bwd_ref takes them.  Returns (dr, dk, dv in r's dtype,
+    dlw, du), as chunk_bwd_ref."""
+    bsz, s, h, kd = r.shape
+    nc = s // chunk
+    exact = r.dtype == torch.bfloat16
+
+    def mm(a, b, a_exact=False, b_exact=False):
+        return split_mm(a, b, a_exact, b_exact, passes)
+
+    def heads(t):  # [B, S, H, K] -> float32 [B, nc, H, L, K]
+        return t.float().reshape(bsz, nc, chunk, h, kd).transpose(2, 3)
+
+    rs, ks, vs, lws, ys = (heads(t) for t in (r, k, v, lw, dy))
+    cwe, cwl = wkv_ref._prefix(lws.transpose(2, 3))
+    cwe, cwl = cwe.transpose(2, 3), cwl[..., None, :]   # [B,nc,H,L,K], [..,1,K]
+    cwi = cwe + lws
+    s_out = torch.cat([s_in[:, 1:], sf[:, None]], 1)
+    uf = u.float()[None, None, :, None, :]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool), -1)
+    blocks = [(a0, min(a0 + 16, chunk)) for a0 in range(0, chunk, 16)]
+
+    d = mm(ys, vs.transpose(-1, -2), False, exact)          # dy_i . v_j
+    dd = torch.diagonal(d, dim1=-2, dim2=-1)                 # [B,nc,H,L]
+    gates = wkv_gate(cwe[..., :, None, :] - cwi[..., None, :, :])
+    att = torch.zeros_like(d)
+    p = torch.exp(cwe) * mm(ys, s_in.transpose(-1, -2))
+    carry = torch.exp((cwl - cwe) - lws)
+    q = carry * mm(vs, ds.transpose(-1, -2), exact, False)
+    for a0, a1 in blocks:
+        blk = slice(a0, a1)
+        diag = tri[blk, blk]
+        g = torch.where(diag[..., None], gates[..., blk, blk, :], 0.0)
+        att[..., blk, blk] = torch.einsum("...ik,...jk,...ijk->...ij",
+                                          rs[..., blk, :], ks[..., blk, :], g)
+        db = torch.where(diag, d[..., blk, blk], 0.0)
+        p[..., blk, :] += torch.einsum("...ij,...jk,...ijk->...ik", db,
+                                       ks[..., blk, :], g)
+        q[..., blk, :] += torch.einsum("...ij,...ik,...ijk->...jk", db,
+                                       rs[..., blk, :], g)
+        if a0 > 0:  # block a against the rows above it, anchored at a0
+            c = cwe[..., a0:a0 + 1, :]
+            khat = ks[..., :a0, :] * wkv_gate(c - cwi[..., :a0, :])
+            e = wkv_gate(cwe[..., blk, :] - c)
+            att[..., blk, :a0] = mm(rs[..., blk, :] * e,
+                                    khat.transpose(-1, -2))
+            p[..., blk, :] += e * mm(d[..., blk, :a0], khat)
+            # Q of the blocks above, anchored at a0: the rows below.
+            rhat = rs[..., a0:, :] * wkv_gate(cwe[..., a0:, :] - c)
+            f = wkv_gate(c - cwi[..., a0 - 16:a0, :])
+            q[..., a0 - 16:a0, :] += f * mm(
+                d[..., a0:, a0 - 16:a0].transpose(-1, -2), rhat)
+    beta = (rs * uf * ks).sum(-1)
+    dv = (mm(carry * ks, ds) + mm(att.transpose(-1, -2), ys)
+          + beta[..., None] * ys)
+    bonus = uf * dd[..., None]
+    dr, dk = p + bonus * ks, q + bonus * rs
+    e, f = rs * p, -ks * q
+    later = (e + f).flip(-2).cumsum(-2).flip(-2)
+    later = torch.cat([later[..., 1:, :], torch.zeros_like(later[..., :1, :])],
+                      -2)
+    gl = (ds * s_out).sum(-1)[..., None, :]
+    dlw = gl + f + later
+    du = wkv_ref.sum_du_ref((dd[..., None] * rs * ks).sum(-2))
+
+    def back(t):
+        return t.transpose(2, 3).reshape(bsz, s, h, kd)
+
+    return (back(dr).to(r.dtype), back(dk).to(r.dtype), back(dv).to(r.dtype),
+            back(dlw), du)
+
+
+def wkv_chunk_dstate_split_tf32_emulation(r, dy, lw, *, chunk, passes=3):
+    """chunk_dstate's q = (r exp(cwe))^T dy in split TF32, per (b, chunk,
+    head)."""
+    bsz, s, h, kd = r.shape
+    nc = s // chunk
+
+    def heads(t):
+        return t.float().reshape(bsz, nc, chunk, h, kd).transpose(2, 3)
+
+    rs, ys, lws = (heads(t) for t in (r, dy, lw))
+    cwe, _ = wkv_ref._prefix(lws.transpose(2, 3))
+    return split_mm((rs * torch.exp(cwe.transpose(2, 3))).transpose(-1, -2),
+                    ys, passes=passes)
+
+
+def wkv_bwd_split_tf32(r, k, v, lw, u, dy, dsf, s0, *, chunk, passes=3):
+    """The whole WKV backward with chunk_dstate and chunk_bwd emulated: the
+    plain forward's scratch, the emulated q, state_pass_bwd_ref (float32 on
+    the FMA pipes in the kernel), then chunk_bwd.  (dr, dk, dv, dlw, du,
+    ds0)."""
+    _, sf, cwl, s_in = wkv_ref.wkv6_ref(r, k, v, lw, u, chunk=chunk, s0=s0,
+                                        keep=True)
+    q = wkv_chunk_dstate_split_tf32_emulation(r, dy, lw, chunk=chunk,
+                                              passes=passes)
+    ds, ds0 = wkv_ref.state_pass_bwd_ref(q, cwl, dsf=dsf)
+    return wkv_chunk_bwd_split_tf32_emulation(
+        r, k, v, lw, u, dy, s_in, sf, ds, chunk=chunk, passes=passes) + (ds0,)
+
+
+@pytest.fixture(scope="module")
+def wkv_split_reference():
+    """{case: (torch inputs (r, k, v, lw, u, s0, dy, dsf), jax.vjp's
+    gradients)}: the inputs drawn as tests/test_torch_wkv_bwd.py draws them,
+    and jax.vjp of the reference's wkv6_chunked (s0 and dsf zeros where the
+    case has none), each compiled once here."""
+    out = {}
+    for n, case in enumerate(WKV_SPLIT_CASES):
+        inputs = wkv_bwd_inputs(case, seed=60 + n)
+        r, k, v, lw, u, s0, dy, dsf = inputs
+        zeros = np.zeros((r.shape[0], r.shape[2], r.shape[3], r.shape[3]),
+                         np.float32)
+        _, vjp = jax.vjp(lambda *t: RR.wkv6_chunked(*t[:5], chunk=case[4],
+                                                    s0=t[5]),
+                         r, k, v, lw, u, zeros if s0 is None else s0)
+        grads = vjp((jnp.asarray(dy),
+                     jnp.asarray(zeros if dsf is None else dsf)))
+        out[case] = ([wkv_bwd_torch(x) for x in inputs],
+                     [np.asarray(g, np.float64) for g in grads])
+    return out
+
+
+def wkv_split_errors(case, inputs, want, passes=3):
+    """{gradient: max abs error over its max} of the emulated backward; a
+    bf16 dr, dk or dv may land one bf16 step (2^-7 of it) apart, as the
+    plain version's may (tests/test_torch_wkv_bwd.py)."""
+    r, k, v, lw, u, s0, dy, dsf = inputs
+    got = wkv_bwd_split_tf32(r, k, v, lw, u, dy, dsf, s0, chunk=case[4],
+                             passes=passes)
+    errs = {}
+    for name, g, w in zip(("dr", "dk", "dv", "dlw", "du", "ds0"), got, want):
+        step = 2.0 ** -7 if g.dtype == torch.bfloat16 else 0.0
+        g = g.float().numpy().astype(np.float64)
+        diff = np.maximum(np.abs(g - w) - step * np.abs(w), 0.0)
+        errs[name] = float(diff.max() / np.abs(w).max())
+    return errs
+
+
+@pytest.mark.parametrize("case", WKV_SPLIT_CASES, ids=WKV_SPLIT_IDS)
+def test_wkv_bwd_split_tf32_matches_jax_vjp(wkv_split_reference, case):
+    """chunk_dstate's and chunk_bwd's arithmetic (anchored 16-row blocks in
+    split TF32, exact diagonal blocks), composed into the backward, within
+    GRAD_TOL of jax.vjp's every gradient, strong decay included."""
+    inputs, want = wkv_split_reference[case]
+    errs = wkv_split_errors(case, inputs, want)
+    assert all(e <= GRAD_TOL for e in errs.values()), errs
+
+
+def test_wkv_bwd_single_tf32_leaves_the_tolerance(wkv_split_reference):
+    """hi.hi alone (single TF32) leaves GRAD_TOL of jax.vjp on a float32
+    case, at least ten times further off than the split: the lo passes
+    carry the accuracy the tolerance asks for."""
+    case = WKV_SPLIT_CASES[3]
+    inputs, want = wkv_split_reference[case]
+    split = max(wkv_split_errors(case, inputs, want).values())
+    single = max(wkv_split_errors(case, inputs, want, passes=1).values())
+    assert single > GRAD_TOL and single > 10 * split, (single, split)
+
+
+def test_wkv_anchored_factors_are_at_most_one_under_strong_decay(
+        wkv_split_reference):
+    """Under lw down to -40 a step every anchored factor exp(cwe_i - c_a)
+    (rows at or below the anchor's) and exp(c_a - cwi_j) (rows above it) is
+    finite and at most 1, up to the prefix's rounding (a few ulps of |cwe|,
+    which the reference's own gate keeps), and their product is the
+    reference's gate exp(cwe_i - cwi_j) wherever that gate is above float32's
+    floor: the two subtractions are exact where the one is."""
+    case = WKV_SPLIT_CASES[3]
+    r, k, v, lw, u, s0, dy, dsf = wkv_split_reference[case][0]
+    chunk = case[4]
+    bsz, s, h, kd = lw.shape
+    lws = lw.reshape(bsz, s // chunk, chunk, h, kd)
+    cwe, _ = wkv_ref._prefix(lws)
+    cwi = cwe + lws
+    assert float(lws.min()) < -39.0
+    ulp = 2.0 ** (math.floor(math.log2(float(cwe.abs().max()))) - 23)
+    checked = 0
+    for a0 in range(16, chunk, 16):
+        c = cwe[:, :, a0:a0 + 1]
+        below, above = cwe[:, :, a0:] - c, c - cwi[:, :, :a0]
+        for x in (below, above):
+            assert float(x.max()) <= 4 * ulp
+            f = wkv_gate(x)
+            assert bool(torch.isfinite(f).all())
+            assert float(f.max()) <= math.exp(4 * ulp)
+        prod = (wkv_gate(below)[:, :, :, None]
+                * wkv_gate(above)[:, :, None, :])
+        gate = torch.exp(cwe[:, :, a0:, None] - cwi[:, :, None, :a0])
+        live = gate > 1e-30
+        assert torch.allclose(prod[live], gate[live], rtol=4e-6, atol=0)
+        checked += int(live.sum())
+    assert checked > 0

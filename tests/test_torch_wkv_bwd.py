@@ -237,13 +237,18 @@ def test_wkv_function_without_s0_or_state_gradient():
 def test_backward_takes_the_forward_geometry():
     """chunk_bwd's shared memory fits wherever the forward's does: over
     chunks up to 1024 and every K up to 128 the forward takes (multiples
-    of its 16-byte quantum), with r, k, v in float32 or bf16, the buffers
-    it always holds fit, and each of dy, dS' and S that it reads from
-    device memory would not fit beside the rest.
-    rwkv6-7b's training layer stages all three; K = 128 reads S (and at
-    chunk 64 in bf16 dS') from device memory, chunk 192 with K = 16 all
-    three.  Past the forward's geometry the backward refuses by name."""
-    taken = 0
+    of its 16-byte quantum), with r, k, v in float32 or bf16, a layout fits
+    (two blocks an SM where the fixed buffers and dy fit half an SM's
+    shared memory, else one); each of dy, dS' and S that it reads from
+    device memory would not fit beside the rest in the layout's budget;
+    rows go unpadded, or v to device memory, only where the padded layout
+    with v staged does not fit one block.  rwkv6-7b's training layer takes
+    two blocks an SM with dy and dS' staged (S from device memory); K = 128
+    at chunk 64 in bf16 one block with dy staged; chunk 192 with K = 16 one
+    block with dS' and S staged; the largest chunks at small K drop the
+    padding and v.  Past the forward's geometry the backward refuses by
+    name."""
+    taken, kinds = 0, set()
     for itemsize in (4, 2):
         quantum = 16 // itemsize
         for kd in range(quantum, 129, quantum):
@@ -252,21 +257,39 @@ def test_backward_takes_the_forward_geometry():
                     continue
                 taken += 1
                 layout = ops.bwd_layout(chunk, kd, itemsize)
-                assert layout["bytes"] <= ops.MAX_SMEM, (chunk, kd, itemsize)
-                sizes = {"dy": 4 * chunk * (kd + 4), "ds": 4 * kd * (kd + 4),
-                         "s": 4 * kd * (kd + 4)}
-                assert all(layout["bytes"] + size > ops.MAX_SMEM
+                key = (chunk, kd, itemsize)
+                assert layout["bytes"] <= ops.MAX_SMEM, key
+                budget = ops.SM_SMEM // layout["blocks"] - 1024
+                lp, kp = -(-chunk // 16) * 16, -(-kd // 8) * 8
+                lk = kp + 4 * layout["pad"]
+                sizes = {"dy": 4 * lp * lk, "ds": 4 * kp * lk,
+                         "s": 4 * kp * lk}
+                assert all(layout["bytes"] + size > budget
                            for name, size in sizes.items()
-                           if not layout[name]), (chunk, kd, itemsize)
+                           if not layout[name]), key
+                if not (layout["pad"] and layout["v"]):
+                    padded = itemsize * 3 * lp * (kp + quantum) + 4 * (
+                        2 * lp * (kp + 4) + lp * (lp + 4) + lp + kp)
+                    assert padded > ops.MAX_SMEM, key
+                kinds.add((layout["blocks"], layout["pad"], layout["v"]))
     assert taken == 1509
-    assert ops.bwd_layout(64, 64, 2) == {"bytes": 136960, "dy": True,
-                                         "ds": True, "s": True}
-    assert ops.bwd_layout(64, 128, 2) == {"bytes": 180480, "dy": True,
-                                          "ds": False, "s": False}
-    assert ops.bwd_layout(32, 128, 4) == {"bytes": 178816, "dy": True,
-                                          "ds": True, "s": False}
-    assert ops.bwd_layout(192, 16, 4) == {"bytes": 231296, "dy": False,
-                                          "ds": False, "s": False}
+    assert kinds == {(2, True, True), (1, True, True), (1, True, False),
+                     (1, False, True), (1, False, False)}
+    assert ops.bwd_layout(64, 64, 2) == {
+        "bytes": 115200, "blocks": 2, "pad": True, "v": True, "dy": True,
+        "ds": True, "s": False}
+    assert ops.bwd_layout(64, 64, 4) == {
+        "bytes": 157184, "blocks": 1, "pad": True, "v": True, "dy": True,
+        "ds": True, "s": True}
+    assert ops.bwd_layout(64, 128, 2) == {
+        "bytes": 171776, "blocks": 1, "pad": True, "v": True, "dy": True,
+        "ds": False, "s": False}
+    assert ops.bwd_layout(192, 16, 4) == {
+        "bytes": 230720, "blocks": 1, "pad": True, "v": True, "dy": False,
+        "ds": True, "s": True}
+    assert ops.bwd_layout(216, 4, 4) == {
+        "bytes": 230816, "blocks": 1, "pad": False, "v": False, "dy": False,
+        "ds": True, "s": True}
     assert ops.smem_bytes(256, 64, 4) > ops.MAX_SMEM
     with pytest.raises(ValueError, match="wkv6 backward kernel: chunk 256"):
         ops._check_bwd_smem(256, 64, torch.float32)

@@ -24,7 +24,10 @@ occupancy read from the CUDA runtime; mamba2_ssd: zamba2's
 layer, bf16 b/c, then the backward (mamba2_ssd_bwd and step_decay_bwd) at
 zamba2's training layer with the new chunk_bwd's occupancy readout and
 each build's count of HMMA instructions in chunk_bwd (cuobjdump -sass);
-wkv6: rwkv6's layer, bf16 r/k/v; token_select and
+wkv6: rwkv6's layer, bf16 r/k/v, then the backward (wkv6_bwd) at
+rwkv6's training layer, each pass, each build's occupancy readout of
+chunk_dstate and chunk_bwd and its count of HMMA instructions in them
+(cuobjdump -sass); token_select and
 tick_step: the fleet's S=128, J=1024, W=4, token_select at the scan path's
 W=1, float32 shares, then bf16 shares for the builds that take them), the
 builds in turns, forward then backward, each time the median of CUDA-event
@@ -110,6 +113,10 @@ EDITS = {
             """  float y;
   asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x * kLog2e));
   return y;""", "  return expf(x);")],
+        # chunk_bwd sized for one block an SM (dS' and S staged too), in
+        # place of two where its layout fits half an SM's shared memory.
+        "bwd_one_block": [("constexpr int kBwdBlocks = 2;",
+                           "constexpr int kBwdBlocks = 1;")],
         # cwe written by chunk_state to a [B, nc, H, L, K] scratch and read
         # by chunk_scan, in place of chunk_scan's own prefix sums.
         "cwe_scratch": [
@@ -251,6 +258,53 @@ extern "C" int ssd_bwd_occupancy(int P, int N, int L, int* out) {
   return 0;
 }
 """
+#: Appended to every build of wkv6.cu with a backward: the registers, local
+#: (spilled) bytes, dynamic shared memory and resident blocks an SM of its
+#: chunk_dstate and chunk_bwd (bf16 r/k/v) at (K, L), read from the CUDA
+#: runtime; two forms, for the tensor-core chunk_bwd (a BwdLayout) and for
+#: the FMA one before it (a BwdStage).
+WKV_BWD_OCCUPANCY_SRC = r"""
+namespace {
+int wkv_occupancy(const void* fn, size_t smem, int* out) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return 0;
+}
+}  // namespace
+
+extern "C" int wkv_bwd_occupancy(int K, int L, int* out) {
+  using T = __nv_bfloat16;
+  const int rc = wkv_occupancy((const void*)wkv_chunk_dstate_kernel<T>,
+                               DSTATE_SMEM, out);
+  if (rc) return rc;
+  return wkv_occupancy((const void*)wkv_chunk_bwd_kernel<T>, BWD_SMEM,
+                       out + 4);
+}
+"""
+#: (DSTATE_SMEM, BWD_SMEM) in each form of the readout.
+WKV_BWD_SMEM = {
+    "struct BwdLayout": ("dstate_smem<T>(K, L)",
+                         "(size_t)bwd_layout<T>(K, L).bytes"),
+    "struct BwdStage": ("sizeof(T) * (size_t)L * (K + per16<T>()) + "
+                        "sizeof(float) * 3 * (size_t)L * (K + 4)",
+                        "[&] { BwdStage st; return bwd_smem<T>(K, L, &st); }()"),
+}
+#: (B, S, H, K, chunk) of the WKV backward at rwkv6-7b's training layer
+#: (chip_smoke's train_rwkv6: 2 x 4096 tokens), bf16 r/k/v.
+WKV_BWD_SHAPE = (2, 4096, 64, 64, 64)
+
 #: The backward kernels the readout covers, in its order.
 SSD_BWD_KERNELS = ("chunk_dstate", "state_pass_bwd", "chunk_bwd",
                    "sum_groups", "step_decay_bwd")
@@ -296,6 +350,12 @@ def sources(kernel, others):
     if kernel == "mamba2_ssd":
         out = {name: t + SSD_BWD_OCCUPANCY_SRC if "namespace tf32x3" in t
                else t for name, t in out.items()}
+    if kernel == "wkv6":
+        for name, text in out.items():
+            for marker, (dstate, bwd) in WKV_BWD_SMEM.items():
+                if marker in text:
+                    out[name] = text + WKV_BWD_OCCUPANCY_SRC.replace(
+                        "DSTATE_SMEM", dstate).replace("BWD_SMEM", bwd)
     return out
 
 
@@ -648,6 +708,102 @@ def probe_wkv6(libs, cs) -> None:
           + ", ".join(f"{n} {t:.3f} ms" for n, t in best.items()), flush=True)
 
 
+def probe_wkv6_bwd(libs, cs) -> None:
+    """Every build's WKV backward at WKV_BWD_SHAPE (bf16 r/k/v, the
+    forward's scratch given), held to the plain version
+    (chip_smoke.grads_held), timed in turns (builds forward, back, forward,
+    back) whole and by pass; then each build's occupancy readout and HMMA
+    count.  A build whose gradients are off is named, left out of the
+    timing, and makes the probe fail after the readouts."""
+    from repro_torch.kernels.rwkv6 import ops
+    from repro_torch.kernels.rwkv6.ref import wkv6_bwd_ref
+    bsz, s, h, kd, chunk = WKV_BWD_SHAPE
+    case = (bsz, s, h, kd, chunk, "bfloat16", False, False, "normal", False)
+    args, kw = cs.wkv6_bwd_inputs(case, "cuda", seed=0)
+    r, k, v, lw, u, dy, dsf = args
+    want = wkv6_bwd_ref(*args, **kw)
+    calls, passes, wrong = {}, {}, []
+    for (kernel, name), lib in libs.items():
+        if kernel != "wkv6" or not hasattr(lib, "wkv6_chunk_bwd_launch"):
+            continue
+        ops._launcher.cache_clear()
+        saved = ops._build._LIBS.get("wkv6")
+        ops._build._LIBS["wkv6"] = lib
+        try:
+            try:
+                cs.grads_held(f"{name} build", cs.WKV6_GRADS,
+                              ops.wkv6_bwd(*args, **kw), want)
+            except AssertionError as err:
+                print(f"wkv6_bwd {name} build WRONG, not timed: {err}",
+                      flush=True)
+                wrong.append(name)
+                continue
+            fns = {fn: ops._launcher(fn) for fn in
+                   ("chunk_dstate", "state_pass_bwd", "chunk_bwd", "sum_du")}
+        finally:
+            ops._launcher.cache_clear()
+            if saved is None:
+                ops._build._LIBS.pop("wkv6", None)
+            else:
+                ops._build._LIBS["wkv6"] = saved
+
+        def run(fn, fns=fns):
+            real = ops._launcher
+            ops._launcher = lambda name: fns[name]
+            try:
+                fn()
+            finally:
+                ops._launcher = real
+        q = ops.chunk_dstate(r, dy, lw, chunk=chunk)
+        calls[name] = lambda run=run: run(lambda: ops.wkv6_bwd(*args, **kw))
+        passes[name] = {
+            "chunk_dstate": lambda run=run: run(lambda: ops.chunk_dstate(
+                r, dy, lw, chunk=chunk)),
+            "chunk_bwd + sum_du": lambda run=run, q=q: run(
+                lambda: ops.chunk_bwd(r, k, v, lw, u, dy, kw["s_in"],
+                                      kw["sf"], q, chunk=chunk))}
+    if calls:
+        names = list(calls)
+        times = {n: [] for n in names}
+        pass_times = {n: {p: [] for p in passes[n]} for n in names}
+        for order in (names, names[::-1]) * 2:
+            for n in order:
+                times[n].append(cs.time_ms(calls[n], reps=10))
+                for p, fn in passes[n].items():
+                    pass_times[n][p].append(cs.time_ms(fn, reps=10))
+        print(f"wkv6_bwd {tuple(r.shape)} chunk {chunk} bf16, in turns: "
+              + ", ".join(f"{n} {min(t):.3f} ms" for n, t in times.items()),
+              flush=True)
+        for n in names:
+            print(f"wkv6_bwd {n} per pass: " + ", ".join(
+                f"{p} {min(t):.3f} ms" for p, t in pass_times[n].items()),
+                flush=True)
+    for (kernel, name), lib in libs.items():
+        if kernel != "wkv6":
+            continue
+        print(f"wkv6_bwd {name} SASS: " + "; ".join(
+            f"{fn} {count} HMMA ({tf32} TF32)" for fn, (count, tf32)
+            in sass_hmma(lib.path, ("wkv_chunk_bwd_kernel",
+                                    "wkv_chunk_dstate_kernel")).items()),
+            flush=True)
+        if not hasattr(lib, "wkv_bwd_occupancy"):
+            continue
+        fn = lib.wkv_bwd_occupancy
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        got = (ctypes.c_int * 8)()
+        rc = fn(kd, chunk, got)
+        if rc:
+            raise SystemExit(f"{name} build's WKV backward occupancy "
+                             f"readout: CUDA error {rc}")
+        print(f"wkv6_bwd {name} K={kd} L={chunk} bf16: " + "; ".join(
+            f"{kname} {got[4 * i]} registers, {got[4 * i + 1]} spilled "
+            f"bytes, {got[4 * i + 2]} B shared, {got[4 * i + 3]} blocks an SM"
+            for i, kname in enumerate(("chunk_dstate", "chunk_bwd"))),
+            flush=True)
+    if wrong:
+        raise SystemExit(f"wkv6_bwd: builds {wrong} gave wrong gradients")
+
+
 def step_decay_call(lib, raw, bias, a_log, dt, a):
     """One launch of a build's step_decay on a [.., H] view ``raw``."""
     import torch
@@ -769,7 +925,8 @@ def probe_ssd_bwd(libs, cs) -> None:
             print(f"mamba2_ssd_bwd {name} chunk_bwd SASS: "
                   + "; ".join(f"{fn} {count} HMMA ({tf32} TF32)"
                               for fn, (count, tf32)
-                              in chunk_bwd_hmma(lib.path).items()),
+                              in sass_hmma(lib.path,
+                                           ("chunk_bwd_kernel",)).items()),
                   flush=True)
         if kernel != "mamba2_ssd" or not hasattr(lib, "ssd_bwd_occupancy"):
             continue
@@ -791,9 +948,11 @@ def probe_ssd_bwd(libs, cs) -> None:
                          f"gradients")
 
 
-def chunk_bwd_hmma(so) -> dict:
-    """{chunk_bwd instantiation: (HMMA instructions, those on TF32)} in a
-    build's SASS (cuobjdump -sass)."""
+def sass_hmma(so, kernels) -> dict:
+    """{instantiation of a kernel named in ``kernels``: (HMMA instructions,
+    those on TF32)} in a build's SASS (cuobjdump -sass); an instantiation
+    is named by the kernel (where several are asked for), its T and its
+    integer template arguments."""
     import re
     sass = subprocess.run(["cuobjdump", "-sass", str(so)],
                           capture_output=True, text=True).stdout
@@ -801,12 +960,14 @@ def chunk_bwd_hmma(so) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if "chunk_bwd_kernel" in m.group(1) else None
-            if fn:
-                # chunk_bwd_kernelI<T>Li<KU>ELi<KL>E...: name it by T and slots
-                t = "bf16" if "nv_bfloat16" in fn else "f32"
-                slots = re.findall(r"Li(\d+)E", fn)
-                fn = f"<{t}{', ' + ', '.join(slots) if slots else ''}>"
+            hit = [k for k in kernels if k in m.group(1)]
+            fn = None
+            if hit:
+                # <kernel>I<T>Li<KU>ELi<KL>E...: name it by T and slots
+                t = "bf16" if "nv_bfloat16" in m.group(1) else "f32"
+                slots = re.findall(r"Li(\d+)E", m.group(1))
+                fn = (f"{hit[0] + ' ' if len(kernels) > 1 else ''}<{t}"
+                      f"{', ' + ', '.join(slots) if slots else ''}>")
                 counts[fn] = [0, 0]
             continue
         if fn and "HMMA" in line:
@@ -891,7 +1052,8 @@ PROBES = {"token_select": lambda libs, cs: probe_draws(libs, cs,
                                           probe_step_decay(libs, cs),
                                           probe_ssd_bwd(libs, cs),
                                           probe_step_decay_bwd(libs, cs)),
-          "wkv6": probe_wkv6}
+          "wkv6": lambda libs, cs: (probe_wkv6(libs, cs),
+                                    probe_wkv6_bwd(libs, cs))}
 
 
 def main(argv=None) -> int:

@@ -83,7 +83,9 @@ def check(smoke) -> None:
                                         1)}
     print(f"training shape {tuple(r.shape)} bf16, random inputs: device ms "
           + ", ".join(f"{name} {ms:.3f}" for name, ms in times.items())
-          + f"; bound {smoke.pipe_bound(*smoke.wkv6_bwd_work(r, chunk))}")
+          + "; bound " + str(smoke.pipe_bound(
+              *smoke.wkv6_bwd_work(r, chunk),
+              ops_per_s=smoke.TF32_OPS_PER_S, ops_pipe="TF32 tensor")))
 
 
 def fit(smoke, depths) -> None:
